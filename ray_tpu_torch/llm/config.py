@@ -1,0 +1,91 @@
+"""LLM configs (a copy of ``ray_tpu/llm/config.py``; reference:
+llm/_internal/serve/core/configs/llm_config.py:141).
+
+``LLMConfig`` describes one deployable model: which transformer config to
+instantiate (or checkpoint to load), the engine's batching/cache geometry,
+and serve-level options. ``SamplingParams`` mirrors the per-request options
+(reference: vLLM SamplingParams surfaced through ray.serve.llm).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+
+@dataclass
+class SamplingParams:
+    max_tokens: int = 64
+    temperature: float = 0.0
+    top_k: int = 0  # 0 = no top-k restriction
+    top_p: float = 1.0
+    stop_token_ids: tuple = ()
+    seed: Optional[int] = None
+
+    def __post_init__(self):
+        if self.max_tokens < 1:
+            raise ValueError("max_tokens must be >= 1")
+        if self.temperature < 0:
+            raise ValueError("temperature must be >= 0")
+
+
+@dataclass
+class EngineConfig:
+    """Cache/batching geometry of the engine.
+
+    The paged KV cache holds ``num_pages`` pages of ``page_size`` tokens per
+    layer; a sequence owns ceil(len/page_size) pages recorded in its block
+    table (vLLM's PagedAttention layout, kept as fixed-shape tensors so every
+    decode step has the same shapes).
+    """
+
+    max_num_seqs: int = 8           # concurrent decode slots (batch size)
+    max_model_len: int = 2048       # prompt + generation cap per sequence
+    page_size: int = 16             # tokens per KV page
+    num_pages: Optional[int] = None  # default: enough for all slots + scratch
+    max_top_k: int = 64             # static top-k shortlist of the sampler
+    prefill_bucket_min: int = 32    # pad prompts up to pow2 buckets >= this
+
+    def __post_init__(self):
+        if self.max_model_len % self.page_size:
+            raise ValueError("max_model_len must be a multiple of page_size")
+        if self.num_pages is None:
+            # one scratch page (index 0) absorbs masked-out writes
+            self.num_pages = 1 + self.max_num_seqs * self.pages_per_seq
+
+    @property
+    def pages_per_seq(self) -> int:
+        return self.max_model_len // self.page_size
+
+
+@dataclass
+class LLMConfig:
+    """One deployable LLM (reference: llm_config.py:141 model_loading_config
+    + engine_kwargs + deployment_config)."""
+
+    model_id: str = "tiny"           # key into models.transformer.CONFIGS
+    checkpoint_path: Optional[str] = None  # msgpack params (orbax/flax) dir
+    tokenizer: str = "byte"          # "byte" or a HF tokenizer name
+    engine_config: EngineConfig = field(default_factory=EngineConfig)
+    # serve-level
+    num_replicas: int = 1
+    ray_actor_options: Dict[str, Any] = field(default_factory=dict)
+    # forwarded to TransformerConfig (e.g. attention_impl, or dtype as a
+    # torch dtype or its name such as "float32")
+    model_overrides: Dict[str, Any] = field(default_factory=dict)
+
+    def transformer_config(self):
+        import dataclasses as _dc
+
+        import torch
+
+        from ray_tpu_torch.models.transformer import CONFIGS
+
+        cfg = CONFIGS[self.model_id]
+        if self.model_overrides:
+            overrides = dict(self.model_overrides)
+            for key in ("dtype", "param_dtype"):
+                if isinstance(overrides.get(key), str):
+                    overrides[key] = getattr(torch, overrides[key])
+            cfg = _dc.replace(cfg, **overrides)
+        return cfg

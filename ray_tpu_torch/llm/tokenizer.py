@@ -1,0 +1,72 @@
+"""Tokenizers for the LLM layer (a copy of ``ray_tpu/llm/tokenizer.py``).
+
+``ByteTokenizer`` is the hermetic default (no downloads, vocab 256 + 3
+specials) so CI and the tiny model run anywhere; HF tokenizers plug in by
+name when available (reference: ray.llm resolves tokenizers via
+transformers — llm/_internal/batch/stages/tokenize_stage.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+
+class ByteTokenizer:
+    """UTF-8 bytes shifted by the special-token count."""
+
+    PAD = 0
+    BOS = 1
+    EOS = 2
+    _SPECIALS = 3
+
+    vocab_size = 256 + _SPECIALS
+
+    @property
+    def eos_token_id(self) -> int:
+        return self.EOS
+
+    @property
+    def bos_token_id(self) -> int:
+        return self.BOS
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        ids = [b + self._SPECIALS for b in text.encode("utf-8")]
+        return [self.BOS] + ids if add_bos else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        # ids past the byte range (a model whose vocab is wider than this
+        # tokenizer's, such as the 32000-entry configs) decode to nothing,
+        # as the specials do
+        data = bytes(i - self._SPECIALS for i in ids
+                     if self._SPECIALS <= i < self.vocab_size)
+        return data.decode("utf-8", errors="replace")
+
+
+class HFTokenizer:
+    """Thin adapter over a transformers tokenizer."""
+
+    def __init__(self, name: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(name)
+        self.vocab_size = self._tok.vocab_size
+
+    @property
+    def eos_token_id(self) -> int:
+        return self._tok.eos_token_id
+
+    @property
+    def bos_token_id(self) -> int:
+        return self._tok.bos_token_id
+
+    def encode(self, text: str, add_bos: bool = True) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids)
+
+
+def get_tokenizer(name: str):
+    if name == "byte":
+        return ByteTokenizer()
+    return HFTokenizer(name)
