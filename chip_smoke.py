@@ -6,20 +6,36 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: the card's name, count, and ``nvidia-smi``'s name and power limit;
-2. build: every kernel of the serving path built from ``ray_tpu_torch/csrc``
-   with nvcc for sm_90a, with nvcc's ``-Xptxas -v`` report;
+2. build: every kernel of the training and serving paths built from
+   ``ray_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, all
+   at once), with nvcc's ``-Xptxas -v`` report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, in bf16 and fp32, causal and full;
-   its time, the plain version's, one PyTorch library call's, and the bound;
-4. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
+   the shapes the two paths give it, in bf16 and fp32, causal and full;
+   its time, the plain version's, one PyTorch library call's, and the bound:
+   the flash forward at the serving and training shapes, the two backward
+   kernels at the 1b training shape and at 350m's head dims;
+4. training: ``TrainStepBundle`` at the 1b config's full width and depth
+   (random weights from a seed) takes steps on one batch of 4 x 2048
+   tokens; the loss must fall, the kernels must launch 2 x n_layers
+   (forward and remat) and n_layers (each backward kernel) times a step,
+   and one step's loss and gradients are held against the same step with
+   plain attention; step time, tokens/s, MFU, peak memory, and where a
+   step's device time goes (``torch.profiler``);
+5. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
    width (random weights from a seed, default engine geometry) answers
    concurrent completion requests; the kernel launch counts of that run
    are held against the prefill calls, and one admitted batch's prefill
    logits against the same batch with plain attention.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. With no card, or outside a checkout of
-the repository, it prints no result and exits non-zero.
+Each path's launch counts are set to 0 just before it runs and read just
+after, so the comparisons with the plain versions do not count.
+
+The line before the last is ``{"kernels": [...]}`` (a kernel's ``launches``
+is the sum over the paths it lies on, ``launches_by_path`` splits it; its
+times are at the serving shape for the forward and the training shape for
+the backward); the last line is ``{"ok": true, "device": {...}}``. With no
+card, or outside a checkout of the repository, it prints no result and
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -27,6 +43,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -37,9 +54,12 @@ import time
 # |v|). fp32: the reference's own flash bound (tests/test_models_ops.py);
 # the kernel's hi/lo bf16 split keeps ~16 mantissa bits per product.
 # bf16: the kernel rounds each unnormalised probability to bf16 before P V
-# and the plain version each normalised one, each within 2^-9 of its value,
-# so their P V differ by at most 2^-8 * P |V|; both round o to bf16 (within
-# 2^-7 |o|, under rtol). The atol is slack for fp32 sums in other orders.
+# and the plain version each normalised one, each within 2^-8 of its value
+# (8 significant bits), so their P V differ by at most 2^-7 * P |V| when
+# the two roundings fall on opposite sides; the term is set at 2^-8, as the
+# independent roundings part by far less, and has held at every shape on
+# the card (PERF.md); both round o to bf16 (under rtol). The atol is slack
+# for fp32 sums in other orders.
 # lse is an fp32 sum of exact bf16 products in both, so 1e-3.
 TOL = {"float32": {"o": (2e-3, 2e-2, 0.0), "lse": (1e-3, 0.0, 0.0)},
        "bfloat16": {"o": (1e-3, 2e-2, 2.0 ** -8), "lse": (1e-3, 0.0, 0.0)}}
@@ -47,15 +67,44 @@ TOL = {"float32": {"o": (2e-3, 2e-2, 0.0), "lse": (1e-3, 0.0, 0.0)},
 # both round attention's output to bf16 at different points; the logits are
 # ~N(0, 1) fp32 products of the final bf16 hidden state.
 LOGITS_TOL = (5e-2, 2e-2)
+# The backward kernels against the plain backward, per element of dq, dk,
+# dv: |got - ref| <= atol + rtol * |ref| + m * M, with M the same product on
+# absolute values (|dS| |K|, |dS|^T |Q|, P^T |dO|, from
+# ``ops.attention.bwd_products``). bf16: the kernel rounds P and dS to bf16
+# (8 significant bits: within 2^-8 of the value) before the products that
+# take them, where the plain version keeps them in fp32, which moves a
+# product by at most 2^-8 M; both round the result to bf16 (within 2^-8 of
+# it each, under rtol). The atol is slack for fp32 sums in other orders:
+# dP - Delta cancels in rows that see few keys, and its fp32 rounding
+# (~1e-6 of sum |dO| |V| ~ 1e2 at D = 128) times scale and |K| stays under
+# 1e-4. fp32: the reference's own flash bound (tests/test_models_ops.py), as
+# for the forward; the hi/lo split keeps ~16 bits of every operand.
+BWD_TOL = {"float32": (2e-3, 2e-2, 0.0), "bfloat16": (1e-4, 2e-2, 2.0 ** -8)}
+# One training step of the 1b model with the kernels against the same step
+# with plain attention (``attention_impl="xla"``), bf16, same params and
+# batch. Loss: a token's NLL moves by at most twice the largest logit change,
+# and prefill logits of kernel vs plain attention agree within LOGITS_TOL's
+# 5e-2, so 0.1. Gradients, per leaf ||g_kernel - g_plain|| / ||g_plain||: the
+# two differ by a few bf16 roundings (2^-8 each) in each layer's attention,
+# its output in the forward and P, dS in the backward; summed with no
+# cancellation over 16 layers and 2 passes, 32 * 2^-8 = 0.125.
+TRAIN_LOSS_TOL = 0.1
+TRAIN_GRAD_TOL = 32 * 2.0 ** -8
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, 700 W)
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s (data sheet)
 
-KERNEL_SHAPES = (  # (B, H, KVH, D, S): the 1b prefill buckets, and 350m's D
+TRAIN_SHAPE = (4, 16, 8, 128, 2048)  # (B, H, KVH, D, S): 1b, batch 4 x 2048
+KERNEL_SHAPES = (  # the 1b prefill buckets, 350m's D, the 1b training shape
     [(8, 16, 8, 128, s) for s in (32, 77, 128, 1000, 2048)]
-    + [(8, 16, 16, 64, 1024)])
+    + [(8, 16, 16, 64, 1024), TRAIN_SHAPE])
 MAIN_SHAPE = (8, 16, 8, 128, 2048)  # 1b, 8 slots, the longest bucket
+# the backward kernels: 1b training, and 350m's head dims (batch 8 x 1024)
+BWD_SHAPES = (TRAIN_SHAPE, (8, 16, 16, 64, 1024))
+TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ = "1b", 4, 2048
+TRAIN_STEPS, TRAIN_WARMUP = 7, 2  # steps on one batch; the first 2 untimed
 PROMPT_LENS = (20, 100, 300, 700, 1200, 1900) * 2
+OUT_DIR = "chiprun_out"  # long reports (the profiler's table) go here
 
 
 def log(msg: str) -> None:
@@ -78,13 +127,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(B, H, KVH, D, S, causal, itemsize):
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4.0 * D * pairs * B * H  # Q K^T and P V, 2 FLOPs a MAC
-    nbytes = B * S * (2 * H + 2 * KVH) * D * itemsize + B * H * S * 4
+def roofline(flops, nbytes):
+    """(ms, what bounds it): the larger of the work at the bf16 tensor-core
+    peak and the bytes at the HBM rate."""
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _pairs(S, causal):
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def flash_bound(B, H, KVH, D, S, causal, itemsize):
+    flops = 4.0 * D * _pairs(S, causal) * B * H  # Q K^T, P V: 2 FLOPs a MAC
+    nbytes = B * S * (2 * H + 2 * KVH) * D * itemsize + B * H * S * 4
+    return roofline(flops, nbytes)
+
+
+def bwd_bound(kernel, B, H, KVH, D, S, causal, itemsize):
+    """flash_bwd_dq: Q K^T, dO V^T, dS K (6 D FLOPs a pair); reads q, k, v,
+    dO, lse, Delta and writes dq. flash_bwd_dkv: K Q^T, V dO^T, P^T dO,
+    dS^T Q (8 D FLOPs a pair); the same reads, writes dk and dv."""
+    products = 3 if kernel == "flash_bwd_dq" else 4
+    flops = 2.0 * products * D * _pairs(S, causal) * B * H
+    reads = B * S * (2 * H + 2 * KVH) * D * itemsize + 2 * B * H * S * 4
+    writes = B * S * (H if products == 3 else 2 * KVH) * D * itemsize
+    return roofline(flops, reads + writes)
 
 
 # -- phases ----------------------------------------------------------------
@@ -113,10 +182,13 @@ def phase_device() -> dict:
 def phase_build() -> None:
     from ray_tpu_torch.ops import _build
 
-    built = _build.build("flash_fwd")
-    log(f"build: flash_fwd in {built.seconds:.2f} s -> {built.path}")
-    log("nvcc -Xptxas -v:")
-    log(built.log.strip())
+    t0 = time.perf_counter()
+    built = _build.build_all(["flash_fwd", "flash_bwd"])
+    log(f"build: {len(built)} sources in {time.perf_counter() - t0:.2f} s")
+    for name, lib in built.items():
+        log(f"build: {name} (nvcc {lib.seconds:.2f} s) -> {lib.path}")
+        log(f"nvcc -Xptxas -v for {name}:")
+        log(lib.log.strip())
 
 
 def phase_kernels(card: str) -> dict:
@@ -127,7 +199,7 @@ def phase_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"o": 0.0, "lse": 0.0}
-    entry = {}
+    entry, train_shape = {}, {}
     for (B, H, KVH, D, S) in KERNEL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
@@ -141,7 +213,8 @@ def phase_kernels(card: str) -> dict:
                 name = str(dtype).split(".")[-1]
                 where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
                          f"causal={int(causal)}")
-                errs = {key: compare(key, got, ref, TOL[name][key], where, pv)
+                errs = {key: compare("flash_fwd", key, got, ref,
+                                     TOL[name][key], where, pv)
                         for key, got, ref in (("o", o, o_ref),
                                               ("lse", lse, lse_ref))}
                 log(f"check flash_fwd {where}: o {errs['o']}; lse "
@@ -156,44 +229,49 @@ def phase_kernels(card: str) -> dict:
                     f"causal: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
                     f"{100 * bound / ms:.1f}% of bound [{card}]")
                 if (B, H, KVH, D, S) == MAIN_SHAPE:
-                    entry = time_main_shape(q, k, v, ms, bound, by, card)
+                    entry = time_against_plain(q, k, v, ms, bound, by, card)
+                if (B, H, KVH, D, S) == TRAIN_SHAPE:
+                    train_shape = time_against_plain(q, k, v, ms, bound, by,
+                                                     card)
             del q, k, v
     entry["max_abs_err"] = worst["o"]
     entry["max_err"] = {"o": worst["o"], "lse": worst["lse"]}
+    entry["train_shape"] = train_shape
     return entry
 
 
-O_BINS = (0.0, 0.125, 0.5, 2.0, float("inf"))  # |o| ranges of the report
+O_BINS = (0.0, 0.125, 0.5, 2.0, float("inf"))  # |ref| ranges of the report
 
 
-def compare(key, got, ref, tol, where, pv) -> dict:
-    """Kernel against plain: raises beyond ``atol + rtol * |ref| + pv_tol *
-    pv`` (see ``TOL``). Returns the max abs error, the least atol that
-    passes with this rtol and pv term, and for o the max abs error in each
-    range of |ref|."""
+def compare(kernel, key, got, ref, tol, where, mag) -> dict:
+    """Kernel against plain: raises beyond ``atol + rtol * |ref| + m * mag``
+    (see ``TOL``, ``BWD_TOL``). Returns the max abs error, the least atol
+    that passes with this rtol and mag term, and for the attention outputs
+    (not lse) the max abs error in each range of |ref|."""
     import torch
 
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
-        raise AssertionError(f"flash_fwd {key} not finite at {where}")
-    atol, rtol, pv_tol = tol
+        raise AssertionError(f"{kernel} {key} not finite at {where}")
+    atol, rtol, m = tol
     diff = (got - ref).abs()
-    mag = ref.abs()
-    rel = rtol * mag + (pv_tol * pv.float() if pv_tol else 0.0)
+    size = ref.abs()
+    rel = rtol * size + (m * mag.float() if m else 0.0)
     out = {"max_abs": diff.max().item(),
            "needs_atol": (diff - rel).max().item()}
-    if key == "o":
+    if key != "lse":
         for lo, hi in zip(O_BINS, O_BINS[1:]):
-            sel = (mag >= lo) & (mag < hi)
-            out[f"|o| in [{lo}, {hi})"] = (
+            sel = (size >= lo) & (size < hi)
+            out[f"|{key}| in [{lo}, {hi})"] = (
                 diff[sel].max().item() if bool(sel.any()) else None)
     if not bool((diff <= atol + rel).all()):
-        raise AssertionError(f"flash_fwd {key} disagrees with plain at "
+        raise AssertionError(f"{kernel} {key} disagrees with plain at "
                              f"{where}: {out} (tol {tol})")
     return out
 
 
-def time_main_shape(q, k, v, ms, bound, by, card) -> dict:
+def time_against_plain(q, k, v, ms, bound, by, card) -> dict:
+    """The plain version's and the library's times beside the kernel's."""
     import torch
     import torch.nn.functional as F
 
@@ -209,11 +287,281 @@ def time_main_shape(q, k, v, ms, bound, by, card) -> dict:
     vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
     library_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
-    log(f"time at the main shape {MAIN_SHAPE} bf16 causal: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({by}) [{card}]")
+    B, S, H, D = q.shape
+    log(f"time flash_fwd at {(B, H, k.shape[2], D, S)} bf16 causal: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by}
+
+
+def phase_bwd_kernels(card: str) -> dict:
+    """Both backward kernels against the plain backward on the same inputs
+    (the forward kernel's o and lse, a random dO), then their times at the
+    training shape. Returns the two kernels' entries of the kernels line."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import (attention_delta,
+                                             bwd_products, bwd_softmax_grads,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {"flash_bwd_dq": {"dq": 0.0},
+             "flash_bwd_dkv": {"dk": 0.0, "dv": 0.0}}
+    entries = {}
+    for (B, H, KVH, D, S) in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
+                                       device="cuda", dtype=dtype)
+                           for h in (H, KVH, KVH, H))
+            name = str(dtype).split(".")[-1]
+            for causal in (True, False):
+                o, lse = flash_attention_fwd(q, k, v, causal)
+                delta = attention_delta(o, do)
+                dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+                dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal)
+                torch.cuda.synchronize()
+                # the plain backward on the same o, lse and Delta, and the
+                # same products on absolute values (the tolerance's M)
+                p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
+                ref = [x.to(dtype) for x in bwd_products(p, ds, q, k, do)]
+                mag = bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+                del p, ds
+                where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
+                         f"causal={int(causal)}")
+                for kernel, key, got, r, m in (
+                        ("flash_bwd_dq", "dq", dq, ref[0], mag[0]),
+                        ("flash_bwd_dkv", "dk", dk, ref[1], mag[1]),
+                        ("flash_bwd_dkv", "dv", dv, ref[2], mag[2])):
+                    err = compare(kernel, key, got, r, BWD_TOL[name], where, m)
+                    log(f"check {kernel} {key} {where}: {err} "
+                        f"[tol {BWD_TOL[name]}]")
+                    worst[kernel][key] = max(worst[kernel][key],
+                                             err["max_abs"])
+                del o, lse, delta, dq, dk, dv, ref, mag
+            if (B, H, KVH, D, S) == TRAIN_SHAPE and dtype == torch.bfloat16:
+                entries = time_bwd(q, k, v, do, card)
+            del q, k, v, do
+    for kernel, errs in worst.items():
+        entries[kernel]["max_abs_err"] = max(errs.values())
+        entries[kernel]["max_err"] = errs
+    return entries
+
+
+def time_bwd(q, k, v, do, card) -> dict:
+    """The backward kernels, the plain backward and the library's backward
+    at the training shape, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.attention import (attention_delta,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_fwd)
+
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    o, lse = flash_attention_fwd(q, k, v, True)
+    delta = attention_delta(o, do)
+    ms = {"flash_bwd_dq": cuda_time_ms(
+              lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+              20),
+          "flash_bwd_dkv": cuda_time_ms(
+              lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, True),
+              20)}
+    # the plain backward computes both kernels' outputs (and Delta) at once
+    plain_ms = cuda_time_ms(
+        lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True), 5,
+        warmup=1)
+    # yardstick only: the backward of one library call on the same inputs
+    # (K/V repeated to H heads outside the timed region; the forward is not
+    # timed); it covers both kernels. The port never calls it.
+    rep = H // KVH
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k.repeat_interleave(rep, dim=2),
+                            v.repeat_interleave(rep, dim=2)))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True), 20)
+    entries = {}
+    for kernel, t in ms.items():
+        bound, by = bwd_bound(kernel, B, H, KVH, D, S, True, q.element_size())
+        log(f"time {kernel} at the training shape {TRAIN_SHAPE} bf16 causal:"
+            f" kernel {t:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / t:.1f}% of bound; plain backward (both kernels)"
+            f" {plain_ms:.4f} ms; library backward (sdpa, both kernels) "
+            f"{library_ms:.4f} ms [{card}]")
+        entries[kernel] = {"ms": t, "plain_ms": plain_ms,
+                           "library_ms": library_ms, "bound_ms": bound,
+                           "bound_by": by}
+    return entries
+
+
+def phase_training(card: str) -> dict:
+    """The 1b model trained for TRAIN_STEPS steps on one batch through
+    ``TrainStepBundle`` with the kernels. Returns each kernel's launches in
+    that run."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_fwd)
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    t0 = time.perf_counter()
+    bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
+        learning_rate=1e-4, warmup_steps=1))
+    params, opt_state = bundle.init(seed=0)
+    batch = bundle.make_batch(np.random.default_rng(0), TRAIN_BATCH,
+                              TRAIN_SEQ)
+    torch.cuda.synchronize()
+    log(f"training: {TRAIN_CONFIG} bundle up in {time.perf_counter() - t0:.2f}"
+        f" s ({cfg.num_params() / 1e9:.3f} B params, {cfg.n_layers} layers, "
+        f"remat={cfg.remat}), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    grad_check = check_training_grads(bundle, params, batch)
+
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, loss = bundle.step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+    launches = {c.__name__: c.launches for c in counters}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+                "flash_attention_bwd_dq": cfg.n_layers,
+                "flash_attention_bwd_dkv": cfg.n_layers}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, want {want} "
+                             f"({per_step} a step x {TRAIN_STEPS} steps)")
+    log(f"training: {TRAIN_STEPS} steps, losses {losses}; launches "
+        f"{launches} = {per_step} a step")
+
+    timed = sorted(times[TRAIN_WARMUP:])
+    step_s = timed[len(timed) // 2]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    breakdown = profile_step(bundle, params, opt_state, batch)
+    metrics = {
+        "card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+        "step_s_median": step_s, "step_s": times,
+        "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * cfg.flops_per_token() / H100_BF16_FLOPS,
+        "flops_per_token": cfg.flops_per_token(),
+        "max_memory_allocated_bytes": peak_bytes,
+        "launches_per_step": {k: n // TRAIN_STEPS
+                              for k, n in launches.items()},
+        "grad_check": grad_check, "device_ms_by_part": breakdown,
+    }
+    log("training metrics: " + json.dumps(metrics))
+    return launches
+
+
+def check_training_grads(bundle, params, batch) -> dict:
+    """One step's loss and gradients through the kernels against the same
+    step with plain attention (``attention_impl="xla"``), from the same
+    params and batch (see TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)."""
+    import torch
+
+    from ray_tpu_torch.models import Transformer, lm_loss
+
+    plain = Transformer(dataclasses.replace(bundle.cfg, attention_impl="xla"),
+                        device=bundle.device, params=params)
+    result = {}
+    for name, model in (("kernel", bundle.model), ("plain", plain)):
+        weights = [p for _, p in model.named_parameters()]
+        loss = lm_loss(model(batch["tokens"]), batch["targets"],
+                       batch["mask"])
+        result[name] = (loss.detach(), torch.autograd.grad(loss, weights))
+    (loss_k, grads_k), (loss_p, grads_p) = result["kernel"], result["plain"]
+    rel = {key: ((gk.float() - gp.float()).norm()
+                 / gp.float().norm().clamp_min(1e-30)).item()
+           for key, gk, gp in zip(params, grads_k, grads_p)}
+    worst = max(rel, key=rel.get)
+    check = {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
+             "max_leaf_rel_err": rel[worst], "worst_leaf": worst,
+             "median_leaf_rel_err": sorted(rel.values())[len(rel) // 2]}
+    log(f"training: one step, kernels vs plain attention: {check}")
+    if not abs(check["loss_kernel"] - check["loss_plain"]) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"training loss differs beyond {TRAIN_LOSS_TOL}")
+    if not rel[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"gradient of {worst} differs by {rel[worst]} "
+                             f"(relative), beyond {TRAIN_GRAD_TOL}")
+    return check
+
+
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
+
+
+def profile_step(bundle, params, opt_state, batch) -> dict:
+    """One more step under ``torch.profiler``: device ms of the flash
+    kernels, of the matrix products by the layer their shapes name
+    (attention projections, MLP, lm_head), of the optimizer's foreach ops,
+    and of the rest. The full table goes to chiprun_out/."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bundle.cfg
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        bundle.step(params, opt_state, batch)
+        torch.cuda.synchronize()
+    parts = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "attn_projections": 0.0, "mlp": 0.0, "lm_head": 0.0,
+             "other_matmul": 0.0, "optimizer": 0.0}
+    total = 0.0
+    averages = prof.key_averages(group_by_input_shape=True)
+    for evt in averages:
+        ms = evt.self_device_time_total / 1e3
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += ms
+            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                if f"{kernel}_kernel" in evt.key:
+                    parts[kernel] += ms
+            continue
+        if evt.key in MM_OPS:
+            dims = {d for shape in evt.input_shapes for d in shape}
+            if cfg.vocab_size in dims:
+                parts["lm_head"] += ms
+            elif cfg.d_ff in dims:
+                parts["mlp"] += ms
+            elif cfg.d_model in dims:
+                parts["attn_projections"] += ms
+            else:
+                parts["other_matmul"] += ms
+        elif evt.key.startswith("aten::_foreach"):
+            parts["optimizer"] += ms
+    parts["other"] = total - sum(parts.values())
+    parts["total"] = total
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_step_profile.txt"), "w") as f:
+        f.write(averages.table(sort_by="self_device_time_total",
+                               row_limit=60))
+    log(f"training: one profiled step, device ms by part {parts}")
+    return parts
 
 
 def make_prompt(rng, n_tokens: int) -> str:
@@ -357,18 +705,39 @@ def check_prefill_logits(engine, prompts) -> None:
 def main() -> int:
     dev = phase_device()
     phase_build()
-    entry = phase_kernels(dev["card"])
-    entry.update(phase_serving(dev["card"]))
-    kernel = {"name": "flash_fwd", "route": "cuda",
-              "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-              "replaces": "ray_tpu/ops/attention.py:45",
-              "launches": entry["launches"],
-              "max_abs_err": entry["max_abs_err"], "max_err": entry["max_err"],
-              "ms": entry["ms"], "plain_ms": entry["plain_ms"],
-              "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-              "library_ms": entry["library_ms"]}
+    fwd = phase_kernels(dev["card"])
+    bwd = phase_bwd_kernels(dev["card"])
+    train_launches = phase_training(dev["card"])
+    serve_launches = phase_serving(dev["card"])["launches"]
+    by_path = {
+        "flash_fwd": {"training": train_launches["flash_attention_fwd"],
+                      "serving": serve_launches},
+        "flash_bwd_dq": {"training": train_launches["flash_attention_bwd_dq"]},
+        "flash_bwd_dkv": {
+            "training": train_launches["flash_attention_bwd_dkv"]},
+    }
+    source = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
+              "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd.cu",
+              "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_bwd.cu"}
+    replaces = {"flash_fwd": "ray_tpu/ops/attention.py:45",
+                "flash_bwd_dq": "ray_tpu/ops/attention.py:147",
+                "flash_bwd_dkv": "ray_tpu/ops/attention.py:184"}
+    measured = {"flash_fwd": fwd, **bwd}
+    kernels = []
+    for name, entry in measured.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source[name],
+            "replaces": replaces[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_abs_err": entry["max_abs_err"], "max_err": entry["max_err"],
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"],
+            **({"train_shape": entry["train_shape"]}
+               if "train_shape" in entry else {})})
     log(dev["card"])
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))
     return 0
 

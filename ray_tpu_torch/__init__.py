@@ -2,8 +2,9 @@
 
 A package of its own beside ``ray_tpu`` (the JAX reference), importing none
 of it. Ported so far: the paged-KV LLM serving path (``llm``), the dense
-decoder LM it serves (``models``) and the flash-attention forward as a CUDA
-kernel (``ops``). Entry points run on the card unless given
+decoder LM it serves (``models``), its single-device training step
+(``parallel``) and the flash-attention forward and backward as CUDA kernels
+(``ops``). Entry points run on the card unless given
 ``device="cpu"``.
 
 Submodules load lazily: importing this package imports neither the model
@@ -12,7 +13,7 @@ code nor the kernels, and kernels are built only when first launched.
 
 import importlib
 
-_SUBMODULES = ("llm", "models", "ops", "utils")
+_SUBMODULES = ("llm", "models", "ops", "parallel", "utils")
 
 
 def __getattr__(name):

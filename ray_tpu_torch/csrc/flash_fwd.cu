@@ -34,68 +34,11 @@
 // memory 16 bits at a time instead of with ldmatrix.trans, and one tile of
 // 64 queries keeps only 4 warps per block. Those are the later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block (16 per warp)
-constexpr int kBlockK = 64;   // keys per tile of the inner loop
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Split a pair of floats into bf16 hi and bf16 lo = x - hi (packed pairs).
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t* hi,
-                                           uint32_t* lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  *hi = *reinterpret_cast<uint32_t*>(&h);
-  *lo = pack_bf16(x - __low2float(h), y - __high2float(h));
-}
-
-// Copy rows [row0, row0 + rows) of one head into shared memory as bf16 pairs
-// (hi, and lo when the input is fp32); rows >= S are zero.
-template <typename T, int D, bool SPLIT>
-__device__ __forceinline__ void load_tile(const T* base, long long row_stride,
-                                          int row0, int S, int rows,
-                                          uint32_t* hi, uint32_t* lo) {
-  constexpr int kPairs = D / 2;
-  constexpr int kLds = (D + 8) / 2;  // shared row stride in 32-bit words
-  for (int idx = threadIdx.x; idx < rows * kPairs; idx += kThreads) {
-    const int r = idx / kPairs;
-    const int c = idx % kPairs;
-    const int row = row0 + r;
-    uint32_t h = 0u, l = 0u;
-    if (row < S) {
-      const T* src = base + (long long)row * row_stride + 2 * c;
-      if constexpr (SPLIT) {
-        const float2 x = *reinterpret_cast<const float2*>(src);
-        split_pair(x.x, x.y, &h, &l);
-      } else {
-        h = *reinterpret_cast<const uint32_t*>(src);
-      }
-    }
-    hi[r * kLds + c] = h;
-    if constexpr (SPLIT) lo[r * kLds + c] = l;
-  }
-}
+using namespace flash;
 
 template <typename T, int D, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
@@ -107,8 +50,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long v_sb, long long v_ss, long long v_sh,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale_log2, int causal) {
-  constexpr int kLds = (D + 8) / 2;        // words per shared row (padded)
-  constexpr int kTileWords = kBlockK * kLds;
+  constexpr int kTileWords = kBlockK * lds<D>();
   constexpr int kKSteps = D / 16;          // k-steps of Q K^T
   constexpr int kSTiles = kBlockK / 8;     // n-tiles of the score tile
   constexpr int kOTiles = D / 8;           // n-tiles of the output
@@ -144,22 +86,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   uint32_t qf[kKSteps][4];
   uint32_t qlf[SPLIT ? kKSteps : 1][4];
-  {
-    const int r0 = warp * 16 + g;
 #pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      const int c = ks * 8 + t;  // word column (2 bf16 each)
-      qf[ks][0] = sQ[r0 * kLds + c];
-      qf[ks][1] = sQ[(r0 + 8) * kLds + c];
-      qf[ks][2] = sQ[r0 * kLds + c + 4];
-      qf[ks][3] = sQ[(r0 + 8) * kLds + c + 4];
-      if constexpr (SPLIT) {
-        qlf[ks][0] = sQl[r0 * kLds + c];
-        qlf[ks][1] = sQl[(r0 + 8) * kLds + c];
-        qlf[ks][2] = sQl[r0 * kLds + c + 4];
-        qlf[ks][3] = sQl[(r0 + 8) * kLds + c + 4];
-      }
-    }
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    load_a<D>(sQ, warp * 16, ks, g, t, qf[ks]);
+    if constexpr (SPLIT) load_a<D>(sQl, warp * 16, ks, g, t, qlf[ks]);
   }
 
   float acc[kOTiles][4];
@@ -175,9 +105,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(S, q0 + kBlockQ) : S;
   const int n_kt = (k_end + kBlockK - 1) / kBlockK;
 
-  const unsigned short* sVh16 = reinterpret_cast<const unsigned short*>(sV);
-  const unsigned short* sVl16 = reinterpret_cast<const unsigned short*>(sVl);
-
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
@@ -190,17 +117,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < kSTiles; ++n) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const int krow = (n * 8 + g) * kLds;
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
-        const uint32_t b0 = sK[krow + ks * 8 + t];
-        const uint32_t b1 = sK[krow + ks * 8 + t + 4];
-        mma_bf16(s[n], qf[ks], b0, b1);
-        if constexpr (SPLIT) {
-          mma_bf16(s[n], qf[ks], sKl[krow + ks * 8 + t],
-                   sKl[krow + ks * 8 + t + 4]);
-          mma_bf16(s[n], qlf[ks], b0, b1);
-        }
+        uint32_t b0, b1, bl0 = 0u, bl1 = 0u;
+        load_b_rows<D>(sK, n * 8, ks, g, t, &b0, &b1);
+        if constexpr (SPLIT) load_b_rows<D>(sKl, n * 8, ks, g, t, &bl0, &bl1);
+        mma_split<SPLIT>(s[n], qf[ks], qlf[SPLIT ? ks : 0], b0, b1, bl0, bl1);
       }
     }
 
@@ -255,35 +177,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j) {
       uint32_t pa[4], pl[4];
-      if constexpr (SPLIT) {
-        split_pair(s[2 * j][0], s[2 * j][1], &pa[0], &pl[0]);
-        split_pair(s[2 * j][2], s[2 * j][3], &pa[1], &pl[1]);
-        split_pair(s[2 * j + 1][0], s[2 * j + 1][1], &pa[2], &pl[2]);
-        split_pair(s[2 * j + 1][2], s[2 * j + 1][3], &pa[3], &pl[3]);
-      } else {
-        pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      }
-      // B[k][n] = V[key j*16 + k][d n*8 + g]; k = 2t, 2t+1 (b0) and +8 (b1)
-      const int key = j * 16 + 2 * t;
+      c_to_a<SPLIT>(s[2 * j], s[2 * j + 1], pa, pl);
+      // B[k][n] = V[key j*16 + k][d n*8 + g]
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
-        const int col = n * 8 + g;
-        const int e0 = key * (2 * kLds) + col;
-        const int e1 = e0 + 2 * kLds;
-        const int e8 = e0 + 8 * (2 * kLds);
-        const int e9 = e8 + 2 * kLds;
-        const uint32_t b0 = (uint32_t)sVh16[e0] | ((uint32_t)sVh16[e1] << 16);
-        const uint32_t b1 = (uint32_t)sVh16[e8] | ((uint32_t)sVh16[e9] << 16);
-        mma_bf16(acc[n], pa, b0, b1);
-        if constexpr (SPLIT) {
-          const uint32_t c0 = (uint32_t)sVl16[e0] | ((uint32_t)sVl16[e1] << 16);
-          const uint32_t c1 = (uint32_t)sVl16[e8] | ((uint32_t)sVl16[e9] << 16);
-          mma_bf16(acc[n], pa, c0, c1);
-          mma_bf16(acc[n], pl, b0, b1);
-        }
+        uint32_t b0, b1, bl0 = 0u, bl1 = 0u;
+        load_b_cols<D>(sV, j * 16, n * 8, g, t, &b0, &b1);
+        if constexpr (SPLIT) load_b_cols<D>(sVl, j * 16, n * 8, g, t, &bl0, &bl1);
+        mma_split<SPLIT>(acc[n], pa, pl, b0, b1, bl0, bl1);
       }
     }
   }
@@ -302,26 +203,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n) {
     const int col = n * 8 + 2 * t;
-    if (row_a < S) {
-      T* dst = ob + (long long)row_a * o_ss + col;
-      if constexpr (SPLIT) {
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[n][0] * inv_a, acc[n][1] * inv_a);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(acc[n][0] * inv_a, acc[n][1] * inv_a);
-      }
-    }
-    if (row_b < S) {
-      T* dst = ob + (long long)row_b * o_ss + col;
-      if constexpr (SPLIT) {
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[n][2] * inv_b, acc[n][3] * inv_b);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(dst) =
-            __floats2bfloat162_rn(acc[n][2] * inv_b, acc[n][3] * inv_b);
-      }
-    }
+    if (row_a < S)
+      store_pair(ob + (long long)row_a * o_ss + col, acc[n][0] * inv_a,
+                 acc[n][1] * inv_a);
+    if (row_b < S)
+      store_pair(ob + (long long)row_b * o_ss + col, acc[n][2] * inv_b,
+                 acc[n][3] * inv_b);
   }
   if (t == 0) {
     float* lb = lse + (long long)bh * S;

@@ -6,9 +6,10 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     lm_loss,
 )
-from ray_tpu_torch.models.convert import from_jax_params, init_params
+from ray_tpu_torch.models.convert import (from_jax_opt_state,
+                                          from_jax_params, init_params)
 
 __all__ = [
     "Transformer", "TransformerConfig", "CONFIGS", "lm_loss",
-    "from_jax_params", "init_params",
+    "from_jax_opt_state", "from_jax_params", "init_params",
 ]

@@ -6,7 +6,8 @@ numpy leaves becomes a flat state dict whose keys are the paths joined by
 dots, without the ``params`` root. ``init_params`` draws the port's own
 weights from a ``torch.Generator`` with the flax initialisers' laws:
 normal(0.02 / sqrt(2 L)) for the projections, normal(0.02) for the
-embedding and lm_head, ones for the norm scales.
+embedding and lm_head, ones for the norm scales. ``from_jax_opt_state``
+carries the optimizer's state across, so a JAX run resumes in the port.
 """
 
 from __future__ import annotations
@@ -72,3 +73,34 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         w = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
         params[key] = w.normal_(0.0, std, generator=gen)
     return params
+
+
+def from_jax_opt_state(opt_state):
+    """optax's state of the JAX package's ``make_optimizer`` chain (the
+    clip's empty state, then ``ScaleByAdamState(count, mu, nu)``, the weight
+    decay's empty state and the schedule's ``ScaleByScheduleState(count)``),
+    with numpy leaves, as the port's ``OptState``: the moments keyed by the
+    same flax paths, on the CPU, and the step count."""
+    from ray_tpu_torch.parallel.train import OptState
+
+    found = {}
+
+    def walk(node):  # optax states are named tuples inside plain tuples
+        fields = getattr(node, "_fields", ())
+        if {"count", "mu", "nu"} <= set(fields):
+            found["adam"] = node
+        elif "count" in fields:
+            found["schedule"] = node
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if set(found) != {"adam", "schedule"}:
+        raise ValueError("not the state of clip_by_global_norm + adamw over a "
+                         f"schedule: found {sorted(found)}")
+    count = int(np.asarray(found["adam"].count))
+    if int(np.asarray(found["schedule"].count)) != count:
+        raise ValueError("the schedule's count differs from Adam's")
+    return OptState(count, from_jax_params(found["adam"].mu),
+                    from_jax_params(found["adam"].nu))

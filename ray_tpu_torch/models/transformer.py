@@ -10,10 +10,13 @@ As in the JAX model, weights are stored in ``param_dtype`` (fp32) and cast to
 the compute ``dtype`` (bf16) in every forward; products of bf16 operands are
 accumulated in fp32, and the logits are an fp32 product of the bf16-rounded
 operands. Attention goes through ``ray_tpu_torch.ops.attention`` (the CUDA
-flash kernel on the card), which takes K/V with their own KV head count.
+flash kernels on the card, forward and backward), which takes K/V with their
+own KV head count. With ``cfg.remat`` and grad enabled each block is
+recomputed in the backward (``torch.utils.checkpoint``), as the JAX model's
+``nn.remat(Block, policy=nothing_saveable)``.
 
 Not ported yet (ROADMAP.md): ``MoEMLP`` (building a config with experts
-raises), and the training step with per-block remat.
+raises).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention as attention_op
 from ray_tpu_torch.utils import DeviceLike, resolve_device
@@ -259,8 +263,14 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions[None].expand(tokens.shape)
         x = self.embed.to(cfg.dtype)[tokens]
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, positions, segment_ids)
+            block = getattr(self, f"layer_{i}")
+            if remat:  # keep only the block's input; recompute the rest
+                x = checkpoint(block, x, positions, segment_ids,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, positions, segment_ids)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             return (x @ self.embed.to(cfg.dtype).T).float()

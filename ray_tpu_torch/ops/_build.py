@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each source under ``ray_tpu_torch/csrc/`` is one shared library with a plain
-C interface. It is compiled at first use, for ``sm_90a`` only, into
+Each ``.cu`` source under ``ray_tpu_torch/csrc/`` is one shared library with
+a plain C interface (the ``.cuh`` headers there are shared by the sources).
+It is compiled at first use, for ``sm_90a`` only, into
 ``build/ray_tpu_torch/`` at the root of the checkout, under a name keyed by
-the source's hash and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``nvcc``'s resource report
+the hash of the source, the headers and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. ``nvcc``'s resource report
 (``-Xptxas -v``) is kept beside the library as ``<name>.log``.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict
 
@@ -57,8 +59,12 @@ def build(name: str) -> BuiltLibrary:
     if name in _LOADED:
         return _LOADED[name]
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    # the key covers the source, the shared headers it may include, the flags
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
@@ -83,6 +89,12 @@ def build(name: str) -> BuiltLibrary:
     built = BuiltLibrary(ctypes.CDLL(so), so, seconds, log)
     _LOADED[name] = built
     return built
+
+
+def build_all(names) -> Dict[str, BuiltLibrary]:
+    """Build several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def is_loaded(name: str) -> bool:

@@ -1,19 +1,20 @@
-"""Attention ops: the hand-written CUDA flash-attention forward + plain paths.
+"""Attention ops: hand-written CUDA flash-attention kernels + plain paths.
 
-Counterpart of ``ray_tpu/ops/attention.py`` (forward half). The TPU's Pallas
-kernel ``_flash_fwd_kernel`` becomes ``csrc/flash_fwd.cu``, built with nvcc
-for ``sm_90a`` at first use and called through ctypes. Beside it, in this
-module, is its plain PyTorch version: the CPU tests run that one, and the
-chip smoke holds the kernel against it on the card.
+Counterpart of ``ray_tpu/ops/attention.py``. The TPU's Pallas kernels become
+CUDA kernels for ``sm_90a``, built with nvcc at first use and called through
+ctypes: ``_flash_fwd_kernel`` is ``csrc/flash_fwd.cu``, and the backward pair
+``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` is ``csrc/flash_bwd.cu``.
+Beside each, in this module, is its plain PyTorch version: the CPU tests run
+that one, and the chip smoke holds the kernel against it on the card. The
+custom VJP that joins them (``jax.custom_vjp`` there) is ``FlashAttention``,
+a ``torch.autograd.Function``.
 
 Layouts follow the JAX package: q is (B, S, H, D); k and v are (B, S, KVH, D)
 with H a multiple of KVH (grouped-query attention: query head h reads KV head
 h // (H // KVH), as ``jnp.repeat(k, H // KVH, axis=2)`` lays it out). The
 kernel reads that layout through strides, so callers neither transpose nor
-repeat.
-
-The backward kernels (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``)
-belong to training and are not ported yet (ROADMAP.md, queue 2).
+repeat. The backward sums dK and dV over each KV head's group of query
+heads, which is the VJP of that repeat.
 """
 
 from __future__ import annotations
@@ -43,11 +44,18 @@ def _repeat_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.repeat_interleave(n_heads // kvh, dim=2)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in fp32, or in fp64 for fp64 inputs (the
+    gradient checks)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _masked_scores(q, k, causal: bool, segment_ids=None) -> torch.Tensor:
     """fp32 scores (B, H, Sq, Sk) scaled by 1/sqrt(D), masked with -1e30."""
     d = q.shape[-1]
     k = _repeat_kv(k, q.shape[2])
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    acc = _acc_dtype(q)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc))
     scores = scores * (1.0 / math.sqrt(d))
     S = q.shape[1]
     if causal:
@@ -81,8 +89,23 @@ def reference_attention(q, k, v, causal: bool = True,
     return flash_attention_fwd_plain(q, k, v, causal, segment_ids)[0]
 
 
-def _check_kernel_inputs(q, k, v) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _on_cpu(q, *others) -> bool:
+    """True for CPU tensors (the plain versions), False for CUDA tensors (the
+    kernels); raises for tensors split between devices or on another one."""
+    if q.device.type == "cpu":
+        if any(x.device.type != "cpu" for x in others):
+            raise ValueError("q, k and v must be on one device")
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernels run on cuda or cpu, not "
+                         f"{q.device}")
+    return False
+
+
+def _check_kernel_inputs(kernel: str, q, k, v, *more) -> None:
+    """Raise on what the kernels cannot take. ``more`` are further tensors of
+    q's shape (dO in the backward)."""
+    for name, x in (("q", q), ("k", k), ("v", v), *(("do", x) for x in more)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if x.dtype != q.dtype:
@@ -97,42 +120,65 @@ def _check_kernel_inputs(q, k, v) -> None:
                 x.data_ptr() % (2 * x.element_size()):
             raise ValueError(f"{name} must be aligned to pairs of elements")
     if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"flash_fwd takes bf16 or fp32, got {q.dtype}")
+        raise TypeError(f"{kernel} takes bf16 or fp32, got {q.dtype}")
     B, S, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
             or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
+    if any(x.shape != q.shape for x in more):
+        raise ValueError(f"do must have q's shape {tuple(q.shape)}")
     if H % k.shape[2]:
         raise ValueError(f"{H} query heads do not group over {k.shape[2]} "
                          "KV heads")
     if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd supports head_dim {_KERNEL_HEAD_DIMS}, "
+        raise ValueError(f"{kernel} supports head_dim {_KERNEL_HEAD_DIMS}, "
                          f"got {D}")
     if S < 1 or B * H > 65535:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
 
 
-def _launch_kernel(q, k, v, causal: bool):
-    lib = _build.build("flash_fwd").lib
-    fn = lib.flash_fwd
+def _check_row_stats(q, **stats) -> None:
+    """lse and delta: fp32, contiguous, B * H * S values on q's device."""
+    B, S, H, _ = q.shape
+    for name, x in stats.items():
+        if x.device != q.device or x.dtype != torch.float32 \
+                or not x.is_contiguous() or x.numel() != B * H * S:
+            raise ValueError(f"{name} must be a contiguous fp32 (B*H, S) "
+                             f"tensor on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def _launch(lib_name: str, fn_name: str, tensors, causal: bool) -> None:
+    """Call the C function ``fn_name`` of ``csrc/<lib_name>.cu`` on
+    ``tensors`` (q, k, v first; the b, s, h strides of each 4-d one are
+    passed in order) on q's device and current stream; raise if the launch
+    failed. The ctypes signature is declared on first use: without
+    ``argtypes`` ctypes would pass the 64-bit pointers and the stream as
+    32-bit ints."""
+    q, k = tensors[:2]
+    fn = getattr(_build.build(lib_name).lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     B, S, H, D = q.shape
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((B * H, S, 1), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:3])
+    strides = [s for x in tensors if x.dim() == 4 for s in x.stride()[:3]]
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _KERNEL_DTYPES[q.dtype], B, S, H, k.shape[2],
-                 D, strides, int(causal), stream)
+        err = fn(*(x.data_ptr() for x in tensors), _KERNEL_DTYPES[q.dtype],
+                 B, S, H, k.shape[2], D, c_strides, int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+def _launch_kernel(q, k, v, causal: bool):
+    B, S, H, D = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B * H, S, 1), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", "flash_fwd", (q, k, v, o, lse), causal)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -145,18 +191,165 @@ def flash_attention_fwd(q, k, v, causal: bool = True
     head_dim 64 or 128, any S) or raises; there is no fallback. Tensors on
     the CPU take the plain version. ``flash_attention_fwd.launches`` counts
     kernel launches."""
-    if q.device.type == "cpu":
-        for x in (k, v):
-            if x.device.type != "cpu":
-                raise ValueError("q, k and v must be on one device")
+    if _on_cpu(q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs("flash_fwd", q, k, v)
     return _launch_kernel(q, k, v, causal)
 
 
 flash_attention_fwd.launches = 0
+
+
+# -- backward ---------------------------------------------------------------
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """Delta = rowsum(dO * O) as (B * H, S), in fp32: the term the backward
+    subtracts from dP (plain XLA in the JAX package too, not a kernel)."""
+    B, S, H, _ = o.shape
+    acc = _acc_dtype(o)
+    delta = torch.einsum("bshd,bshd->bhs", do.to(acc), o.to(acc))
+    return delta.reshape(B * H, S).contiguous()
+
+
+def bwd_softmax_grads(q, k, v, do, lse, delta, causal: bool):
+    """The backward's softmax terms in fp32, (B, H, S, S) each: P = exp(s -
+    lse) of the scaled, masked scores, and dS = P * (dO V^T - Delta) *
+    scale, scale = 1/sqrt(D) (dS carries one factor of it, as in the JAX
+    kernels)."""
+    B, S, H, D = q.shape
+    acc = _acc_dtype(q)
+    p = torch.exp(_masked_scores(q, k, causal) - lse.reshape(B, H, S, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc),
+                      _repeat_kv(v, H).to(acc))
+    ds = p * (dp - delta.reshape(B, H, S, 1)) * (1.0 / math.sqrt(D))
+    return p, ds
+
+
+def bwd_products(p, ds, q, k, do):
+    """dQ = dS K, dK = dS^T Q and dV = P^T dO in the softmax terms' dtype;
+    dK and dV summed over each KV head's group of query heads, (B, S, KVH,
+    D). On absolute values (|dS|, |Q|, |K|, |dO|) these are the magnitudes
+    that a rounding of P or dS scales with."""
+    B, S, H, D = q.shape
+    kvh = k.shape[2]
+    acc = p.dtype
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _repeat_kv(k, H).to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(acc))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.to(acc))
+    group = (B, S, kvh, H // kvh, D)
+    return dq, dk.reshape(group).sum(3), dv.reshape(group).sum(3)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' function in plain PyTorch, step by step as the
+    JAX package's ``flash_attention_bwd`` (both kernels and Delta): masked
+    fp32 scores, P = exp(s - lse), dP = dO V^T, dS = P (dP - Delta) scale,
+    dQ = dS K, dK = dS^T Q, dV = P^T dO. Returns ``(dq, dk, dv)``, dq in q's
+    dtype and shape, dk and dv in k's (summed over each group of query
+    heads). Any S and head dim."""
+    delta = attention_delta(o, do)
+    return _bwd_plain(q, k, v, do, lse, delta, causal)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal):
+    p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
+    dq, dk, dv = bwd_products(p, ds, q, k, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True
+                           ) -> torch.Tensor:
+    """dQ of flash attention, from the forward's lse and ``attention_delta``.
+
+    On CUDA tensors this launches ``flash_bwd_dq`` of ``csrc/flash_bwd.cu``
+    (bf16 or fp32, head_dim 64 or 128, any S) or raises; CPU tensors take
+    the plain version. ``flash_attention_bwd_dq.launches`` counts launches."""
+    if _on_cpu(q, k, v, do):
+        return _bwd_plain(q, k, v, do, lse, delta, causal)[0]
+    _check_kernel_inputs("flash_bwd_dq", q, k, v, do)
+    _check_row_stats(q, lse=lse, delta=delta)
+    return _launch_bwd_dq(q, k, v, do, lse, delta, causal)
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq), causal)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of flash attention, summed over each KV head's group of
+    query heads inside the kernel: (B, S, KVH, D) in k's dtype.
+
+    On CUDA tensors this launches ``flash_bwd_dkv`` of
+    ``csrc/flash_bwd.cu`` or raises; CPU tensors take the plain version.
+    ``flash_attention_bwd_dkv.launches`` counts launches."""
+    if _on_cpu(q, k, v, do):
+        return _bwd_plain(q, k, v, do, lse, delta, causal)[1:]
+    _check_kernel_inputs("flash_bwd_dkv", q, k, v, do)
+    _check_row_stats(q, lse=lse, delta=delta)
+    return _launch_bwd_dkv(q, k, v, do, lse, delta, causal)
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch("flash_bwd", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+            causal)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Flash-attention backward: ``(dq, dk, dv)`` as
+    ``flash_attention_bwd_plain``. On CUDA tensors: Delta, then the two
+    kernels (or an error; no fallback). On CPU tensors: the plain version."""
+    if _on_cpu(q, k, v, o, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is ``flash_attention_fwd`` and whose backward
+    is ``flash_attention_bwd``: the counterpart of the JAX package's
+    ``flash_attention`` custom VJP. The TPU's head_dim <= 64 gate on the
+    kernel backward is not copied: head dims 64 and 128 both take it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Differentiable flash attention: (B, S, H, D) with k, v (B, S, KVH, D)
+    -> (B, S, H, D). The kernels on CUDA tensors, the plain versions on CPU
+    tensors."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def attention(q, k, v, causal: bool = True, impl: str = "auto",
@@ -164,16 +357,21 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
     """Dispatching attention op used by the model (k, v may have fewer heads
     than q). ``impl``:
 
-    - ``auto``: the flash forward, which is the kernel on CUDA tensors and
-      its plain version on CPU tensors. On the card there is no other route:
-      a head dim the kernel does not take, or ``segment_ids``, raise.
-    - ``flash``: the kernel; raises on CPU tensors.
+    - ``auto``: ``flash_attention``, whose forward and backward are the
+      kernels on CUDA tensors and their plain versions on CPU tensors. On the
+      card there is no other route: a head dim the kernels do not take, or
+      ``segment_ids``, raise. On the CPU, ``segment_ids`` take
+      ``reference_attention``.
+    - ``flash``: the kernels; raises on CPU tensors.
     - ``xla``: ``reference_attention`` (the name kept from the JAX package so
-      ``model_overrides`` stay compatible), on any device.
+      ``model_overrides`` stay compatible), differentiated by autograd, on
+      any device.
     """
     if impl == "auto":
         if q.device.type == "cpu":
-            return reference_attention(q, k, v, causal, segment_ids)
+            if segment_ids is not None:
+                return reference_attention(q, k, v, causal, segment_ids)
+            return flash_attention(q, k, v, causal)
         impl = "flash"
     if impl == "flash":
         if q.device.type == "cpu":
@@ -182,7 +380,7 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
         if segment_ids is not None:
             raise ValueError("the flash kernel takes no segment_ids; use "
                              "impl='xla' for packed sequences")
-        return flash_attention_fwd(q, k, v, causal)[0]
+        return flash_attention(q, k, v, causal)
     if impl == "xla":
         return reference_attention(q, k, v, causal, segment_ids)
     raise ValueError(f"unknown attention impl {impl!r}: auto, flash or xla")
