@@ -10,10 +10,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``ray_tpu_torch/csrc`` with nvcc for sm_90a (one nvcc per source, all
    at once), with nvcc's ``-Xptxas -v`` report;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the two paths give it, in bf16 and fp32, causal and full;
-   its time, the plain version's, one PyTorch library call's, and the bound:
-   the flash forward at the serving and training shapes, the two backward
-   kernels at the 1b training shape and at 350m's head dims;
+   the shapes the two paths give it, in bf16 and fp32, causal and full, and
+   the bf16 forward on q, k, v sliced from one fused tensor; its time, the
+   plain version's, one PyTorch library call's, and the bound: the flash
+   forward at the serving and training shapes (timed in turns with
+   ``flash_fwd_mma``, the forward's earlier ``mma.sync`` design, kept in the
+   library as a yardstick only), the two backward kernels at the 1b
+   training shape and at 350m's head dims;
 4. training: ``TrainStepBundle`` at the 1b config's full width and depth
    (random weights from a seed) takes steps on one batch of 4 x 2048
    tokens; the loss must fall, the kernels must launch 2 x n_layers
@@ -32,10 +35,11 @@ after, so the comparisons with the plain versions do not count.
 
 The line before the last is ``{"kernels": [...]}`` (a kernel's ``launches``
 is the sum over the paths it lies on, ``launches_by_path`` splits it; its
-times are at the serving shape for the forward and the training shape for
-the backward); the last line is ``{"ok": true, "device": {...}}``. With no
-card, or outside a checkout of the repository, it prints no result and
-exits non-zero.
+times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
+``mma_ms`` and the training shape's under ``train_shape``, and at the
+training shape for the backward); the last line is ``{"ok": true,
+"device": {...}}``. With no card, or outside a checkout of the repository,
+it prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -99,6 +103,8 @@ KERNEL_SHAPES = (  # the 1b prefill buckets, 350m's D, the 1b training shape
     [(8, 16, 8, 128, s) for s in (32, 77, 128, 1000, 2048)]
     + [(8, 16, 16, 64, 1024), TRAIN_SHAPE])
 MAIN_SHAPE = (8, 16, 8, 128, 2048)  # 1b, 8 slots, the longest bucket
+FUSED_SHAPE = (2, 16, 8, 128, 1000)  # q, k, v sliced from one tensor
+TIME_ROUNDS = 5  # the forward's timings, in turns with its yardsticks
 # the backward kernels: 1b training, and 350m's head dims (batch 8 x 1024)
 BWD_SHAPES = (TRAIN_SHAPE, (8, 16, 16, 64, 1024))
 TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ = "1b", 4, 2048
@@ -199,45 +205,117 @@ def phase_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"o": 0.0, "lse": 0.0}
-    entry, train_shape = {}, {}
+
+    def check(q, k, v, causal, what):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal)
+        pv = flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
+        name = str(q.dtype).split(".")[-1]
+        where = f"{what} {name:8s} causal={int(causal)}"
+        errs = {key: compare("flash_fwd", key, got, ref, TOL[name][key],
+                             where, pv)
+                for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref))}
+        log(f"check flash_fwd {where}: o {errs['o']}; lse {errs['lse']} "
+            f"[tol {TOL[name]}]")
+        for key in worst:
+            worst[key] = max(worst[key], errs[key]["max_abs"])
+
     for (B, H, KVH, D, S) in KERNEL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
             k = torch.randn(B, S, KVH, D, generator=gen, device="cuda", dtype=dtype)
             v = torch.randn(B, S, KVH, D, generator=gen, device="cuda", dtype=dtype)
             for causal in (True, False):
-                o, lse = flash_attention_fwd(q, k, v, causal)
-                torch.cuda.synchronize()
-                o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal)
-                pv = flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
-                name = str(dtype).split(".")[-1]
-                where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
-                         f"causal={int(causal)}")
-                errs = {key: compare("flash_fwd", key, got, ref,
-                                     TOL[name][key], where, pv)
-                        for key, got, ref in (("o", o, o_ref),
-                                              ("lse", lse, lse_ref))}
-                log(f"check flash_fwd {where}: o {errs['o']}; lse "
-                    f"{errs['lse']} [tol {TOL[name]}]")
-                for key in worst:
-                    worst[key] = max(worst[key], errs[key]["max_abs"])
-                del o, lse, o_ref, lse_ref, pv
+                check(q, k, v, causal, f"B={B} S={S} H={H} KVH={KVH} D={D}")
             if dtype == torch.bfloat16:
                 ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, True), 20)
                 bound, by = flash_bound(B, H, KVH, D, S, True, 2)
                 log(f"time flash_fwd B={B} S={S} H={H} KVH={KVH} D={D} bf16 "
                     f"causal: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
                     f"{100 * bound / ms:.1f}% of bound [{card}]")
-                if (B, H, KVH, D, S) == MAIN_SHAPE:
-                    entry = time_against_plain(q, k, v, ms, bound, by, card)
-                if (B, H, KVH, D, S) == TRAIN_SHAPE:
-                    train_shape = time_against_plain(q, k, v, ms, bound, by,
-                                                     card)
             del q, k, v
+    # q, k and v as slices of one fused projection: not contiguous, read
+    # through the tensor maps' strides
+    B, H, KVH, D, S = FUSED_SHAPE
+    qkv = torch.randn(B, S, H + 2 * KVH, D, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KVH], qkv[:, :, H + KVH:]
+    for causal in (True, False):
+        check(q, k, v, causal,
+              f"fused qkv slices B={B} S={S} H={H} KVH={KVH} D={D}")
+    del qkv, q, k, v
+
+    entry = time_fwd(MAIN_SHAPE, card, gen)
     entry["max_abs_err"] = worst["o"]
     entry["max_err"] = {"o": worst["o"], "lse": worst["lse"]}
-    entry["train_shape"] = train_shape
+    entry["train_shape"] = time_fwd(TRAIN_SHAPE, card, gen)
     return entry
+
+
+def time_fwd(shape, card, gen) -> dict:
+    """At one shape, bf16 causal: the kernel, ``flash_fwd_mma`` (the earlier
+    ``mma.sync`` design, checked against plain here first) and the library
+    call, timed in turns over TIME_ROUNDS rounds (median of each), then the
+    plain version once; each beside the bound."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    B, H, KVH, D, S = shape
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(B, S, KVH, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn(B, S, KVH, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    o = torch.empty_like(q)
+    lse = torch.empty(B * H, S, 1, device="cuda")
+
+    def mma():  # the yardstick's C entry, called directly: no counter
+        att._launch("flash_fwd", "flash_fwd_mma", (q, k, v, o, lse), True)
+
+    mma()
+    torch.cuda.synchronize()
+    o_ref, lse_ref = att.flash_attention_fwd_plain(q, k, v, True)
+    pv = att.flash_attention_fwd_plain(q, k, v.abs(), True)[0]
+    where = f"B={B} S={S} H={H} KVH={KVH} D={D} bf16 causal=1"
+    for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref)):
+        compare("flash_fwd_mma", key, got, ref, TOL["bfloat16"][key], where,
+                pv)
+    del o_ref, lse_ref, pv
+    # yardstick only: one library call on the same inputs (K/V repeated to
+    # H heads outside the timed region); the port never calls it
+    rep = H // KVH
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    runs = {"kernel": lambda: att.flash_attention_fwd(q, k, v, True),
+            "flash_fwd_mma": mma,
+            "library": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)}
+    times = {name: [] for name in runs}
+    for r in range(TIME_ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            times[name].append(cuda_time_ms(runs[name], 20))
+    ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+    ms["plain"] = cuda_time_ms(
+        lambda: att.flash_attention_fwd_plain(q, k, v, True), 5, warmup=1)
+    bound, by = flash_bound(B, H, KVH, D, S, True, 2)
+    for name, t in ms.items():
+        label = {"kernel": "flash_fwd (TMA, wgmma)",
+                 "flash_fwd_mma": "flash_fwd_mma (mma.sync, yardstick)",
+                 "library": "library (sdpa forward)",
+                 "plain": "plain"}[name]
+        rounds = f" rounds {times[name]}" if name in times else ""
+        log(f"time at {shape} bf16 causal: {label} {t:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / t:.1f}% of bound"
+            f"{rounds} [{card}]")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "mma_ms": ms["flash_fwd_mma"],
+            "bound_ms": bound, "bound_by": by}
 
 
 O_BINS = (0.0, 0.125, 0.5, 2.0, float("inf"))  # |ref| ranges of the report
@@ -268,31 +346,6 @@ def compare(kernel, key, got, ref, tol, where, mag) -> dict:
         raise AssertionError(f"{kernel} {key} disagrees with plain at "
                              f"{where}: {out} (tol {tol})")
     return out
-
-
-def time_against_plain(q, k, v, ms, bound, by, card) -> dict:
-    """The plain version's and the library's times beside the kernel's."""
-    import torch
-    import torch.nn.functional as F
-
-    from ray_tpu_torch.ops.attention import flash_attention_fwd_plain
-
-    plain_ms = cuda_time_ms(lambda: flash_attention_fwd_plain(q, k, v, True),
-                            5, warmup=1)
-    # yardstick only: one library call on the same inputs (K/V repeated to
-    # H heads outside the timed region); the port never calls it
-    rep = q.shape[2] // k.shape[2]
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
-    B, S, H, D = q.shape
-    log(f"time flash_fwd at {(B, H, k.shape[2], D, S)} bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) "
-        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{card}]")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by}
 
 
 def phase_bwd_kernels(card: str) -> dict:
@@ -734,8 +787,8 @@ def main() -> int:
             "ms": entry["ms"], "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
-            **({"train_shape": entry["train_shape"]}
-               if "train_shape" in entry else {})})
+            **{key: entry[key] for key in ("mma_ms", "train_shape")
+               if key in entry}})
     log(dev["card"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))

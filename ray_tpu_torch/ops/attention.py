@@ -115,10 +115,13 @@ def _check_kernel_inputs(kernel: str, q, k, v, *more) -> None:
                              f"{tuple(x.shape)}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
-        # the kernel loads pairs of elements: pair-aligned rows and base
-        if any(s % 2 for s in x.stride()[:3]) or \
-                x.data_ptr() % (2 * x.element_size()):
-            raise ValueError(f"{name} must be aligned to pairs of elements")
+        # bf16 is read through TMA tensor maps: 16-byte aligned base and b,
+        # s, h strides; fp32 is loaded in pairs of elements
+        align = 16 if x.dtype == torch.bfloat16 else 2 * x.element_size()
+        if any(s * x.element_size() % align for s in x.stride()[:3]) or \
+                x.data_ptr() % align:
+            raise ValueError(f"{name} must be aligned to {align} bytes: "
+                             f"base and b, s, h strides")
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{kernel} takes bf16 or fp32, got {q.dtype}")
     B, S, H, D = q.shape
@@ -187,10 +190,13 @@ def flash_attention_fwd(q, k, v, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward: ``(o, lse)`` as ``flash_attention_fwd_plain``.
 
-    On CUDA tensors this launches ``csrc/flash_fwd.cu`` (bf16 or fp32,
-    head_dim 64 or 128, any S) or raises; there is no fallback. Tensors on
-    the CPU take the plain version. ``flash_attention_fwd.launches`` counts
-    kernel launches."""
+    On CUDA tensors this launches ``flash_fwd`` of ``csrc/flash_fwd.cu``
+    (head_dim 64 or 128, any S) or raises; there is no fallback. The C entry
+    point picks the kernel by dtype: bf16 runs the TMA / ``wgmma`` kernel
+    (q, k, v 16-byte aligned, with b, s, h strides of multiples of 8
+    elements), fp32 the ``mma.sync`` kernel. Tensors on the CPU take the
+    plain version. ``flash_attention_fwd.launches`` counts kernel
+    launches."""
     if _on_cpu(q, k, v):
         return flash_attention_fwd_plain(q, k, v, causal)
     _check_kernel_inputs("flash_fwd", q, k, v)

@@ -23,6 +23,7 @@ from ray_tpu.ops.attention import reference_attention as jax_reference
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.attention import (
     FlashAttention,
+    _check_kernel_inputs,
     attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -193,6 +194,48 @@ def test_kernel_binding_declares_every_argument(monkeypatch):
     assert entry.args[0] == q.data_ptr() and entry.args[-1] == 0x7F12_3456_789A
     assert list(entry.args[5:11]) == [1, 1, 8, 4, 2, 64]  # fp32, B S H KVH D
     assert flash_attention_fwd.launches == before + 1
+
+
+def _bf16_view(shape, offset=0, row=None):
+    """A bf16 (B, S, heads, D) view of a fresh buffer, starting ``offset``
+    elements in, with each (head) row ``row`` elements apart (D if None)."""
+    B, S, H, D = shape
+    row = row or D
+    buf = torch.zeros(offset + B * S * H * row, dtype=torch.bfloat16)
+    return buf[offset:].view(B, S, H, row)[..., :D]
+
+
+@pytest.mark.parametrize("case", ["base", "row_stride"])
+def test_bf16_kernel_inputs_need_16_byte_alignment(case):
+    """The bf16 forward reads q, k and v through TMA tensor maps, which need
+    a 16-byte aligned base and b, s, h strides of multiples of 16 bytes;
+    the wrapper raises on anything else, before any launch. (The check runs
+    on CPU tensors here; on the card it guards the launch.)"""
+    good = _bf16_view((1, 16, 2, 64))
+    bad = (_bf16_view((1, 16, 2, 64), offset=1) if case == "base"
+           else _bf16_view((1, 16, 2, 64), row=68))  # 136-byte rows
+    assert bad.stride(-1) == 1
+    for q, k, v in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="aligned to 16 bytes"):
+            _check_kernel_inputs("flash_fwd", q, k, v)
+    _check_kernel_inputs("flash_fwd", good, good, good)
+    # fp32 keeps the pair rule: 8-byte alignment
+    f32 = torch.zeros(1 + 16 * 2 * 64)[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="aligned to 8 bytes"):
+        _check_kernel_inputs("flash_fwd", f32, f32, f32)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fused_qkv_slices_pass_the_kernel_check(D):
+    """q, k and v as slices of one fused (B, S, H + 2 KVH, D) projection are
+    not contiguous, but their bases and strides are 16-byte multiples, so
+    the kernels take them as they are (the chip smoke runs them)."""
+    B, S, H, KVH = 2, 77, 4, 2
+    fused = torch.zeros(B, S, H + 2 * KVH, D, dtype=torch.bfloat16)
+    q, k, v = fused[:, :, :H], fused[:, :, H:H + KVH], fused[:, :, H + KVH:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    _check_kernel_inputs("flash_fwd", q, k, v)
+    _check_kernel_inputs("flash_bwd_dq", q, k, v, q)
 
 
 def _group_sum(x, kv_heads):

@@ -56,28 +56,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, S, H, KVH, D, fused): S not a multiple of the kernels' 128-row tiles
+# (77, 1000, 1), one tile (256 = 2 tiles), both head dims, GQA and MHA, and
+# q, k, v as non-contiguous slices of one fused (B, S, H + 2 KVH, D) tensor
+FLASH_CASES = [(2, 77, 4, 2, 64, False), (2, 256, 4, 4, 128, False),
+               (1, 1000, 16, 8, 128, False), (3, 1, 4, 1, 64, False),
+               (2, 1000, 4, 4, 64, False), (2, 77, 8, 2, 128, False),
+               (2, 1000, 16, 8, 128, True), (1, 77, 4, 4, 64, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernel_matches_plain(cuda_device, dtype):
+def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     atol, rtol, pv_tol = TOL[dtype]
-    for (B, S, H, KVH, D) in [(2, 77, 4, 2, 64), (2, 256, 4, 4, 128),
-                              (1, 1000, 16, 8, 128), (3, 1, 4, 1, 64)]:
+    B, S, H, KVH, D, fused = case
+    if fused:
+        qkv = torch.randn(B, S, H + 2 * KVH, D, generator=gen,
+                          device=cuda_device, dtype=dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KVH], qkv[:, :, H + KVH:]
+    else:
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device=cuda_device,
                                dtype=dtype) for h in (H, KVH, KVH))
-        for causal in (True, False):
-            before = flash_attention_fwd.launches
-            o, lse = flash_attention_fwd(q, k, v, causal)
-            torch.cuda.synchronize()
-            assert flash_attention_fwd.launches == before + 1
-            o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal)
-            pv = flash_attention_fwd_plain(q, k, v.abs(), causal)[0].float()
-            diff = (o.float() - o_ref.float()).abs()
-            bound = atol + rtol * o_ref.float().abs() + pv_tol * pv
-            assert bool((diff <= bound).all()), (
-                f"o off by {diff.max().item():.3e} at {(B, S, H, KVH, D)} "
-                f"causal={causal}; worst excess "
-                f"{(diff - bound).max().item():.3e}")
-            torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    for causal in (True, False):
+        before = flash_attention_fwd.launches
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        assert flash_attention_fwd.launches == before + 1
+        o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal)
+        pv = flash_attention_fwd_plain(q, k, v.abs(), causal)[0].float()
+        diff = (o.float() - o_ref.float()).abs()
+        bound = atol + rtol * o_ref.float().abs() + pv_tol * pv
+        assert bool((diff <= bound).all()), (
+            f"o off by {diff.max().item():.3e} at {(B, S, H, KVH, D)} "
+            f"causal={causal}; worst excess "
+            f"{(diff - bound).max().item():.3e}")
+        torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
 def test_flash_kernel_rejects_what_it_cannot_run(cuda_device):
@@ -90,6 +104,17 @@ def test_flash_kernel_rejects_what_it_cannot_run(cuda_device):
     q = torch.randn(1, 16, 2, 128, device=cuda_device)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q, q, q, True)
+    # bf16 goes through TMA tensor maps: a base off 16 bytes, or rows 136
+    # bytes apart, are refused before any launch
+    before = flash_attention_fwd.launches
+    buf = torch.randn(1 + 16 * 2 * 64, device=cuda_device,
+                      dtype=torch.bfloat16)
+    for bad in (buf[1:].view(1, 16, 2, 64),
+                torch.randn(1, 16, 2, 68, device=cuda_device,
+                            dtype=torch.bfloat16)[..., :64]):
+        with pytest.raises(ValueError, match="aligned to 16 bytes"):
+            flash_attention_fwd(bad, bad, bad, True)
+    assert flash_attention_fwd.launches == before
 
 
 def test_auto_attention_on_the_card_takes_only_the_kernel(cuda_device):
