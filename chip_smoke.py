@@ -15,15 +15,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    plain version's, one PyTorch library call's, and the bound: the flash
    forward at the serving and training shapes (timed in turns with
    ``flash_fwd_mma``, the forward's earlier ``mma.sync`` design, kept in the
-   library as a yardstick only), the two backward kernels at the 1b
-   training shape and at 350m's head dims;
+   library as a yardstick only); the backward at the 1b training shape, at
+   350m's head dims and at ragged S: bf16 ``flash_bwd`` (dQ, dK, dV in one
+   kernel, what training runs), the bf16 dK/dV kernel and dQ kernel on
+   their own, the fp32 pair, and ``flash_bwd_delta`` (Delta), with
+   ``flash_bwd`` timed in turns with the dK/dV kernel, the earlier
+   ``mma.sync`` pair (``mma_ms``), the whole bf16 backward as
+   ``flash_attention_bwd`` runs it (``backward_ms``: Delta, zeros, kernel,
+   cast) and the library's backward (``library_ms``);
 4. training: ``TrainStepBundle`` at the 1b config's full width and depth
    (random weights from a seed) takes steps on one batch of 4 x 2048
    tokens; the loss must fall, the kernels must launch 2 x n_layers
-   (forward and remat) and n_layers (each backward kernel) times a step,
-   and one step's loss and gradients are held against the same step with
-   plain attention; step time, tokens/s, MFU, peak memory, and where a
-   step's device time goes (``torch.profiler``);
+   (forward and remat) and n_layers (``flash_bwd`` and Delta; the pair
+   never) times a step, and one step's loss and gradients are held against
+   the same step with plain attention; step time, tokens/s, MFU, peak
+   memory, and where a step's device time goes (``torch.profiler``);
 5. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
    width (random weights from a seed, default engine geometry) answers
    concurrent completion requests; the kernel launch counts of that run
@@ -37,7 +43,8 @@ The line before the last is ``{"kernels": [...]}`` (a kernel's ``launches``
 is the sum over the paths it lies on, ``launches_by_path`` splits it; its
 times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
 ``mma_ms`` and the training shape's under ``train_shape``, and at the
-training shape for the backward); the last line is ``{"ok": true,
+training shape for the backward, ``flash_bwd`` with ``backward_ms`` and
+``mma_ms``); the last line is ``{"ok": true,
 "device": {...}}``. With no card, or outside a checkout of the repository,
 it prints no result and exits non-zero.
 """
@@ -84,6 +91,10 @@ LOGITS_TOL = (5e-2, 2e-2)
 # 1e-4. fp32: the reference's own flash bound (tests/test_models_ops.py), as
 # for the forward; the hi/lo split keeps ~16 bits of every operand.
 BWD_TOL = {"float32": (2e-3, 2e-2, 0.0), "bfloat16": (1e-4, 2e-2, 2.0 ** -8)}
+# Delta = rowsum(dO * O), kernel against plain: both sum D exact products
+# (bf16 or fp32 operands) in fp32, in other orders; with D = 128 and
+# sum |dO O| up to ~1e2 that parts them by at most 128 * 2^-24 * 1e2 ~ 8e-4.
+DELTA_TOL = (1e-3, 0.0, 0.0)
 # One training step of the 1b model with the kernels against the same step
 # with plain attention (``attention_impl="xla"``), bf16, same params and
 # batch. Loss: a token's NLL moves by at most twice the largest logit change,
@@ -105,8 +116,12 @@ KERNEL_SHAPES = (  # the 1b prefill buckets, 350m's D, the 1b training shape
 MAIN_SHAPE = (8, 16, 8, 128, 2048)  # 1b, 8 slots, the longest bucket
 FUSED_SHAPE = (2, 16, 8, 128, 1000)  # q, k, v sliced from one tensor
 TIME_ROUNDS = 5  # the forward's timings, in turns with its yardsticks
-# the backward kernels: 1b training, and 350m's head dims (batch 8 x 1024)
+# the backward kernels: 1b training, and 350m's head dims (batch 8 x 1024);
+# then the ragged shapes of tests/test_torch_gpu.py (S = 77, 256, 1000, 1,
+# 200; GQA and MHA; both head dims)
 BWD_SHAPES = (TRAIN_SHAPE, (8, 16, 16, 64, 1024))
+BWD_RAGGED = ((2, 4, 2, 64, 77), (1, 4, 4, 128, 256), (1, 16, 8, 128, 1000),
+              (3, 4, 1, 64, 1), (2, 16, 16, 64, 200))
 TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ = "1b", 4, 2048
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2  # steps on one batch; the first 2 untimed
 PROMPT_LENS = (20, 100, 300, 700, 1200, 1900) * 2
@@ -152,13 +167,21 @@ def flash_bound(B, H, KVH, D, S, causal, itemsize):
 
 
 def bwd_bound(kernel, B, H, KVH, D, S, causal, itemsize):
-    """flash_bwd_dq: Q K^T, dO V^T, dS K (6 D FLOPs a pair); reads q, k, v,
-    dO, lse, Delta and writes dq. flash_bwd_dkv: K Q^T, V dO^T, P^T dO,
-    dS^T Q (8 D FLOPs a pair); the same reads, writes dk and dv."""
-    products = 3 if kernel == "flash_bwd_dq" else 4
+    """flash_bwd: S, dP, dV, dK, dQ (10 D FLOPs a pair); reads q, k, v, dO,
+    lse, Delta, writes dk, dv and the fp32 dQ accumulator. flash_bwd_dq: Q
+    K^T, dO V^T, dS K (6 D); the same reads, writes dq. flash_bwd_dkv: K
+    Q^T, V dO^T, P^T dO, dS^T Q (8 D); the same reads, writes dk and dv.
+    flash_bwd_delta: rowsum(dO * O), 2 D FLOPs a row; reads o and dO, writes
+    Delta."""
+    rows = B * H * S
+    if kernel == "flash_bwd_delta":
+        return roofline(2.0 * D * rows, 2 * rows * D * itemsize + rows * 4)
+    products = {"flash_bwd": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[kernel]
     flops = 2.0 * products * D * _pairs(S, causal) * B * H
-    reads = B * S * (2 * H + 2 * KVH) * D * itemsize + 2 * B * H * S * 4
-    writes = B * S * (H if products == 3 else 2 * KVH) * D * itemsize
+    reads = B * S * (2 * H + 2 * KVH) * D * itemsize + 2 * rows * 4
+    writes = {"flash_bwd": B * S * 2 * KVH * D * itemsize + rows * D * 4,
+              "flash_bwd_dq": rows * D * itemsize,
+              "flash_bwd_dkv": B * S * 2 * KVH * D * itemsize}[kernel]
     return roofline(flops, reads + writes)
 
 
@@ -325,7 +348,7 @@ def compare(kernel, key, got, ref, tol, where, mag) -> dict:
     """Kernel against plain: raises beyond ``atol + rtol * |ref| + m * mag``
     (see ``TOL``, ``BWD_TOL``). Returns the max abs error, the least atol
     that passes with this rtol and mag term, and for the attention outputs
-    (not lse) the max abs error in each range of |ref|."""
+    (not lse or Delta) the max abs error in each range of |ref|."""
     import torch
 
     got, ref = got.float(), ref.float()
@@ -337,7 +360,7 @@ def compare(kernel, key, got, ref, tol, where, mag) -> dict:
     rel = rtol * size + (m * mag.float() if m else 0.0)
     out = {"max_abs": diff.max().item(),
            "needs_atol": (diff - rel).max().item()}
-    if key != "lse":
+    if key not in ("lse", "delta"):
         for lo, hi in zip(O_BINS, O_BINS[1:]):
             sel = (size >= lo) & (size < hi)
             out[f"|{key}| in [{lo}, {hi})"] = (
@@ -349,22 +372,30 @@ def compare(kernel, key, got, ref, tol, where, mag) -> dict:
 
 
 def phase_bwd_kernels(card: str) -> dict:
-    """Both backward kernels against the plain backward on the same inputs
-    (the forward kernel's o and lse, a random dO), then their times at the
-    training shape. Returns the two kernels' entries of the kernels line."""
+    """The backward kernels against the plain backward on the same inputs
+    (the forward kernel's o and lse, a random dO), at BWD_SHAPES and the
+    ragged BWD_RAGGED, causal and full: bf16 ``flash_bwd`` (through
+    ``flash_attention_bwd``), the bf16 dK/dV kernel and the bf16 dQ kernel
+    (``flash_bwd_dq``, the earlier design) on their own, the fp32 pair, and
+    ``flash_bwd_delta`` (Delta) against its plain version. Then their times
+    at the training shape. Returns the entries of the kernels line."""
     import torch
 
     from ray_tpu_torch.ops.attention import (attention_delta,
+                                             attention_delta_plain,
                                              bwd_products, bwd_softmax_grads,
+                                             flash_attention_bwd,
                                              flash_attention_bwd_dkv,
                                              flash_attention_bwd_dq,
                                              flash_attention_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {"flash_bwd_dq": {"dq": 0.0},
-             "flash_bwd_dkv": {"dk": 0.0, "dv": 0.0}}
+    worst = {"flash_bwd": {"dq": 0.0, "dk": 0.0, "dv": 0.0},
+             "flash_bwd_dq": {"dq": 0.0},
+             "flash_bwd_dkv": {"dk": 0.0, "dv": 0.0},
+             "flash_bwd_delta": {"delta": 0.0}}
     entries = {}
-    for (B, H, KVH, D, S) in BWD_SHAPES:
+    for (B, H, KVH, D, S) in BWD_SHAPES + BWD_RAGGED:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
                                        device="cuda", dtype=dtype)
@@ -373,28 +404,50 @@ def phase_bwd_kernels(card: str) -> dict:
             for causal in (True, False):
                 o, lse = flash_attention_fwd(q, k, v, causal)
                 delta = attention_delta(o, do)
-                dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+                outs = []  # (kernel, key, tensor)
+                if dtype == torch.bfloat16:
+                    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal)
+                    outs += [("flash_bwd", "dq", dq), ("flash_bwd", "dk", dk),
+                             ("flash_bwd", "dv", dv)]
+                    # dK and dV of two runs of the fused kernel are the same
+                    # bits: they stay in one block's registers
+                    dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal)[1:]
+                    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                        raise AssertionError("flash_bwd's dk, dv differ "
+                                             "between two runs")
+                    del dk2, dv2
+                outs.append(("flash_bwd_dq", "dq", flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, causal)))
                 dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                  causal)
+                outs += [("flash_bwd_dkv", "dk", dk),
+                         ("flash_bwd_dkv", "dv", dv)]
                 torch.cuda.synchronize()
+                where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
+                         f"causal={int(causal)}")
+                err = compare("flash_bwd_delta", "delta", delta,
+                              attention_delta_plain(o, do), DELTA_TOL, where,
+                              None)
+                worst["flash_bwd_delta"]["delta"] = max(
+                    worst["flash_bwd_delta"]["delta"], err["max_abs"])
                 # the plain backward on the same o, lse and Delta, and the
                 # same products on absolute values (the tolerance's M)
                 p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
-                ref = [x.to(dtype) for x in bwd_products(p, ds, q, k, do)]
-                mag = bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+                ref = dict(zip(("dq", "dk", "dv"), (
+                    x.to(dtype) for x in bwd_products(p, ds, q, k, do))))
+                mag = dict(zip(("dq", "dk", "dv"), bwd_products(
+                    p, ds.abs(), q.abs(), k.abs(), do.abs())))
                 del p, ds
-                where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
-                         f"causal={int(causal)}")
-                for kernel, key, got, r, m in (
-                        ("flash_bwd_dq", "dq", dq, ref[0], mag[0]),
-                        ("flash_bwd_dkv", "dk", dk, ref[1], mag[1]),
-                        ("flash_bwd_dkv", "dv", dv, ref[2], mag[2])):
-                    err = compare(kernel, key, got, r, BWD_TOL[name], where, m)
+                for kernel, key, got in outs:
+                    err = compare(kernel, key, got, ref[key], BWD_TOL[name],
+                                  where, mag[key])
                     log(f"check {kernel} {key} {where}: {err} "
                         f"[tol {BWD_TOL[name]}]")
                     worst[kernel][key] = max(worst[kernel][key],
                                              err["max_abs"])
-                del o, lse, delta, dq, dk, dv, ref, mag
+                del o, lse, delta, outs, dk, dv, ref, mag
             if (B, H, KVH, D, S) == TRAIN_SHAPE and dtype == torch.bfloat16:
                 entries = time_bwd(q, k, v, do, card)
             del q, k, v, do
@@ -405,54 +458,107 @@ def phase_bwd_kernels(card: str) -> dict:
 
 
 def time_bwd(q, k, v, do, card) -> dict:
-    """The backward kernels, the plain backward and the library's backward
-    at the training shape, bf16, causal."""
+    """At the training shape, bf16, causal, timed in turns over TIME_ROUNDS
+    rounds (median of each): the ``flash_bwd`` kernel alone, the dK/dV
+    kernel, the earlier ``mma.sync`` pair (``flash_bwd_dq`` and
+    ``flash_bwd_dkv_mma``, checked against plain here first), the whole bf16
+    backward as ``flash_attention_bwd`` runs it (Delta, zeros, kernel,
+    cast), the Delta kernel, and the library's backward, which computes its
+    own Delta; then the plain backward and the plain Delta once."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops.attention import (attention_delta,
-                                             flash_attention_bwd_dkv,
-                                             flash_attention_bwd_dq,
-                                             flash_attention_bwd_plain,
-                                             flash_attention_fwd)
-
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
     B, S, H, D = q.shape
     KVH = k.shape[2]
-    o, lse = flash_attention_fwd(q, k, v, True)
-    delta = attention_delta(o, do)
-    ms = {"flash_bwd_dq": cuda_time_ms(
-              lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
-              20),
-          "flash_bwd_dkv": cuda_time_ms(
-              lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, True),
-              20)}
-    # the plain backward computes both kernels' outputs (and Delta) at once
-    plain_ms = cuda_time_ms(
-        lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True), 5,
-        warmup=1)
+    o, lse = att.flash_attention_fwd(q, k, v, True)
+    delta = att.attention_delta(o, do)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+
+    # the C entries called directly: no counter, no Delta, no zeros
+    def fused():
+        att._launch("flash_bwd", "flash_bwd",
+                    (q, k, v, do, lse, delta, dk, dv, dq_acc), True)
+
+    def mma():
+        att._launch("flash_bwd", "flash_bwd_dq",
+                    (q, k, v, do, lse, delta, dq), True)
+        att._launch("flash_bwd", "flash_bwd_dkv_mma",
+                    (q, k, v, do, lse, delta, dk, dv), True)
+
+    mma()
+    torch.cuda.synchronize()
+    p, ds = att.bwd_softmax_grads(q, k, v, do, lse, delta, True)
+    ref = [x.to(q.dtype) for x in att.bwd_products(p, ds, q, k, do)]
+    mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+    del p, ds
+    where = f"B={B} S={S} H={H} KVH={KVH} D={D} bf16 causal=1"
+    for key, got, r, m in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, mag):
+        compare("mma pair", key, got, r, BWD_TOL["bfloat16"], where, m)
+    del ref, mag
     # yardstick only: the backward of one library call on the same inputs
     # (K/V repeated to H heads outside the timed region; the forward is not
-    # timed); it covers both kernels. The port never calls it.
+    # timed); it computes dQ, dK, dV and its own Delta. The port never
+    # calls it.
     rep = H // KVH
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k.repeat_interleave(rep, dim=2),
                             v.repeat_interleave(rep, dim=2)))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    library_ms = cuda_time_ms(
-        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                    retain_graph=True), 20)
+    runs = {
+        "flash_bwd": fused,
+        "flash_bwd_dkv": lambda: att.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, True),
+        "mma": mma,
+        "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True),
+        "flash_bwd_delta": lambda: att.attention_delta(o, do),
+        "library": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True),
+    }
+    times = {name: [] for name in runs}
+    for r in range(TIME_ROUNDS):
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            times[name].append(cuda_time_ms(runs[name], 20))
+    ms = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+    ms["plain"] = cuda_time_ms(
+        lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do, True), 5,
+        warmup=1)
+    ms["plain_delta"] = cuda_time_ms(
+        lambda: att.attention_delta_plain(o, do), 20)
+    # the earlier pair's dQ kernel alone, for its own entry
+    ms["flash_bwd_dq"] = cuda_time_ms(lambda: att._launch(
+        "flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq), True), 20)
+    for name, t in times.items():
+        log(f"time at {TRAIN_SHAPE} bf16 causal: {name} rounds {t} median "
+            f"{ms[name]:.4f} ms [{card}]")
     entries = {}
-    for kernel, t in ms.items():
+    for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+                   "flash_bwd_delta"):
         bound, by = bwd_bound(kernel, B, H, KVH, D, S, True, q.element_size())
+        t = ms[kernel]
+        plain = ms["plain_delta" if kernel == "flash_bwd_delta" else "plain"]
+        entries[kernel] = {"ms": t, "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": None}
         log(f"time {kernel} at the training shape {TRAIN_SHAPE} bf16 causal:"
             f" kernel {t:.4f} ms, bound {bound:.4f} ms ({by}), "
-            f"{100 * bound / t:.1f}% of bound; plain backward (both kernels)"
-            f" {plain_ms:.4f} ms; library backward (sdpa, both kernels) "
-            f"{library_ms:.4f} ms [{card}]")
-        entries[kernel] = {"ms": t, "plain_ms": plain_ms,
-                           "library_ms": library_ms, "bound_ms": bound,
-                           "bound_by": by}
+            f"{100 * bound / t:.1f}% of bound; plain {plain:.4f} ms [{card}]")
+    # the library call computes what flash_bwd's backward does (all of
+    # dQ, dK, dV and Delta); the pair's and the dK/dV kernel's function is
+    # a part of it, so they get it for reference
+    for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        entries[kernel]["library_ms"] = ms["library"]
+    entries["flash_bwd"].update(backward_ms=ms["backward"],
+                                mma_ms=ms["mma"])
+    log(f"time bf16 backward at {TRAIN_SHAPE} causal: flash_attention_bwd "
+        f"(Delta + zeros + flash_bwd + cast) {ms['backward']:.4f} ms; "
+        f"library (sdpa backward) {ms['library']:.4f} ms; the earlier "
+        f"mma.sync pair {ms['mma']:.4f} ms; plain {ms['plain']:.4f} ms "
+        f"[{card}]")
     return entries
 
 
@@ -464,7 +570,9 @@ def phase_training(card: str) -> dict:
     import torch
 
     from ray_tpu_torch.models import CONFIGS
-    from ray_tpu_torch.ops.attention import (flash_attention_bwd_dkv,
+    from ray_tpu_torch.ops.attention import (attention_delta,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_dkv,
                                              flash_attention_bwd_dq,
                                              flash_attention_fwd)
     from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
@@ -482,8 +590,8 @@ def phase_training(card: str) -> dict:
         f"remat={cfg.remat}), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
     grad_check = check_training_grads(bundle, params, batch)
 
-    counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+                flash_attention_bwd_dq, flash_attention_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -503,9 +611,12 @@ def phase_training(card: str) -> dict:
         raise AssertionError(f"training loss not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
+    # bf16: one Delta and one flash_bwd a layer, never the earlier pair
     per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-                "flash_attention_bwd_dq": cfg.n_layers,
-                "flash_attention_bwd_dkv": cfg.n_layers}
+                "attention_delta": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     if launches != want:
         raise AssertionError(f"training launched {launches}, want {want} "
@@ -569,11 +680,18 @@ def check_training_grads(bundle, params, batch) -> dict:
 MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
 
 
+KERNEL_NAMES = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_bwd_delta")
+
+
 def profile_step(bundle, params, opt_state, batch) -> dict:
     """One more step under ``torch.profiler``: device ms of the flash
-    kernels, of the matrix products by the layer their shapes name
-    (attention projections, MLP, lm_head), of the optimizer's foreach ops,
-    and of the rest. The full table goes to chiprun_out/."""
+    kernels; of the rest of the attention backward (``attn_bwd_glue``: the
+    device time under ``FlashAttention``'s backward other than the
+    ``flash_bwd`` kernel, i.e. the Delta kernel, the zeroed dQ accumulator
+    and its cast to bf16); of the matrix products by the layer their shapes
+    name (attention projections, MLP, lm_head); of the optimizer's foreach
+    ops; and of the rest. The full table goes to chiprun_out/."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,7 +700,7 @@ def profile_step(bundle, params, opt_state, batch) -> dict:
                  record_shapes=True) as prof:
         bundle.step(params, opt_state, batch)
         torch.cuda.synchronize()
-    parts = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+    parts = {**dict.fromkeys(KERNEL_NAMES, 0.0), "attn_bwd_glue": 0.0,
              "attn_projections": 0.0, "mlp": 0.0, "lm_head": 0.0,
              "other_matmul": 0.0, "optimizer": 0.0}
     total = 0.0
@@ -591,7 +709,7 @@ def profile_step(bundle, params, opt_state, batch) -> dict:
         ms = evt.self_device_time_total / 1e3
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             total += ms
-            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            for kernel in KERNEL_NAMES:
                 if f"{kernel}_kernel" in evt.key:
                     parts[kernel] += ms
             continue
@@ -607,6 +725,14 @@ def profile_step(bundle, params, opt_state, batch) -> dict:
                 parts["other_matmul"] += ms
         elif evt.key.startswith("aten::_foreach"):
             parts["optimizer"] += ms
+    # the attention backward's own device time: its autograd node's
+    # (outermost events only), less the kernels booked by name above
+    node_ms = sum(evt.device_time_total / 1e3 for evt in prof.events()
+                  if "FlashAttentionBackward" in evt.name and not (
+                      evt.cpu_parent is not None
+                      and "FlashAttentionBackward" in evt.cpu_parent.name))
+    parts["attn_bwd_glue"] = node_ms - sum(parts[k] for k in KERNEL_NAMES
+                                           if k != "flash_fwd")
     parts["other"] = total - sum(parts.values())
     parts["total"] = total
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -765,17 +891,27 @@ def main() -> int:
     by_path = {
         "flash_fwd": {"training": train_launches["flash_attention_fwd"],
                       "serving": serve_launches},
+        "flash_bwd": {"training": train_launches["flash_attention_bwd"]},
+        "flash_bwd_delta": {"training": train_launches["attention_delta"]},
         "flash_bwd_dq": {"training": train_launches["flash_attention_bwd_dq"]},
         "flash_bwd_dkv": {
             "training": train_launches["flash_attention_bwd_dkv"]},
     }
     source = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
+              "flash_bwd": "ray_tpu_torch/csrc/flash_bwd.cu",
+              "flash_bwd_delta": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_bwd.cu"}
+    # flash_bwd_delta stands for plain XLA code (the JAX package computes
+    # Delta outside its kernels), not for a Pallas kernel
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:45",
+                "flash_bwd": ["ray_tpu/ops/attention.py:147",
+                              "ray_tpu/ops/attention.py:184"],
+                "flash_bwd_delta": "ray_tpu/ops/attention.py:236",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:147",
                 "flash_bwd_dkv": "ray_tpu/ops/attention.py:184"}
-    measured = {"flash_fwd": fwd, **bwd}
+    measured = {"flash_fwd": fwd, **{k: bwd[k] for k in (
+        "flash_bwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv")}}
     kernels = []
     for name, entry in measured.items():
         kernels.append({
@@ -787,8 +923,8 @@ def main() -> int:
             "ms": entry["ms"], "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
-            **{key: entry[key] for key in ("mma_ms", "train_shape")
-               if key in entry}})
+            **{key: entry[key] for key in ("mma_ms", "backward_ms",
+                                           "train_shape") if key in entry}})
     log(dev["card"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))

@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), bound to Python through
-// ctypes: two kernels, dQ and dK/dV.
+// ctypes.
 //
 // Replaces the TPU kernels ray_tpu/ops/attention.py:_flash_bwd_dq_kernel and
 // _flash_bwd_dkv_kernel (launched by flash_attention_bwd through
@@ -8,49 +8,102 @@
 // Delta = rowsum(dO * O) computed beforehand by the caller:
 //   dP = dO V^T,  dS = P * (dP - Delta) * scale,
 //   dQ = dS K,    dK = dS^T Q,    dV = P^T dO,
-// with fp32 accumulation; dq is stored in q's dtype, dk and dv in k's.
+// with fp32 accumulation; dk and dv are stored in k's dtype, dq in q's.
 //
-// What changed against the TPU kernels:
+// Entry points (at the bottom of this file), and which TPU kernel each
+// stands for:
+// - flash_bwd (bf16): both TPU kernels in one, flash_bwd_kernel<D, true>.
+//   What the bf16 backward runs (ops/attention.py:flash_attention_bwd).
+// - flash_bwd_dkv: _flash_bwd_dkv_kernel. bf16 on flash_bwd_kernel<D,
+//   false> (the same kernel without dQ), fp32 on the mma.sync kernel.
+// - flash_bwd_dq: _flash_bwd_dq_kernel on the mma.sync kernel, bf16 and
+//   fp32. fp32's backward is this pair.
+// - flash_bwd_dkv_mma: the mma.sync dK/dV in bf16, which with flash_bwd_dq
+//   is the earlier bf16 pair, kept only as the chip smoke's yardstick.
+// - flash_bwd_delta: Delta = rowsum(dO * O) in fp32, which the JAX package
+//   computes with plain XLA (ray_tpu/ops/attention.py:236-239, not a
+//   Pallas kernel). Both dtypes' backward runs it first. As one torch
+//   expression it cost more than the fused kernel: fp32 copies of o and dO
+//   and a batched product of 1 x D by D x 1; this kernel reads o and dO once.
+//
+// What changed against the TPU kernels, in both designs:
 // - q and dO are read as (B, S, H, D), k and v as (B, S, KVH, D), through
 //   their strides (query head h reads KV head h / (H / KVH)), as in the
 //   forward. The JAX model repeats K/V to H heads, so its dK and dV come out
-//   per query head and autodiff sums them over each group. Here the dK/dV
-//   kernel runs one block per (64-key tile, batch * KV head) and loops over
-//   the H / KVH query heads of the group, so the group's sum is taken in the
-//   block's fp32 accumulators: no (B, S, H, D) temporary, no atomics, and the
-//   result does not depend on the order blocks run in.
+//   per query head and autodiff sums them over each group. Here a block that
+//   owns a key tile of one KV head loops over the H / KVH query heads of the
+//   group, so the group's sum is taken in its fp32 accumulators: no
+//   (B, S, H, D) temporary, and dK, dV do not depend on the order blocks run
+//   in.
 // - Any S >= 1: keys >= S and query rows >= S get P = 0, so they add nothing,
 //   and rows >= S are not stored.
-// - The TPU's sequential grid dimension (k blocks for dQ, q blocks for dK/dV)
-//   becomes a loop inside one block of 4 warps. Blocks with the longest loop
-//   are issued first (the last q tiles for dQ, the first k tiles for dK/dV
-//   when causal).
-// - The dK/dV kernel computes S^T = K Q^T and dP^T = V dO^T directly, so
-//   P^T and dS^T come out of the products as C fragments, which are the A
-//   fragments of P^T dO and dS^T Q with no trip through shared memory.
-//   Likewise dS in the dQ kernel is the A fragment of dS K.
+// - The TPU's sequential grid dimension becomes a loop inside the block.
+// - S^T = K Q^T and dP^T = V dO^T are computed directly, so P^T and dS^T
+//   come out of the products as accumulators that are the A operands of
+//   P^T dO and dS^T Q in registers.
+// For bf16 inputs P and dS are rounded to bf16 before the products that
+// take them (the plain version keeps them in fp32; the tolerance of the
+// comparison follows from that). fp32 inputs go through the hi/lo split of
+// flash_common.cuh, P and dS included.
 //
-// Products run on the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate). For bf16 inputs P and dS are rounded to bf16 before the
-// products that take them (the plain version keeps them in fp32; the
-// tolerance of the comparison follows from that). fp32 inputs go through
-// the hi/lo split of flash_common.cuh, P and dS included.
+// What bounds it on this card. The split pair recomputes S and dP in both
+// kernels: 14 D FLOPs per (q, k) pair. flash_bwd does five products a pair
+// (S, dP, dV, dK, dQ: 10 D FLOPs), which at the 1b training shape (B=4,
+// S=2048, H=16, KVH=8, D=128, causal; 1.343e8 pairs) is 0.1738 ms of
+// tensor-core work at 989 TFLOP/s, against 0.20 GB of traffic counted once
+// each (q, k, v, dO 0.134 GB and lse, Delta read; dk, dv 0.034 GB and the
+// fp32 dQ accumulator 0.067 GB written), 0.06 ms at 3.35 TB/s. So it is
+// bound by the tensor cores.
 //
-// What bounds it on this card: the dQ kernel takes 3 products per (q, k)
-// pair (Q K^T, dO V^T, dS K: 6 D FLOPs), the dK/dV kernel 4 (K Q^T,
-// V dO^T, P^T dO, dS^T Q: 8 D FLOPs), against 8 D bytes per row of q, k, v,
-// dO and the outputs. At the 1b training shape (B=4, S=2048, H=16, KVH=8,
-// D=128, causal) that is 0.10 ms and 0.14 ms of tensor-core work against
-// about 0.04 ms of bytes each: both are bound by the tensor cores. This
-// design is the simple one and leaves most of that on the table: mma.sync
-// instead of wgmma, tiles loaded by the threads with plain loads (no TMA, no
-// cp.async pipelining), the B operands of dS K, P^T dO and dS^T Q gathered
-// from shared memory 16 bits at a time instead of with ldmatrix.trans, and
-// the dK/dV kernel reads the A fragments of K and V from shared memory at
-// every use to keep its registers for the two accumulators (2 x 16 x D fp32
-// per warp). Those are later work.
+// bf16 (head dims 64 and 128): flash_bwd_kernel, warp-specialised like the
+// forward (flash_fwd.cu). A persistent grid of one block of three
+// warpgroups per SM; a work item is a 128-key tile of one (batch, KV head),
+// dealt longest first when causal (the first key tiles see the most q
+// tiles). What it does about each limit of the mma.sync pair:
+// - products on wgmma instead of mma.sync.m16n8k16: S^T and dP^T as
+//   m64n64k16 with both operands in shared memory, dV and dK as m64n{D}k16
+//   with P^T, dS^T from registers, dQ as m64n64k16 from shared memory;
+// - loads overlap products: warpgroup 0 gives up registers and one thread
+//   issues every TMA copy, K and V of the item once (resident) and Q, dO
+//   into a ring of stages (2 at D = 128, 3 at D = 64) running ahead across
+//   items, with full and empty mbarriers; both consumers read every stage,
+//   so a stage's empty barrier waits for both. The stage's 64 values of
+//   lse and of Delta come by TMA too, through tensor maps that see each as
+//   one flat dimension of B * H * S values: a (B * H, S) map would need
+//   S * 4 bytes to be a multiple of 16, which S = 77 breaks. (Plain loads
+//   by a second producer warp spilled its 24 registers.);
+// - B operands that the pair gathered 16 bits at a time (dO, Q and K taken
+//   as they lie) are read MN-major through descriptors;
+// - 2 consumer warpgroups of 64 keys each (240 registers each with
+//   setmaxnreg) keep dK and dV, 64 + 64 fp32 a thread at D = 128, in
+//   registers across the item, where the pair re-read K's and V's fragments
+//   from shared memory at every use to spare registers;
+// - dQ is folded in, which saves recomputing S and dP: each consumer
+//   writes its dS^T half into a shared tile (two, by the parity of the tile
+//   count), swizzled as the descriptor reads it MN-major; after a named
+//   barrier across the consumers, consumer cw takes dQ's columns 64 cw ..
+//   + 63 over all 128 keys (D = 128; at D = 64 all columns over its own
+//   keys), and one thread adds the fp32 result into the accumulator from a
+//   staging tile with a TMA reduce-add, which skips rows >= S. The order of
+//   those fp32 adds from different blocks changes from run to run, so dQ's
+//   last bits may too; dK and dV stay in one block's registers and are the
+//   same in every run;
+// - causal: a consumer whose keys lie wholly above a q tile's diagonal
+//   skips its products (its dS half is zeros) but arrives on every
+//   barrier; only tiles that cross the diagonal or S pay for the mask. TMA
+//   fills key rows past S with zeros, which score 0, not -1e30, so the mask
+//   covers keys >= S too. Query rows past S read zero Q and dO rows and
+//   some other row's lse, so their P is kept finite (bwd_probs) and adds
+//   nothing; they are not stored.
+// dK and dV leave through the staging tile as bf16 with TMA stores.
+//
+// fp32, flash_bwd_dq and flash_bwd_dkv_mma: the mma.sync design, one block
+// of 4 warps per 64-row tile (q tile for dQ, key tile for dK/dV), tiles
+// loaded by the threads between __syncthreads(), B operands gathered from
+// shared memory 16 bits at a time.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -371,6 +424,585 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// -- bf16: TMA ring, warp-specialised wgmma ---------------------------------
+
+constexpr int kWsKeys = 128;          // keys of a work item, 64 a consumer
+constexpr int kWsQ = 64;              // query rows of a ring stage
+constexpr int kWsThreads = 384;       // producer + 2 consumer warpgroups
+constexpr int kWsConsumers = 256;
+constexpr int kQBox = kWsQ * 128;     // a 64-row TMA box of 64 bf16: 8 KB
+constexpr int kKBox = kWsKeys * 128;  // a 128-row box: 16 KB
+// A stage's lse and Delta: 68-value TMA boxes from the row rounded down to
+// 16 bytes, 384 bytes apart (TMA writes shared memory 128-byte aligned)
+constexpr int kStatBox = kWsQ + 4;
+constexpr int kStatStride = 384;
+constexpr int kStatBytes = 2 * kStatStride;
+
+// The block's shared memory from a 1024-byte aligned base: K and V of the
+// item (resident), the ring's Q and dO tiles, two dS tiles (128 keys x 64
+// q, bf16, one per parity of the tile count), each consumer's 16 KB staging
+// tile (dQ in fp32 on its way to the reduce-add; dK, dV in bf16 on their
+// way out), the ring's lse and Delta, then the mbarriers (KV full, KV
+// empty; for each stage full, then for each stage empty). A tile is D / 64
+// boxes side by side, box c holding columns 64c .. 64c + 63.
+template <int D>
+struct BwdSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kKTile = D / 64 * kKBox;
+  static constexpr int kQTile = D / 64 * kQBox;
+  static constexpr int kV = kKTile;
+  static constexpr int kRing = kV + kKTile;
+  static constexpr int kDS = kRing + kStages * 2 * kQTile;
+  static constexpr int kDSBytes = kWsKeys * 128;
+  static constexpr int kStg = kDS + 2 * kDSBytes;
+  static constexpr int kStgBytes = kWsQ * 64 * 4;
+  static constexpr int kStats = kStg + 2 * kStgBytes;
+  static constexpr int kBars = kStats + kStages * kStatBytes;
+  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+
+  __device__ static uint32_t full(uint32_t base, int s) {
+    return base + kBars + 16 + 8 * s;
+  }
+  __device__ static uint32_t empty(uint32_t base, int s) {
+    return base + kBars + 16 + 8 * (kStages + s);
+  }
+  __device__ static uint32_t q_tile(uint32_t base, int s) {
+    return base + kRing + s * 2 * kQTile;
+  }
+  __device__ static uint32_t do_tile(uint32_t base, int s) {
+    return q_tile(base, s) + kQTile;
+  }
+  __device__ static uint32_t stats(uint32_t base, int s) {
+    return base + kStats + s * kStatBytes;
+  }
+};
+
+// Where the block's next q tile lies in the ring: its stage, the parity of
+// the ring's lap (the phase its full barrier completes; its empty barrier
+// completed the phase before once the ring has gone round).
+template <int kStages>
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+  bool wrapped = false;
+  __device__ __forceinline__ void next() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+      wrapped = true;
+    }
+  }
+};
+
+// A work item: the 128-key tile at k0 of one (batch, KV head). Items are
+// numbered with the key tile major, so when causal the first key tiles,
+// which see the most q tiles, come first; blocks take them in the snake
+// order of work_index. An item walks the group's query heads in turn and,
+// for each, the 64-row q tiles from qt0 (the diagonal when causal) on.
+struct BwdWork {
+  int b, kvh, k0, qt0;
+};
+
+__device__ __forceinline__ BwdWork bwd_work(int w, int B, int KVH,
+                                            int causal) {
+  const int n_bkv = B * KVH;
+  BwdWork wk;
+  wk.b = w % n_bkv / KVH;
+  wk.kvh = w % n_bkv % KVH;
+  wk.k0 = w / n_bkv * kWsKeys;
+  wk.qt0 = causal ? wk.k0 / kWsQ : 0;
+  return wk;
+}
+
+// P^T of one tile in registers, in place of S^T: sc holds S^T of the
+// consumer's 64 keys (rows key_a, key_a + 8 of the accumulator) and the
+// stage's 64 queries (columns 8n + 2t + {0, 1}); `stats` holds the queries'
+// lse. On return sc holds P^T = 2^(s scale log2 e - lse log2 e) in fp32 and
+// p the same as bf16 pairs, the A fragments of P^T dO. The exponent is
+// clamped at 0: P <= 1 wherever lse is the row's (the forward's sum in
+// another order can put it 1e-6 below a score), and rows >= S, whose lse
+// slots hold another row's (or zeros past the tensor), meet zero rows of Q
+// and dO and are not stored, so a finite P there adds nothing. kMask zeroes
+// P where key > query (causal) or key >= S.
+template <bool kMask>
+__device__ __forceinline__ void bwd_probs(float (&sc)[32], uint32_t (&p)[16],
+                                          uint32_t stats, int t, int key_a,
+                                          int q0, int S, int causal,
+                                          float scale_log2) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t at = stats + (8 * n + 2 * t) * 4;
+    const float lse_a = hopper::ld_shared_f32(at) * kLog2e;
+    const float lse_b = hopper::ld_shared_f32(at + 4) * kLog2e;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = exp2_approx(fminf(
+          fmaf(sc[4 * n + i], scale_log2, -((i & 1) ? lse_b : lse_a)), 0.f));
+      if constexpr (kMask) {
+        const int key = i < 2 ? key_a : key_a + 8;
+        const int query = q0 + 8 * n + 2 * t + (i & 1);
+        if (key >= S || (causal && key > query)) x = 0.f;
+      }
+      sc[4 * n + i] = x;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// dS^T = P^T (dP^T - Delta) scale from the fp32 P^T in pr and dP^T in dp
+// (the same layout), Delta from `stats` + kStatStride; as bf16 pairs in
+// ds, the A fragments of dS^T Q.
+__device__ __forceinline__ void bwd_dscores(const float (&pr)[32],
+                                            float (&dp)[32],
+                                            uint32_t (&ds)[16],
+                                            uint32_t stats, int t,
+                                            float scale) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint32_t at = stats + kStatStride + (8 * n + 2 * t) * 4;
+    const float dl_a = hopper::ld_shared_f32(at);
+    const float dl_b = hopper::ld_shared_f32(at + 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[4 * n + i] =
+          pr[4 * n + i] * (dp[4 * n + i] - ((i & 1) ? dl_b : dl_a)) * scale;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ds[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+}
+
+// One consumer's 64 x D accumulator (rows = keys) as bf16 into its staging
+// tile, 128-byte swizzled (16-byte chunk c of row r at c ^ (r % 8)), then
+// stored by one thread with TMA, which skips rows >= S. The staging tile's
+// earlier TMA operation must have read it first.
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 2],
+                                                uint32_t stg, int tid,
+                                                int warp, int g, int t,
+                                                int bar,
+                                                const CUtensorMap* map,
+                                                int kvh, int row0, int b) {
+  if (tid == 0) hopper::tma_store_wait_read<0>();
+  hopper::bar_sync<128>(bar);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const uint32_t at = stg + (j / 8) * kQBox + (16 * warp + g) * 128 +
+                        ((j % 8) ^ g) * 16 + 4 * t;
+    hopper::st_shared(at, pack_bf16(acc[4 * j], acc[4 * j + 1]));
+    hopper::st_shared(at + 8 * 128, pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+  hopper::fence_proxy_async();
+  hopper::bar_sync<128>(bar);
+  if (tid == 0) {
+    for (int c = 0; c < D / 64; ++c)
+      hopper::tma_store_4d(map, stg + c * kQBox, 64 * c, kvh, row0, b);
+    hopper::tma_store_commit();
+  }
+}
+
+// dK and dV of one 128-key tile of one (batch, KV head) a work item, and
+// with kWithDQ each q tile's share of dQ added into the fp32 accumulator.
+// Warpgroup 0 loads, warpgroups 1 and 2 each own 64 of the tile's keys.
+template <int D, bool kWithDQ>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdk,
+                 const __grid_constant__ CUtensorMap tdv,
+                 const __grid_constant__ CUtensorMap tdq,
+                 const __grid_constant__ CUtensorMap tlse,
+                 const __grid_constant__ CUtensorMap tdelta, int B, int S,
+                 int H,
+                 int KVH, float scale, float scale_log2, int causal) {
+  using L = BwdSmem<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t kv_empty = kv_full + 8;
+  const int n_work = (S + kWsKeys - 1) / kWsKeys * B * KVH;
+  const int group = H / KVH;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    hopper::mbar_init(kv_empty, kWsConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(L::full(base, s), 1);
+      hopper::mbar_init(L::empty(base, s), kWsConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The ring runs on across work items; every role walks the same tiles
+  // and keeps its own RingPos.
+  if (threadIdx.x < 128) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      // one thread issues every TMA copy: K and V of the item once both
+      // consumers are done with the item before, then a stage's Q, dO and
+      // the 64 rows' lse and Delta
+      RingPos<kStages> pos;
+      for (int round = 0;; ++round) {
+        const int w = work_index(round);
+        if (w >= n_work) break;
+        const BwdWork wk = bwd_work(w, B, KVH, causal);
+        if (round > 0) hopper::mbar_wait(kv_empty, (round - 1) & 1);
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
+        for (int c = 0; c < kBoxes; ++c) {
+          hopper::tma_load_4d(base + c * kKBox, &tk, kv_full, 64 * c, wk.kvh,
+                              wk.k0, wk.b);
+          hopper::tma_load_4d(base + L::kV + c * kKBox, &tv, kv_full, 64 * c,
+                              wk.kvh, wk.k0, wk.b);
+        }
+        for (int h = wk.kvh * group; h < (wk.kvh + 1) * group; ++h) {
+          for (int q0 = wk.qt0 * kWsQ; q0 < S; q0 += kWsQ, pos.next()) {
+            if (pos.wrapped)
+              hopper::mbar_wait(L::empty(base, pos.stage), pos.phase ^ 1);
+            const uint32_t full = L::full(base, pos.stage);
+            const uint32_t dst = L::q_tile(base, pos.stage);
+            const uint32_t st = L::stats(base, pos.stage);
+            hopper::mbar_arrive_expect_tx(full, 2 * L::kQTile + 2 * kStatBox * 4);
+            for (int c = 0; c < kBoxes; ++c) {
+              hopper::tma_load_4d(dst + c * kQBox, &tq, full, 64 * c, h, q0,
+                                  wk.b);
+              hopper::tma_load_4d(dst + L::kQTile + c * kQBox, &tdo, full,
+                                  64 * c, h, q0, wk.b);
+            }
+            // the box starts on a 16-byte boundary, which TMA requires:
+            // the row rounded down to a multiple of 4 values
+            const int row = ((wk.b * H + h) * S + q0) & ~3;
+            hopper::tma_load_1d(st, &tlse, full, row);
+            hopper::tma_load_1d(st + kStatStride, &tdelta, full, row);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns keys k0 + 64 cw .. k0 + 64 cw + 63
+  hopper::setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // row within an 8-row group of the accumulator
+  const int t = lane % 4;  // thread within the quad
+  const uint32_t k_rows = base + cw * 64 * 128;  // these 64 keys of box 0
+  const uint32_t v_rows = base + L::kV + cw * 64 * 128;
+  const uint32_t stg = base + L::kStg + cw * L::kStgBytes;
+  // Named barriers: 1 holds the two consumers together around a dS tile
+  // (D = 128, where each reads the other's keys); 2 + cw holds one
+  // consumer's threads together around its own tiles.
+  const int my_bar = 2 + cw;
+  // dQ = dS K: at D = 128 consumer cw takes dQ's columns 64 cw .. + 63 over
+  // all 128 keys; at D = 64 it takes all 64 columns over its own 64 keys,
+  // and the two halves meet in the reduce-add.
+  constexpr int kDQSteps = D == 128 ? 8 : 4;
+  const int dq_key0 = D == 128 ? 0 : 64 * cw;
+  const uint32_t dq_k = base + (D == 128 ? cw * kKBox : 0) + dq_key0 * 128;
+  const int dq_col0 = D == 128 ? 64 * cw : 0;
+
+  RingPos<kStages> pos;
+  int ds_parity = 0;  // which dS tile this q tile writes
+  for (int round = 0;; ++round) {
+    const int w = work_index(round);
+    if (w >= n_work) break;
+    const BwdWork wk = bwd_work(w, B, KVH, causal);
+    const int key_lo = wk.k0 + 64 * cw;  // this consumer's first key
+    const int key_a = key_lo + 16 * warp + g;
+
+    // dK and dV accumulators: dk[4j .. 4j + 3] hold columns 8j + 2t +
+    // {0, 1} of keys key_a (0, 1) and key_a + 8 (2, 3)
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    hopper::mbar_wait(kv_full, round & 1);
+
+    for (int h = wk.kvh * group; h < (wk.kvh + 1) * group; ++h) {
+      for (int q0 = wk.qt0 * kWsQ; q0 < S;
+           q0 += kWsQ, pos.next(), ds_parity ^= 1) {
+        const int s = pos.stage;
+        const uint32_t q_tile = L::q_tile(base, s);
+        const uint32_t do_tile = L::do_tile(base, s);
+        // causal: keys wholly above the diagonal add nothing to dK, dV or
+        // dQ; only tiles that cross the diagonal or S pay for the mask
+        const bool skip = causal && key_lo > q0 + kWsQ - 1;
+        const bool mask =
+            (causal && key_lo + 63 > q0) || key_lo + 63 >= S;
+        hopper::mbar_wait(L::full(base, s), pos.phase);
+        // this tile's lse and Delta: the stage's boxes start up to 3 values
+        // before its first row
+        const uint32_t stats =
+            L::stats(base, s) + 4 * (((wk.b * H + h) * S + q0) & 3);
+
+        uint32_t p[16], ds[16];  // P^T and dS^T as bf16 pairs
+        if (!skip) {
+          // S^T = K Q^T and dP^T = V dO^T over the 64 keys, both operands
+          // K-major: D / 16 k-steps each; then P, P^T dO issued, and dS
+          // computed while P^T dO runs
+          float sc[32], dp[32];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t ok = (ks / 4) * kKBox + (ks % 4) * 32;
+            const uint32_t oq = (ks / 4) * kQBox + (ks % 4) * 32;
+            hopper::wgmma_m64n64k16_ss<0, 0>(
+                sc, hopper::desc_kmajor(k_rows + ok),
+                hopper::desc_kmajor(q_tile + oq), ks > 0);
+          }
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t ok = (ks / 4) * kKBox + (ks % 4) * 32;
+            const uint32_t oq = (ks / 4) * kQBox + (ks % 4) * 32;
+            hopper::wgmma_m64n64k16_ss<0, 0>(
+                dp, hopper::desc_kmajor(v_rows + ok),
+                hopper::desc_kmajor(do_tile + oq), ks > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(sc);
+          hopper::fence_regs(dp);
+          if (mask)
+            bwd_probs<true>(sc, p, stats, t, key_a, q0, S, causal,
+                            scale_log2);
+          else
+            bwd_probs<false>(sc, p, stats, t, key_a, q0, S,
+                             causal, scale_log2);
+          // dV += P^T dO and dK += dS^T Q: A from registers (p + 4 kk is
+          // the fragment of queries 16 kk .. + 15), B MN-major (16 query
+          // rows are 2048 bytes; the next 64 columns are the next box)
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWsQ / 16; ++kk) {
+            const uint64_t bo = hopper::desc_mnmajor(do_tile + kk * 2048, kQBox);
+            if constexpr (D == 128)
+              hopper::wgmma_m64n128k16_rs<1>(dv, p + 4 * kk, bo, 1);
+            else
+              hopper::wgmma_m64n64k16_rs<1>(dv, p + 4 * kk, bo, 1);
+          }
+          hopper::wgmma_commit();
+          bwd_dscores(sc, dp, ds, stats, t, scale);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWsQ / 16; ++kk) {
+            const uint64_t bq = hopper::desc_mnmajor(q_tile + kk * 2048, kQBox);
+            if constexpr (D == 128)
+              hopper::wgmma_m64n128k16_rs<1>(dk, ds + 4 * kk, bq, 1);
+            else
+              hopper::wgmma_m64n64k16_rs<1>(dk, ds + 4 * kk, bq, 1);
+          }
+          hopper::wgmma_commit();
+        } else {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) p[i] = ds[i] = 0u;
+        }
+
+        if constexpr (kWithDQ) {
+          // dS^T into the tile of this parity, rows = keys, 64 queries a
+          // 128-byte row, swizzled as TMA would have written it, so that
+          // the descriptor reads it as the MN-major A of dS K
+          const uint32_t ds_tile = base + L::kDS + ds_parity * L::kDSBytes;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const uint32_t at = ds_tile + (64 * cw + 16 * warp + g) * 128 +
+                                (jj ^ g) * 16 + 4 * t;
+            hopper::st_shared(at, ds[2 * jj]);
+            hopper::st_shared(at + 8 * 128, ds[2 * jj + 1]);
+          }
+          hopper::fence_proxy_async();
+          if constexpr (D == 128)
+            hopper::bar_sync<kWsConsumers>(1);
+          else
+            hopper::bar_sync<128>(my_bar);
+          // at D = 64 a skipped consumer's share of dQ is zero
+          const bool dq_zero = D == 64 && skip;
+          float dq[32];
+          if (!dq_zero) {
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kDQSteps; ++kk)
+              hopper::wgmma_m64n64k16_ss<1, 1>(
+                  dq,
+                  hopper::desc_mnmajor(
+                      ds_tile + (dq_key0 + 16 * kk) * 128, L::kDSBytes),
+                  hopper::desc_mnmajor(dq_k + kk * 2048, kKBox), kk > 0);
+            hopper::wgmma_commit();
+          }
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dk);
+          hopper::fence_regs(dv);
+          hopper::fence_regs(p);
+          hopper::fence_regs(ds);
+          if (!dq_zero) hopper::fence_regs(dq);
+          hopper::mbar_arrive(L::empty(base, s));
+          if (!dq_zero) {
+            // dQ (64 q rows x 64 columns, fp32) through the staging tile:
+            // two 32-column boxes, 128-byte swizzled, reduce-added by one
+            // thread; the tile's previous TMA operation must have read it
+            if (tid == 0) hopper::tma_store_wait_read<0>();
+            hopper::bar_sync<128>(my_bar);
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const uint32_t at = stg + (jj / 4) * kQBox +
+                                  (16 * warp + g) * 128 +
+                                  ((2 * (jj % 4) + t / 2) ^ g) * 16 +
+                                  8 * (t % 2);
+              hopper::st_shared_f32x2(at, dq[4 * jj], dq[4 * jj + 1]);
+              hopper::st_shared_f32x2(at + 8 * 128, dq[4 * jj + 2],
+                                      dq[4 * jj + 3]);
+            }
+            hopper::fence_proxy_async();
+            hopper::bar_sync<128>(my_bar);
+            if (tid == 0) {
+              for (int c = 0; c < 2; ++c)
+                hopper::tma_reduce_add_4d(&tdq, stg + c * kQBox,
+                                          dq_col0 + 32 * c, h, q0, wk.b);
+              hopper::tma_store_commit();
+            }
+          }
+        } else {
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dk);
+          hopper::fence_regs(dv);
+          hopper::fence_regs(p);
+          hopper::fence_regs(ds);
+          hopper::mbar_arrive(L::empty(base, s));
+        }
+      }
+    }
+    // K and V are free for the next item; dK and dV go out through the
+    // staging tile, rows >= S skipped by TMA
+    hopper::mbar_arrive(kv_empty);
+    store_rows_bf16<D>(dk, stg, tid, warp, g, t, my_bar, &tdk, wk.kvh, key_lo,
+                       wk.b);
+    store_rows_bf16<D>(dv, stg, tid, warp, g, t, my_bar, &tdv, wk.kvh, key_lo,
+                       wk.b);
+  }
+  // the block's shared memory must outlive its last store
+  if (tid == 0) hopper::tma_store_wait<0>();
+}
+
+template <int D, bool kWithDQ>
+cudaError_t launch_ws(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, void* dq_acc, int B, int S, int H,
+                      int KVH, const long long* st, int causal,
+                      cudaStream_t stream) {
+  // strides: q, k, v, dO, dk, dv, then (kWithDQ) the fp32 accumulator
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv, tdq, tlse, tdelta;
+  if (!hopper::encode_bf16_rows(&tq, q, B, S, H, D, st[0], st[1], st[2],
+                                kWsQ) ||
+      !hopper::encode_bf16_rows(&tk, k, B, S, KVH, D, st[3], st[4], st[5],
+                                kWsKeys) ||
+      !hopper::encode_bf16_rows(&tv, v, B, S, KVH, D, st[6], st[7], st[8],
+                                kWsKeys) ||
+      !hopper::encode_bf16_rows(&tdo, dout, B, S, H, D, st[9], st[10],
+                                st[11], kWsQ) ||
+      !hopper::encode_bf16_rows(&tdk, dk, B, S, KVH, D, st[12], st[13],
+                                st[14], 64) ||
+      !hopper::encode_bf16_rows(&tdv, dv, B, S, KVH, D, st[15], st[16],
+                                st[17], 64) ||
+      !hopper::encode_f32_flat(&tlse, lse, (long long)B * H * S, kStatBox) ||
+      !hopper::encode_f32_flat(&tdelta, delta, (long long)B * H * S,
+                               kStatBox))
+    return cudaErrorInvalidValue;
+  if constexpr (kWithDQ) {
+    if (!hopper::encode_f32_rows(&tdq, dq_acc, B, S, H, D, st[18], st[19],
+                                 st[20], kWsQ))
+      return cudaErrorInvalidValue;
+  } else {
+    tdq = tdk;  // not read
+  }
+  constexpr int kSmem = BwdSmem<D>::kBytes;
+  auto kernel = flash_bwd_kernel<D, kWithDQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, n_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  // persistent: one block per SM (or per item, when there are fewer)
+  const int n_work = (S + kWsKeys - 1) / kWsKeys * B * KVH;
+  const float scale = 1.f / sqrtf((float)D);
+  kernel<<<min(n_work, n_sm), kWsThreads, kSmem, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, tdq, tlse, tdelta, B, S, H, KVH, scale,
+      scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+// -- Delta = rowsum(dO * O) ------------------------------------------------
+
+// D / kVec threads per row (b, s, h) of o and dO, each with one 16-byte
+// load of each: they multiply in fp32 and sum across the row's threads; the
+// result goes to delta[(b * H + h) * S + s]. The products are exact (bf16
+// or fp32 inputs, fp32 arithmetic); only the order of the fp32 sum differs
+// from the plain version's. D is 64 or 128, so a row's threads (8 to 32)
+// lie in one warp.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int n_rows, int S, int H,
+                       long long o_sb, long long o_ss, long long o_sh,
+                       long long do_sb, long long do_ss, long long do_sh) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kLanes = D / kVec;
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  const int row = idx / kLanes;
+  const int col = idx % kLanes * kVec;
+  float sum = 0.f;
+  if (row < n_rows) {
+    const int h = row % H, s = row / H % S, b = row / H / S;
+    const uint4 x = *reinterpret_cast<const uint4*>(o + b * o_sb + s * o_ss +
+                                                    h * o_sh + col);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        dout + b * do_sb + s * do_ss + h * do_sh + col);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        sum = fmaf(__uint_as_float(xs[i]), __uint_as_float(ys[i]), sum);
+      } else {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+        const float2 c = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+        sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < n_rows && col == 0) {
+    const int h = row % H, s = row / H % S, b = row / H / S;
+    delta[(long long)(b * H + h) * S + s] = sum;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta, int B,
+                         int S, int H, const long long* st,
+                         cudaStream_t stream) {
+  const int n_rows = B * S * H;
+  const long long threads = (long long)n_rows * (D * sizeof(T) / 16);
+  flash_bwd_delta_kernel<T, D><<<(int)((threads + 255) / 256), 256, 0,
+                                 stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), n_rows, S, H, st[0], st[1], st[2], st[3],
+      st[4], st[5]);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool SPLIT>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -420,11 +1052,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Both entry points: dtype 0 = bf16, 1 = fp32; lse and delta are fp32
+// The entry points: dtype 0 = bf16, 1 = fp32; lse and delta are fp32
 // (B * H, S), contiguous. strides (in elements) of dims b, s, h of q, k, v,
-// dO, then the outputs (dq; or dk, dv), each with a contiguous last dim.
-// They return a cudaError_t (0 on success); an unsupported head_dim or dtype
-// returns cudaErrorInvalidValue.
+// dO, then the outputs (dq; or dk, dv; or dk, dv and the dQ accumulator),
+// each with a contiguous last dim. bf16 tensors read or written through
+// tensor maps (flash_bwd, and flash_bwd_dkv's bf16) need a 16-byte aligned
+// base and strides of multiples of 8 elements. They return a cudaError_t (0
+// on success); an unsupported head_dim or dtype, or a tensor map that cannot
+// be built, returns cudaErrorInvalidValue.
+//
+// flash_bwd_dq: dQ alone on the mma.sync kernel, bf16 and fp32 (fp32 is half
+// of the fp32 backward; bf16 serves flash_attention_bwd_dq and the smoke's
+// yardstick of the earlier pair).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int dtype, int B,
@@ -449,12 +1088,58 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// flash_bwd_dkv: dK and dV alone; bf16 on the warp-specialised kernel
+// without dQ, fp32 on the mma.sync kernel.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int dtype,
                              int B, int S, int H, int KVH, int D,
                              const long long* strides, int causal,
                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_ws<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B,
+                                S, H, KVH, strides, causal, st);
+  if (dtype == 0 && D == 128)
+    return launch_ws<128, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                 B, S, H, KVH, strides, causal, st);
+  if (dtype == 1 && D == 64)
+    return launch_dkv<float, 64, true>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       S, H, KVH, strides, causal, st);
+  if (dtype == 1 && D == 128)
+    return launch_dkv<float, 128, true>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        S, H, KVH, strides, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// flash_bwd: the bf16 backward in one kernel, flash_bwd_dkv's arguments and
+// dq_acc, an fp32 (B, S, H, D) tensor that must hold zeros: each q tile's
+// dQ is added into it (dtype 0 only).
+extern "C" int flash_bwd(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, void* dq_acc, int dtype, int B,
+                         int S, int H, int KVH, int D,
+                         const long long* strides, int causal, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_ws<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, B,
+                               S, H, KVH, strides, causal, st);
+  if (dtype == 0 && D == 128)
+    return launch_ws<128, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, B,
+                                S, H, KVH, strides, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// flash_bwd_dkv_mma: the mma.sync design's bf16 dK/dV, with flash_bwd_dkv's
+// arguments (dtype 0 only): with flash_bwd_dq, the earlier pair that the
+// chip smoke times beside flash_bwd as a yardstick. Nothing in the package
+// calls it.
+extern "C" int flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 int dtype, int B, int S, int H, int KVH,
+                                 int D, const long long* strides, int causal,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch_dkv<__nv_bfloat16, 64, false>(q, k, v, dout, lse, delta, dk,
@@ -464,11 +1149,26 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_dkv<__nv_bfloat16, 128, false>(q, k, v, dout, lse, delta,
                                                  dk, dv, B, S, H, KVH, strides,
                                                  causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// flash_bwd_delta: Delta = rowsum(dO * O), fp32 (B * H, S), from o and dO
+// (B, S, H, D), bf16 or fp32, D 64 or 128, strides of o then dO, 16-byte
+// aligned. KVH and causal are unused (the entry points share one binding).
+extern "C" int flash_bwd_delta(const void* o, const void* dout, void* delta,
+                               int dtype, int B, int S, int H, int KVH, int D,
+                               const long long* strides, int causal,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_delta<__nv_bfloat16, 64>(o, dout, delta, B, S, H, strides,
+                                           st);
+  if (dtype == 0 && D == 128)
+    return launch_delta<__nv_bfloat16, 128>(o, dout, delta, B, S, H, strides,
+                                            st);
   if (dtype == 1 && D == 64)
-    return launch_dkv<float, 64, true>(q, k, v, dout, lse, delta, dk, dv, B,
-                                       S, H, KVH, strides, causal, st);
+    return launch_delta<float, 64>(o, dout, delta, B, S, H, strides, st);
   if (dtype == 1 && D == 128)
-    return launch_dkv<float, 128, true>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        S, H, KVH, strides, causal, st);
+    return launch_delta<float, 128>(o, dout, delta, B, S, H, strides, st);
   return (int)cudaErrorInvalidValue;
 }

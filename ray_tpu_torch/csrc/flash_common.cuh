@@ -1,6 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the tile geometry, the bf16 tensor-core product, the hi/lo split that
-// carries fp32 through bf16 products, and the fragment loads.
+// carries fp32 through bf16 products, the fragment loads, and the exp2 and
+// the order of work items of the warp-specialised kernels.
 //
 // Fragments are those of mma.sync.m16n8k16 (row.col, bf16 in, fp32 out).
 // A lane is g = lane / 4 (row of an 8-row group) and t = lane % 4:
@@ -155,6 +156,23 @@ __device__ __forceinline__ void load_b_cols(const uint32_t* s, int k0, int n0,
   const int e8 = e0 + 8 * kRow;
   *b0 = (uint32_t)s16[e0] | ((uint32_t)s16[e0 + kRow] << 16);
   *b1 = (uint32_t)s16[e8] | ((uint32_t)s16[e8 + kRow] << 16);
+}
+
+// 2^x in one ex2.approx instruction (about 2 ulp), without exp2f's extra
+// handling of denormal results, which round to 0 in bf16 P anyway.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The work item of round `round` for this block of a persistent grid: item
+// i of even rounds and item gridDim.x - 1 - i of odd ones, so that a block
+// that drew a long item (items are numbered longest first) in one round
+// draws a short one in the next.
+__device__ __forceinline__ int work_index(int round) {
+  const int grid = gridDim.x, block = blockIdx.x;
+  return round * grid + (round % 2 ? grid - 1 - block : block);
 }
 
 // Store one C fragment's pair (row, cols col, col + 1) as T.

@@ -114,14 +114,6 @@ struct Smem {
   }
 };
 
-// 2^x in one ex2.approx instruction (about 2 ulp), without exp2f's extra
-// handling of denormal results, which round to 0 in bf16 P anyway.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Issue S = Q K^T (64 x 128) for the warpgroup's 64 q rows: D / 16 k-steps
 // of 16 columns, box ks / 4, 32 bytes a step inside its 128-byte rows.
 template <int D>
@@ -210,19 +202,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float scale_log2,
 
 // One work item of the persistent grid: a 128-row q tile of one (batch,
 // head). Items are numbered with the q tile major and, when causal, the
-// last q tiles (the longest loops) first. Block i takes one item of each
-// round of gridDim.x items: item i of even rounds and item gridDim.x - 1 -
-// i of odd ones, so that a block that drew a long item in one round draws
-// a short one in the next.
+// last q tiles (the longest loops) first; blocks take them in the snake
+// order of work_index (flash_common.cuh).
 struct Work {
   int b, h, kvh, q0;
   int n_kt;  // key tiles, walked from the last down
 };
-
-__device__ __forceinline__ int work_index(int round) {
-  const int grid = gridDim.x, block = blockIdx.x;
-  return round * grid + (round % 2 ? grid - 1 - block : block);
-}
 
 __device__ __forceinline__ Work work_item(int w, int n_bh, int H, int KVH,
                                           int S, int causal) {

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the kernels of this directory: tensor
-// maps and TMA loads, mbarriers, wgmma shared-memory descriptors and
-// products, and register reallocation between warpgroups. Each wraps one or
-// two PTX instructions; the comment above each names them.
+// maps, TMA loads, stores and reduce-adds, mbarriers, wgmma shared-memory
+// descriptors and products, and register reallocation between warpgroups.
+// Each wraps one or two PTX instructions; the comment above each names them.
 //
 // Shared tiles use the 128-byte swizzle throughout: a TMA box is 64 bf16
 // values (128 bytes) wide, and eight of its rows form one 1024-byte swizzle
@@ -73,6 +73,49 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int S,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The same over an fp32 tensor (B, S, heads, D): a box is 32 columns (128
+// bytes) of one head and `rows` positions of S, 128-byte swizzled. Used as
+// the target of tma_reduce_add_4d, which skips rows past S.
+inline bool encode_f32_rows(CUtensorMap* map, const void* base, int B, int S,
+                            int heads, int D, long long stride_b,
+                            long long stride_s, long long stride_h,
+                            int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)stride_h * 4,
+                                 (cuuint64_t)stride_s * 4,
+                                 (cuuint64_t)stride_b * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over n contiguous fp32 values seen as one dimension, a box
+// being `box` values (at most 256), not swizzled. A box may start at any
+// element; values past n read as zeros. This reads per-row statistics of
+// any length S at an arbitrary offset, where a 2-d map would need S * 4
+// bytes to be a multiple of 16.
+inline bool encode_f32_flat(CUtensorMap* map, const void* base, long long n,
+                            int box) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // none for one dimension
+  const cuuint32_t box_dims[1] = {(cuuint32_t)box};
+  const cuuint32_t unit[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                const_cast<void*>(base), dims, strides, box_dims, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // -- device: addresses, mbarriers, TMA ---------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -138,6 +181,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// cp.async.bulk.tensor.1d: one box of a 1-d tensor map starting at element
+// c0, into shared memory at `dst` (128-byte aligned); completion is counted
+// in bytes on `bar`. Issued by one thread.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 // cp.async.bulk.tensor.4d (shared to global): one TMA box from shared
 // memory at `src` to coordinates (c0, c1, c2, c3); the parts of the box
 // outside the tensor are not written. Issued by one thread, after
@@ -147,6 +202,23 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              int c2, int c3) {
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// cp.reduce.async.bulk.tensor.4d (shared to global, add): one TMA box of
+// fp32 from shared memory at `src` added element by element into the tensor
+// at coordinates (c0, c1, c2, c3); the parts of the box outside the tensor
+// are skipped. Each element's add is atomic, but the order of the adds from
+// different blocks is not fixed. Issued by one thread after
+// fence_proxy_async, tracked as a bulk group like tma_store_4d.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
@@ -183,6 +255,21 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t value) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(value)
                : "memory");
+}
+
+// st.shared.v2.f32: two floats at an 8-byte aligned shared-memory address.
+__device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float x,
+                                                float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
+               : "memory");
+}
+
+// ld.shared.f32 at a shared-memory address.
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // -- device: warpgroups --------------------------------------------------------
@@ -254,8 +341,10 @@ __device__ __forceinline__ void fence_regs(T (&r)[N]) {
 //   leading offset is unused (1). A k-step of 16 values inside the 128-byte
 //   row moves the start by 32 bytes.
 // - MN-major (rows of K, the N index contiguous: V for P V, read with the
-//   transpose-B immediate): stride = 1024 bytes from one group of 8 K rows to
-//   the next; leading = the bytes from one 64-column box of N to the next.
+//   transpose-B immediate; or the M index contiguous, dS for dS K in the
+//   backward, read with the transpose-A immediate): stride = 1024 bytes from
+//   one group of 8 K rows to the next; leading = the bytes from one
+//   64-column box of N (or M) to the next, unused when there is one.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead,
                                                uint32_t stride) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
@@ -326,6 +415,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
+}
+
+// D (64 x 64) = A B (+ D): A (64 x 16) and B (16 x 64) in shared memory.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D (64 x 64) = A B (+ D): A (64 x 16) in registers, B (16 x 64) in shared

@@ -3,7 +3,8 @@
 Counterpart of ``ray_tpu/ops/attention.py``. The TPU's Pallas kernels become
 CUDA kernels for ``sm_90a``, built with nvcc at first use and called through
 ctypes: ``_flash_fwd_kernel`` is ``csrc/flash_fwd.cu``, and the backward pair
-``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` is ``csrc/flash_bwd.cu``.
+``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` is ``csrc/flash_bwd.cu``
+(bf16: one kernel for both, ``flash_bwd``; fp32: the pair).
 Beside each, in this module, is its plain PyTorch version: the CPU tests run
 that one, and the chip smoke holds the kernel against it on the card. The
 custom VJP that joins them (``jax.custom_vjp`` there) is ``FlashAttention``,
@@ -142,13 +143,17 @@ def _check_kernel_inputs(kernel: str, q, k, v, *more) -> None:
 
 
 def _check_row_stats(q, **stats) -> None:
-    """lse and delta: fp32, contiguous, B * H * S values on q's device."""
+    """lse and delta: fp32, contiguous, B * H * S values on q's device, from
+    a 16-byte aligned base (the bf16 kernels read them through tensor
+    maps)."""
     B, S, H, _ = q.shape
     for name, x in stats.items():
         if x.device != q.device or x.dtype != torch.float32 \
-                or not x.is_contiguous() or x.numel() != B * H * S:
-            raise ValueError(f"{name} must be a contiguous fp32 (B*H, S) "
-                             f"tensor on {q.device}, got {x.dtype} "
+                or not x.is_contiguous() or x.numel() != B * H * S \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"fp32 (B*H, S) tensor on {q.device}, got "
+                             f"{x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
 
 
@@ -209,13 +214,52 @@ flash_attention_fwd.launches = 0
 # -- backward ---------------------------------------------------------------
 
 
-def attention_delta(o, do) -> torch.Tensor:
+def attention_delta_plain(o, do) -> torch.Tensor:
     """Delta = rowsum(dO * O) as (B * H, S), in fp32: the term the backward
     subtracts from dP (plain XLA in the JAX package too, not a kernel)."""
     B, S, H, _ = o.shape
     acc = _acc_dtype(o)
     delta = torch.einsum("bshd,bshd->bhs", do.to(acc), o.to(acc))
     return delta.reshape(B * H, S).contiguous()
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """Delta as ``attention_delta_plain``. On CUDA tensors this launches
+    ``flash_bwd_delta`` of ``csrc/flash_bwd.cu`` (bf16 or fp32, head_dim 64
+    or 128) or raises: the plain expression's fp32 copies of o and dO cost
+    more than the fused backward kernel. CPU tensors take the plain version.
+    ``attention_delta.launches`` counts launches."""
+    if _on_cpu(o, do):
+        return attention_delta_plain(o, do)
+    for name, x in (("o", o), ("do", do)):
+        if x.device != o.device or x.dtype != o.dtype or x.shape != o.shape:
+            raise ValueError(f"{name} must match o: {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if x.dim() != 4 or x.stride(-1) != 1:
+            raise ValueError(f"{name} must be (B, S, H, D) with a "
+                             "contiguous last dim")
+        # 16-byte loads: aligned base and b, s, h strides
+        if any(s * x.element_size() % 16 for s in x.stride()[:3]) or \
+                x.data_ptr() % 16:
+            raise ValueError(f"{name} must be aligned to 16 bytes: base and "
+                             "b, s, h strides")
+    if o.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash_bwd_delta takes bf16 or fp32, got {o.dtype}")
+    if o.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_delta supports head_dim "
+                         f"{_KERNEL_HEAD_DIMS}, got {o.shape[-1]}")
+    return _launch_delta(o, do)
+
+
+attention_delta.launches = 0
+
+
+def _launch_delta(o, do):
+    B, S, H, _ = o.shape
+    delta = torch.empty((B * H, S), dtype=torch.float32, device=o.device)
+    _launch("flash_bwd", "flash_bwd_delta", (o, do, delta), False)
+    attention_delta.launches += 1
+    return delta
 
 
 def bwd_softmax_grads(q, k, v, do, lse, delta, causal: bool):
@@ -255,7 +299,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True
     dQ = dS K, dK = dS^T Q, dV = P^T dO. Returns ``(dq, dk, dv)``, dq in q's
     dtype and shape, dk and dv in k's (summed over each group of query
     heads). Any S and head dim."""
-    delta = attention_delta(o, do)
+    delta = attention_delta_plain(o, do)
     return _bwd_plain(q, k, v, do, lse, delta, causal)
 
 
@@ -270,8 +314,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True
     """dQ of flash attention, from the forward's lse and ``attention_delta``.
 
     On CUDA tensors this launches ``flash_bwd_dq`` of ``csrc/flash_bwd.cu``
-    (bf16 or fp32, head_dim 64 or 128, any S) or raises; CPU tensors take
-    the plain version. ``flash_attention_bwd_dq.launches`` counts launches."""
+    (the ``mma.sync`` kernel; bf16 or fp32, head_dim 64 or 128, any S) or
+    raises; CPU tensors take the plain version. The bf16 backward does not
+    come here: ``flash_attention_bwd`` folds dQ into ``flash_bwd``.
+    ``flash_attention_bwd_dq.launches`` counts launches."""
     if _on_cpu(q, k, v, do):
         return _bwd_plain(q, k, v, do, lse, delta, causal)[0]
     _check_kernel_inputs("flash_bwd_dq", q, k, v, do)
@@ -295,8 +341,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True
     query heads inside the kernel: (B, S, KVH, D) in k's dtype.
 
     On CUDA tensors this launches ``flash_bwd_dkv`` of
-    ``csrc/flash_bwd.cu`` or raises; CPU tensors take the plain version.
-    ``flash_attention_bwd_dkv.launches`` counts launches."""
+    ``csrc/flash_bwd.cu`` (bf16: the TMA / ``wgmma`` kernel without dQ;
+    fp32: the ``mma.sync`` kernel) or raises; CPU tensors take the plain
+    version. ``flash_attention_bwd_dkv.launches`` counts launches."""
     if _on_cpu(q, k, v, do):
         return _bwd_plain(q, k, v, do, lse, delta, causal)[1:]
     _check_kernel_inputs("flash_bwd_dkv", q, k, v, do)
@@ -319,14 +366,42 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True
                         ) -> Tuple[torch.Tensor, ...]:
     """Flash-attention backward: ``(dq, dk, dv)`` as
-    ``flash_attention_bwd_plain``. On CUDA tensors: Delta, then the two
-    kernels (or an error; no fallback). On CPU tensors: the plain version."""
+    ``flash_attention_bwd_plain``.
+
+    On CUDA tensors, Delta first, then by dtype (or an error; no fallback):
+
+    - bf16: one launch of ``flash_bwd`` of ``csrc/flash_bwd.cu``, which
+      computes dK and dV and adds each q tile's dQ into a zeroed fp32
+      accumulator, cast to bf16 after. ``flash_attention_bwd.launches``
+      counts these launches;
+    - fp32: the pair, ``flash_attention_bwd_dq`` and
+      ``flash_attention_bwd_dkv`` (the ``mma.sync`` kernels).
+
+    On CPU tensors: the plain version."""
     if _on_cpu(q, k, v, o, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     delta = attention_delta(o, do)
+    if q.dtype == torch.bfloat16:
+        _check_kernel_inputs("flash_bwd", q, k, v, do)
+        _check_row_stats(q, lse=lse, delta=delta)
+        return _launch_bwd(q, k, v, do, lse, delta, causal)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _launch_bwd(q, k, v, do, lse, delta, causal: bool):
+    # the kernel adds every q tile's share into dq_acc, so it starts at 0
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch("flash_bwd", "flash_bwd",
+            (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
+    flash_attention_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

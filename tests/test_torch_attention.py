@@ -25,6 +25,7 @@ from ray_tpu_torch.ops.attention import (
     FlashAttention,
     _check_kernel_inputs,
     attention,
+    attention_delta,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -305,7 +306,7 @@ def test_plain_backward_builds_no_kernel():
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(12, 1, 32, 4, 2, 64))
     counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+                flash_attention_bwd_dkv, flash_attention_bwd, attention_delta)
     before = [c.launches for c in counters]
     o = attention(q, k, v, True, "auto")
     dq, dk, dv = torch.autograd.grad(o.sum(), (q, k, v))
@@ -318,15 +319,33 @@ def test_plain_backward_builds_no_kernel():
                             meta[4], True)
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+# per C entry point: its library function, the wrapper's launcher, the
+# counter it adds to, the number of pointers it takes and of b, s, h strides
+# (3 for each 4-d tensor: q k v dO, then the outputs)
+BINDINGS = {
+    "dq": ("flash_bwd_dq", "_launch_bwd_dq", "flash_attention_bwd_dq", 7, 15),
+    "dkv": ("flash_bwd_dkv", "_launch_bwd_dkv", "flash_attention_bwd_dkv", 8,
+            18),
+    "fused": ("flash_bwd", "_launch_bwd", "flash_attention_bwd", 9, 21),
+    "delta": ("flash_bwd_delta", "_launch_delta", "attention_delta", 3, 6),
+}
+
+
+@pytest.mark.parametrize("kernel", list(BINDINGS))
 def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
     """As for the forward: the backward entry points get their ctypes
     signatures before the first call, and the wrapper passes the pointers,
-    the shape, every b, s, h stride of the 4-d tensors and the stream."""
+    the shape, every b, s, h stride of the 4-d tensors and the stream. The
+    fused kernel's last pointer is the fp32 dQ accumulator of q's shape,
+    all zeros when the kernel is called (the kernel adds into it)."""
     import contextlib
     import ctypes
     import importlib
     import types
+
+    fn_name, launcher, counter_name, n_ptr, n_strides = BINDINGS[kernel]
+    q, k, v = (torch.from_numpy(x) for x in _qkv(13, 1, 8, 4, 2, 64))
+    numel = q.numel()
 
     class EntryPoint:
         argtypes = None
@@ -334,30 +353,81 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
 
         def __call__(self, *args):
             self.args = args
+            if kernel == "fused":  # read the accumulator as the kernel would
+                self.acc = np.ctypeslib.as_array(
+                    (ctypes.c_float * numel).from_address(args[8])).copy()
             return 0
 
     entry = EntryPoint()
     att = importlib.import_module("ray_tpu_torch.ops.attention")
     monkeypatch.setattr(_build, "build", lambda name: types.SimpleNamespace(
-        lib=types.SimpleNamespace(**{f"flash_bwd_{kernel}": entry})))
+        lib=types.SimpleNamespace(**{fn_name: entry})))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d:
                         types.SimpleNamespace(cuda_stream=0x7F12_3456_789A))
-    q, k, v = (torch.from_numpy(x) for x in _qkv(13, 1, 8, 4, 2, 64))
     lse = torch.zeros(4, 8, 1)
     delta = torch.zeros(4, 8)
-    launch = getattr(att, f"_launch_bwd_{kernel}")
-    counter = getattr(att, f"flash_attention_bwd_{kernel}")
+    counter = getattr(att, counter_name)
     before = counter.launches
-    launch(q, k, v, q, lse, delta, True)
-    n_ptr = 7 if kernel == "dq" else 8
+    if kernel == "delta":
+        att._launch_delta(q, q)
+    else:
+        out = getattr(att, launcher)(q, k, v, q, lse, delta, True)
     pointer, i32 = ctypes.c_void_p, ctypes.c_int
     assert entry.argtypes == ([pointer] * n_ptr + [i32] * 6
                               + [ctypes.POINTER(ctypes.c_longlong), i32,
                                  pointer])
     assert len(entry.args) == len(entry.argtypes)
     assert entry.args[0] == q.data_ptr() and entry.args[-1] == 0x7F12_3456_789A
-    assert list(entry.args[n_ptr:n_ptr + 6]) == [1, 1, 8, 4, 2, 64]
-    n_strides = 3 * (5 if kernel == "dq" else 6)  # q k v dO + outputs
+    kv_heads = 4 if kernel == "delta" else 2  # Delta's 2nd tensor is dO
+    assert list(entry.args[n_ptr:n_ptr + 6]) == [1, 1, 8, 4, kv_heads, 64]
     assert len(entry.args[n_ptr + 6]) == n_strides
     assert counter.launches == before + 1
+    if kernel == "fused":
+        assert entry.acc.shape == (numel,) and not entry.acc.any()
+        dq, dk, dv = out
+        assert dq.dtype == q.dtype and dq.shape == q.shape
+        assert dk.shape == dv.shape == k.shape
+
+
+def test_backward_dispatch_by_dtype(monkeypatch):
+    """On CUDA tensors (``_on_cpu`` forced False here, the launchers replaced
+    by recorders, as the binding tests replace ``_build.build``) the bf16
+    backward runs Delta and then ``flash_bwd`` once, and fp32 runs Delta and
+    the pair. Nothing is built."""
+    import importlib
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    calls = []
+
+    def recorder(name, result):
+        def launch(*args):
+            calls.append(name)
+            return result(*args)
+        return launch
+
+    monkeypatch.setattr(att, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(att, "_launch_delta", recorder(
+        "delta", lambda o, do: torch.zeros(o.shape[0] * o.shape[2],
+                                           o.shape[1])))
+    monkeypatch.setattr(att, "_launch_bwd", recorder(
+        "flash_bwd", lambda q, k, v, *rest: (q, k, v)))
+    monkeypatch.setattr(att, "_launch_bwd_dq", recorder(
+        "flash_bwd_dq", lambda q, *rest: q))
+    monkeypatch.setattr(att, "_launch_bwd_dkv", recorder(
+        "flash_bwd_dkv", lambda q, k, v, *rest: (k, v)))
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    for dtype, want in ((torch.bfloat16, ["delta", "flash_bwd"]),
+                        (torch.float32, ["delta", "flash_bwd_dq",
+                                         "flash_bwd_dkv"])):
+        q, k, v = (torch.from_numpy(x).to(dtype)
+                   for x in _qkv(14, 1, 16, 4, 2, 64))
+        lse = torch.zeros(4, 16, 1)
+        calls.clear()
+        dq, dk, dv = flash_attention_bwd(q, k, v, q, lse, q, True)
+        assert calls == want, dtype
+        assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

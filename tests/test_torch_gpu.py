@@ -18,7 +18,9 @@ from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import TorchLLMEngine
 from ray_tpu_torch.models import CONFIGS
 from ray_tpu_torch.ops.attention import (attention, attention_delta,
+                                         attention_delta_plain,
                                          bwd_products, bwd_softmax_grads,
+                                         flash_attention_bwd,
                                          flash_attention_bwd_dkv,
                                          flash_attention_bwd_dq,
                                          flash_attention_fwd,
@@ -161,44 +163,98 @@ def test_engine_prefill_runs_the_kernel(cuda_device):
     assert mr.init_cache(engine.mcfg, 2, 16).k.is_cuda  # cuda by default
 
 
+# (B, S, H, KVH, D): the 1b head dims (D=128, GQA) and 350m's (D=64, MHA),
+# ragged S, one row
+BWD_CASES = [(2, 77, 4, 2, 64), (1, 256, 4, 4, 128), (1, 1000, 16, 8, 128),
+             (3, 1, 4, 1, 64), (2, 200, 16, 16, 64)]
+
+
+def _bwd_inputs(device, dtype, case, seed=1):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, S, H, KVH, D = case
+    return tuple(torch.randn(B, S, h, D, generator=gen, device=device,
+                             dtype=dtype) for h in (H, KVH, KVH, H))
+
+
+def _assert_bwd_close(name, got, ref, mag, dtype, where):
+    atol, rtol, m = BWD_TOL[dtype]
+    ref = ref.to(dtype).float()
+    diff = (got.float() - ref).abs()
+    bound = atol + rtol * ref.abs() + m * mag
+    assert bool((diff <= bound).all()), (
+        f"{name} off by {diff.max().item():.3e} at {where}; worst excess "
+        f"{(diff - bound).max().item():.3e}")
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_kernels_match_plain(cuda_device, dtype):
-    """Both backward kernels against the plain backward on the same o, lse
-    and Delta: the 1b head dims (D=128, GQA) and 350m's (D=64, MHA), ragged
-    S, one row, causal and full."""
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    atol, rtol, m = BWD_TOL[dtype]
-    for (B, S, H, KVH, D) in [(2, 77, 4, 2, 64), (1, 256, 4, 4, 128),
-                              (1, 1000, 16, 8, 128), (3, 1, 4, 1, 64),
-                              (2, 200, 16, 16, 64)]:
-        q, k, v, do = (torch.randn(B, S, h, D, generator=gen,
-                                   device=cuda_device, dtype=dtype)
-                       for h in (H, KVH, KVH, H))
+    """The backward kernels against the plain backward on the same o, lse
+    and Delta, causal and full: the pair (dQ and dK/dV, each on its own;
+    bf16 dK/dV is the TMA / wgmma kernel without dQ) and, in bf16,
+    ``flash_bwd`` through ``flash_attention_bwd``, which runs Delta and the
+    one fused kernel."""
+    for case in BWD_CASES:
+        q, k, v, do = _bwd_inputs(cuda_device, dtype, case)
         for causal in (True, False):
+            where = f"{case} causal={causal}"
             o, lse = flash_attention_fwd(q, k, v, causal)
             delta = attention_delta(o, do)
             before = (flash_attention_bwd_dq.launches,
                       flash_attention_bwd_dkv.launches)
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
             dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+            got = {"dq": dq, "dk": dk, "dv": dv}
+            if dtype == torch.bfloat16:
+                fused_before = (flash_attention_bwd.launches,
+                                attention_delta.launches)
+                fused = flash_attention_bwd(q, k, v, o, lse, do, causal)
+                assert (flash_attention_bwd.launches,
+                        attention_delta.launches) == (fused_before[0] + 1,
+                                                      fused_before[1] + 1)
+                got.update(zip(("fused dq", "fused dk", "fused dv"), fused))
             torch.cuda.synchronize()
             assert (flash_attention_bwd_dq.launches,
                     flash_attention_bwd_dkv.launches) == (before[0] + 1,
                                                           before[1] + 1)
-            assert dq.dtype == dk.dtype == dv.dtype == dtype
+            assert all(x.dtype == dtype for x in got.values())
             assert dk.shape == dv.shape == k.shape
             p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
-            ref = bwd_products(p, ds, q, k, do)
-            mag = bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
-            for name, got, r, mg in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                        ref, mag):
-                r = r.to(dtype).float()
-                diff = (got.float() - r).abs()
-                bound = atol + rtol * r.abs() + m * mg
-                assert bool((diff <= bound).all()), (
-                    f"{name} off by {diff.max().item():.3e} at "
-                    f"{(B, S, H, KVH, D)} causal={causal}; worst excess "
-                    f"{(diff - bound).max().item():.3e}")
+            ref = dict(zip(("dq", "dk", "dv"), bwd_products(p, ds, q, k, do)))
+            mag = dict(zip(("dq", "dk", "dv"), bwd_products(
+                p, ds.abs(), q.abs(), k.abs(), do.abs())))
+            for name, x in got.items():
+                key = name.split()[-1]
+                _assert_bwd_close(name, x, ref[key], mag[key], dtype, where)
+
+
+def test_fused_backward_is_repeatable(cuda_device):
+    """Two runs of ``flash_bwd`` on the same inputs: dK and dV are the same
+    bits (each block keeps its key tile's sums in registers), dQ, added
+    across blocks in an order that varies, within BWD_TOL of each other."""
+    for case in ((1, 1000, 16, 8, 128), (2, 200, 16, 16, 64)):
+        q, k, v, do = _bwd_inputs(cuda_device, torch.bfloat16, case, seed=3)
+        o, lse = flash_attention_fwd(q, k, v, True)
+        dq1, dk1, dv1 = flash_attention_bwd(q, k, v, o, lse, do, True)
+        dq2, dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+        atol, rtol, _ = BWD_TOL[torch.bfloat16]
+        torch.testing.assert_close(dq1.float(), dq2.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_delta_kernel_matches_plain(cuda_device, dtype):
+    """Delta = rowsum(dO * O) from ``flash_bwd_delta`` against the plain
+    expression: both sum exact products in fp32, in other orders."""
+    for case in BWD_CASES:
+        q, _, _, do = _bwd_inputs(cuda_device, dtype, case, seed=4)
+        before = attention_delta.launches
+        got = attention_delta(q, do)
+        assert attention_delta.launches == before + 1
+        want = attention_delta_plain(q, do)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
 
 def test_backward_kernels_reject_what_they_cannot_run(cuda_device):
@@ -217,6 +273,14 @@ def test_backward_kernels_reject_what_they_cannot_run(cuda_device):
         flash_attention_bwd_dq(q, q, q, q, lse.double(), delta, True)
     with pytest.raises(ValueError, match="delta"):
         flash_attention_bwd_dkv(q, q, q, q, lse, delta.t(), True)
+    # the fused bf16 backward checks before it launches anything
+    before = flash_attention_bwd.launches, attention_delta.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(big, big, big, big, lse, big, True)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q, q, q, lse.double(), q, True)
+    assert flash_attention_bwd.launches == before[0]
+    assert attention_delta.launches == before[1] + 1  # the lse case's Delta
 
 
 def test_attention_grads_on_the_card_flow_through_the_kernels(cuda_device):
@@ -229,11 +293,13 @@ def test_attention_grads_on_the_card_flow_through_the_kernels(cuda_device):
     q, k, v = (torch.randn(2, 128, h, 64, generator=gen, device=cuda_device)
                .requires_grad_() for h in (4, 2, 2))
     do = torch.randn(2, 128, 4, 64, generator=gen, device=cuda_device)
-    counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv)
+    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, flash_attention_bwd)
     before = [c.launches for c in counters]
     got = torch.autograd.grad(attention(q, k, v, True, "auto"), (q, k, v), do)
-    assert [c.launches for c in counters] == [n + 1 for n in before]
+    # fp32: Delta and the pair; the fused kernel is bf16's
+    assert [c.launches for c in counters] == [n + d for n, d in
+                                              zip(before, (1, 1, 1, 1, 0))]
     want = torch.autograd.grad(attention(q, k, v, True, "xla"), (q, k, v), do)
     atol, rtol, _ = BWD_TOL[torch.float32]
     for g, w in zip(got, want):
@@ -257,16 +323,19 @@ def test_train_step_through_kernels_matches_plain(cuda_device):
                                  optimizer=make_optimizer(**opt_kw))
         params, opt = bundle.init(seed=0)
         batch = bundle.make_batch(np.random.default_rng(0), 4, 96)
-        before = flash_attention_fwd.launches, flash_attention_bwd_dq.launches
+        counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                    attention_delta, flash_attention_bwd)
+        before = [c.launches for c in counters]
         losses = []
         for _ in range(3):
             params, opt, loss = bundle.step(params, opt, batch)
             losses.append(loss.item())
-        launched = (flash_attention_fwd.launches - before[0],
-                    flash_attention_bwd_dq.launches - before[1])
+        launched = tuple(c.launches - n for c, n in zip(counters, before))
         runs[impl] = (losses, params, launched)
-    assert runs["auto"][2] == (3 * 2 * cfg.n_layers, 3 * cfg.n_layers)
-    assert runs["xla"][2] == (0, 0)
+    # fp32 trains through the pair: Delta and dQ once a layer, no flash_bwd
+    assert runs["auto"][2] == (3 * 2 * cfg.n_layers, 3 * cfg.n_layers,
+                               3 * cfg.n_layers, 0)
+    assert runs["xla"][2] == (0, 0, 0, 0)
     np.testing.assert_allclose(runs["auto"][0], runs["xla"][0], rtol=1e-4)
     sched = make_optimizer(**opt_kw).schedule
     atol = 2 * 1.2 * sum(sched(t) for t in range(3))
