@@ -30,7 +30,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    never) times a step, and one step's loss and gradients are held against
    the same step with plain attention; step time, tokens/s, MFU, peak
    memory, and where a step's device time goes (``torch.profiler``);
-5. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
+5. head_dim-64 kernels: the forward and the whole bf16 backward (Delta and
+   ``flash_bwd``) against plain at the MoE and ViT training shapes, moe-1b
+   (4 x 2048, 16 query and 16 KV heads, causal) and ViT-B/16 (64 images x
+   197 tokens, 12 heads, full), each timed beside its bound and the
+   library's call;
+6. MoE layer: one ``MoEMLP`` at moe-1b width on the training's 4 x 2048
+   tokens (two groups), fp32, on the card and on the CPU from the same
+   weights and input, at moe-1b's capacity and at one that drops slots:
+   the same routing (experts, slots, keep), outputs and aux within fp32's
+   sums;
+7. MoE training: ``TrainStepBundle`` at moe-1b's full width and depth
+   (random weights from a seed) on one batch of 4 x 2048, as phase 4: the
+   loss must fall, the kernels launch as for the 1b model, one step's loss
+   and gradients are held against plain attention running the same
+   routing (the share of tokens its own router would route otherwise is
+   bounded apart), and a profiled step books the router, the
+   dispatch and combine, and the expert products by name;
+8. ViT training: ``VisionTransformer`` at vit-b16-224 on a batch of 64
+   synthetic images (the brightest-quadrant task of tests/test_moe_vit.py
+   at 224 x 224) with ``make_optimizer``: the loss must fall below a
+   quarter of ln 4 and the batch be fitted, where the head alone trained
+   the same way stays above it, the kernels launch once a layer each
+   (forward, Delta, ``flash_bwd``), one step's logits and gradients are
+   held against plain attention; step time, images/s, peak memory;
+9. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
    width (random weights from a seed, default engine geometry) answers
    concurrent completion requests; the kernel launch counts of that run
    are held against the prefill calls, and one admitted batch's prefill
@@ -44,7 +68,8 @@ is the sum over the paths it lies on, ``launches_by_path`` splits it; its
 times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
 ``mma_ms`` and the training shape's under ``train_shape``, and at the
 training shape for the backward, ``flash_bwd`` with ``backward_ms`` and
-``mma_ms``); the last line is ``{"ok": true,
+``mma_ms``; ``d64_shapes`` holds the forward's, ``flash_bwd``'s and
+Delta's at the MoE and ViT shapes); the last line is ``{"ok": true,
 "device": {...}}``. With no card, or outside a checkout of the repository,
 it prints no result and exits non-zero.
 """
@@ -105,6 +130,44 @@ DELTA_TOL = (1e-3, 0.0, 0.0)
 # cancellation over 16 layers and 2 passes, 32 * 2^-8 = 0.125.
 TRAIN_LOSS_TOL = 0.1
 TRAIN_GRAD_TOL = 32 * 2.0 ** -8
+# moe-1b's step, kernels against plain attention: the plain step replays
+# the kernel step's routing (each MoE layer's experts), so the two run the
+# same discrete choices and their gradients are held at TRAIN_GRAD_TOL as
+# the dense model's. How many tokens the plain step's own router would
+# route otherwise is bounded apart: the router logits spread ~0.64 (std
+# 0.02 weights on 1024 unit inputs), a token's 8 about 0.2 apart. Kernel
+# and plain attention round P to bf16 at other points, which moves a
+# layer's attention output by ~2^-9 of its size and the normalised router
+# input by ~1e-3 (attention is about half the residual stream at these
+# weights), so the logits by ~1e-3 x 0.64: a token flips where its two
+# boundary logits are that close, ~0.3 % of tokens a layer, a few times
+# that where earlier layers' changes add up. Bound: 5 % of the tokens of
+# all MoE layers.
+MOE_ROUTE_TOL = 0.05
+# One MoE layer in fp32 on the card against the CPU, same weights and
+# input, at moe-1b's capacity factor and at MOE_DROP_CAPACITY (about half
+# the slots of a balanced router's load, so slots are dropped): routing
+# must be equal (fp32 products, TF32 off); outputs to the
+# rounding of fp32 sums of up to F = 2816 products in other orders (F x
+# 2^-24 = 1.7e-4 of the largest value), the aux (a mean of 2^16 fp32
+# probabilities) to 1e-5.
+MOE_LAYER_TOL = 2e-4
+MOE_AUX_RTOL = 1e-5
+MOE_DROP_CAPACITY = 0.5
+# vit-b16-224 through the kernels against plain attention, bf16, one step:
+# the logits as the 1b prefill logits (LOGITS_TOL); per-leaf gradients as
+# the 1b step's, 12 layers x 2 passes of a few 2^-8 roundings.
+VIT_GRAD_TOL = 2 * 12 * 2.0 ** -8
+# vit-b16-224 fitting its batch: after VIT_STEPS steps at VIT_LR (AdamW, a
+# rate low enough that the loss falls without spiking in the first steps)
+# the loss must be below VIT_FIT_LOSS
+# and the accuracy of the last 5 steps above 0.9 (tests/test_moe_vit.py's
+# criterion). ln 4 is the loss of a head that has learnt only which 4 of
+# its 1000 classes occur; a quarter of it needs the images told apart. The
+# control, the head alone trained the same way from the same weights, must
+# stay above the bound, so that passing it takes the encoder's gradients.
+VIT_LR = 3e-5
+VIT_FIT_LOSS = 0.25 * 1.3862943611198906  # ln(4) / 4
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, 700 W)
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s (data sheet)
@@ -122,8 +185,14 @@ TIME_ROUNDS = 5  # the forward's timings, in turns with its yardsticks
 BWD_SHAPES = (TRAIN_SHAPE, (8, 16, 16, 64, 1024))
 BWD_RAGGED = ((2, 4, 2, 64, 77), (1, 4, 4, 128, 256), (1, 16, 8, 128, 1000),
               (3, 4, 1, 64, 1), (2, 16, 16, 64, 200))
+# the head_dim-64 training shapes: moe-1b (MHA) at batch 4 x 2048, causal;
+# ViT-B/16 at batch 64 (196 patches + the class token), full
+D64_SHAPES = {"moe-1b": ((4, 16, 16, 64, 2048), True),
+              "vit-b16-224": ((64, 12, 12, 64, 197), False)}
 TRAIN_CONFIG, TRAIN_BATCH, TRAIN_SEQ = "1b", 4, 2048
+MOE_CONFIG = "moe-1b"  # trained at TRAIN_BATCH x TRAIN_SEQ
 TRAIN_STEPS, TRAIN_WARMUP = 7, 2  # steps on one batch; the first 2 untimed
+VIT_CONFIG, VIT_BATCH, VIT_STEPS = "vit-b16-224", 64, 30
 PROMPT_LENS = (20, 100, 300, 700, 1200, 1900) * 2
 OUT_DIR = "chiprun_out"  # long reports (the profiler's table) go here
 
@@ -562,22 +631,348 @@ def time_bwd(q, k, v, do, card) -> dict:
     return entries
 
 
-def phase_training(card: str) -> dict:
-    """The 1b model trained for TRAIN_STEPS steps on one batch through
-    ``TrainStepBundle`` with the kernels. Returns each kernel's launches in
-    that run."""
-    import numpy as np
-    import torch
-
-    from ray_tpu_torch.models import CONFIGS
+def kernel_counters():
+    """Every kernel wrapper's launch counter, by wrapper name."""
     from ray_tpu_torch.ops.attention import (attention_delta,
                                              flash_attention_bwd,
                                              flash_attention_bwd_dkv,
                                              flash_attention_bwd_dq,
                                              flash_attention_fwd)
+
+    return (flash_attention_fwd, attention_delta, flash_attention_bwd,
+            flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+
+def phase_d64_kernels(card: str) -> dict:
+    """The forward and the whole bf16 backward at the MoE and ViT training
+    shapes (``D64_SHAPES``), against their plain versions on the same
+    inputs (TOL, BWD_TOL, DELTA_TOL); then, timed in turns over
+    TIME_ROUNDS rounds (median of each): the forward kernel and the
+    library's forward, ``flash_bwd`` alone, the backward as
+    ``flash_attention_bwd`` runs it (Delta, zeros, kernel, cast), the Delta
+    kernel and the library's backward; the plain versions once. Returns
+    each kernel's entries by shape name."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    for name, ((B, H, KVH, D, S), causal) in D64_SHAPES.items():
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for h in (H, KVH, KVH, H))
+        where = (f"{name} B={B} S={S} H={H} KVH={KVH} D={D} bf16 "
+                 f"causal={int(causal)}")
+        o, lse = att.flash_attention_fwd(q, k, v, causal)
+        delta = att.attention_delta(o, do)
+        dq, dk, dv = att.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = att.flash_attention_fwd_plain(q, k, v, causal)
+        pv = att.flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
+        errs = {key: compare("flash_fwd", key, got, ref,
+                             TOL["bfloat16"][key], where, pv)
+                for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref))}
+        del o_ref, lse_ref, pv
+        errs["delta"] = compare("flash_bwd_delta", "delta", delta,
+                                att.attention_delta_plain(o, do), DELTA_TOL,
+                                where, None)
+        p, ds = att.bwd_softmax_grads(q, k, v, do, lse, delta, causal)
+        ref = [x.to(q.dtype) for x in att.bwd_products(p, ds, q, k, do)]
+        mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+        del p, ds
+        for key, got, r, m in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                  mag):
+            errs[key] = compare("flash_bwd", key, got, r,
+                                BWD_TOL["bfloat16"], where, m)
+        del ref, mag, dq, dk, dv
+        log(f"check d64 {where}: {errs} [tol fwd {TOL['bfloat16']}, bwd "
+            f"{BWD_TOL['bfloat16']}, delta {DELTA_TOL}]")
+
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+        def fused():  # the C entry called directly: no Delta, no zeros
+            att._launch("flash_bwd", "flash_bwd",
+                        (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
+
+        # yardsticks only: one library call on the same inputs (K/V
+        # repeated to H heads outside the timed region); never in the port
+        rep = H // KVH
+        qt, kt, vt = (x.transpose(1, 2) for x in (
+            q, k.repeat_interleave(rep, dim=2),
+            v.repeat_interleave(rep, dim=2)))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 is_causal=causal)
+        dot = do.transpose(1, 2)
+        runs = {
+            "flash_fwd": lambda: att.flash_attention_fwd(q, k, v, causal),
+            "library_fwd": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal),
+            "flash_bwd": fused,
+            "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal),
+            "flash_bwd_delta": lambda: att.attention_delta(o, do),
+            "library_bwd": lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), dot, retain_graph=True),
+        }
+        times = {key: [] for key in runs}
+        for r in range(TIME_ROUNDS):
+            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                times[key].append(cuda_time_ms(runs[key], 20))
+        ms = {key: sorted(t)[len(t) // 2] for key, t in times.items()}
+        ms["plain_fwd"] = cuda_time_ms(
+            lambda: att.flash_attention_fwd_plain(q, k, v, causal), 5,
+            warmup=1)
+        ms["plain_bwd"] = cuda_time_ms(
+            lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  causal), 5, warmup=1)
+        ms["plain_delta"] = cuda_time_ms(
+            lambda: att.attention_delta_plain(o, do), 20)
+        shape = {"shape": [B, S, H, KVH, D], "causal": causal}
+        fb, fby = flash_bound(B, H, KVH, D, S, causal, 2)
+        bb, bby = bwd_bound("flash_bwd", B, H, KVH, D, S, causal, 2)
+        db, dby = bwd_bound("flash_bwd_delta", B, H, KVH, D, S, causal, 2)
+        out["flash_fwd"][name] = {
+            **shape, "ms": ms["flash_fwd"], "plain_ms": ms["plain_fwd"],
+            "library_ms": ms["library_fwd"], "bound_ms": fb, "bound_by": fby,
+            "max_abs_err": errs["o"]["max_abs"]}
+        out["flash_bwd"][name] = {
+            **shape, "ms": ms["flash_bwd"], "backward_ms": ms["backward"],
+            "plain_ms": ms["plain_bwd"], "library_ms": ms["library_bwd"],
+            "bound_ms": bb, "bound_by": bby,
+            "max_abs_err": max(errs[key]["max_abs"]
+                               for key in ("dq", "dk", "dv"))}
+        out["flash_bwd_delta"][name] = {
+            **shape, "ms": ms["flash_bwd_delta"],
+            "plain_ms": ms["plain_delta"], "library_ms": None,
+            "bound_ms": db, "bound_by": dby,
+            "max_abs_err": errs["delta"]["max_abs"]}
+        for key, t in times.items():
+            log(f"time d64 {where}: {key} rounds {t} median {ms[key]:.4f} "
+                f"ms [{card}]")
+        log(f"time d64 {where}: flash_fwd {ms['flash_fwd']:.4f} ms, bound "
+            f"{fb:.4f} ms ({fby}), {100 * fb / ms['flash_fwd']:.1f}% of "
+            f"bound, sdpa forward {ms['library_fwd']:.4f} ms, plain "
+            f"{ms['plain_fwd']:.4f} ms; flash_bwd {ms['flash_bwd']:.4f} ms, "
+            f"bound {bb:.4f} ms ({bby}), {100 * bb / ms['flash_bwd']:.1f}% "
+            f"of bound; whole bf16 backward {ms['backward']:.4f} ms, sdpa "
+            f"backward {ms['library_bwd']:.4f} ms, plain "
+            f"{ms['plain_bwd']:.4f} ms; Delta {ms['flash_bwd_delta']:.4f} "
+            f"ms, bound {db:.4f} ms ({dby}) [{card}]")
+        del q, k, v, do, o, lse, delta, dq_acc, dk, dv, lib_out, qg, kg, vg
+    return out
+
+
+def phase_moe_layer(card: str) -> list:
+    """One ``MoEMLP`` at moe-1b width (E 8, K 2, D 1024, F 2816) on the
+    training's TRAIN_BATCH x TRAIN_SEQ tokens (two groups of 4096), fp32,
+    on the card and on the CPU from the same weights (seed 0, the model's
+    init laws) and input, at moe-1b's capacity factor and at
+    MOE_DROP_CAPACITY, where slots are dropped: the routing must be equal,
+    the outputs and aux within MOE_LAYER_TOL, MOE_AUX_RTOL."""
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS, MoEMLP
+
+    base = dataclasses.replace(CONFIGS[MOE_CONFIG], dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, base.d_model, generator=gen)
+    checks = []
+    for capacity_factor in (base.capacity_factor, MOE_DROP_CAPACITY):
+        cfg = dataclasses.replace(base, capacity_factor=capacity_factor)
+        cpu = MoEMLP(cfg, device="cpu", seed=0)
+        gpu = MoEMLP(cfg)  # on the card, the default
+        gpu.load_state_dict(cpu.state_dict())
+        N = x.shape[0] * x.shape[1]
+        g = cpu.group_size(N)
+        res = {}
+        with torch.no_grad():
+            for name, layer, xs in (("cpu", cpu, x), ("cuda", gpu, x.cuda())):
+                routing = layer.route(xs.reshape(-1, g, cfg.d_model))
+                out, aux = layer(xs)
+                res[name] = (routing, out.cpu(), aux.item())
+        torch.cuda.synchronize()
+        (r_c, o_c, a_c), (r_g, o_g, a_g) = res["cpu"], res["cuda"]
+        for key in ("expert", "pos", "keep"):
+            if not torch.equal(getattr(r_c, key), getattr(r_g, key).cpu()):
+                raise AssertionError(f"MoE layer: routing ({key}) differs "
+                                     "between the card and the CPU")
+        scale = o_c.abs().max().item()
+        err = (o_g - o_c).abs().max().item()
+        check = {"tokens": N, "groups": N // g, "group": g,
+                 "capacity_factor": capacity_factor,
+                 "capacity": r_c.capacity,
+                 "dropped_share": 1.0 - r_c.keep.float().mean().item(),
+                 "out_max_abs_err": err, "out_max_abs": scale,
+                 "aux_cpu": a_c, "aux_cuda": a_g}
+        log(f"moe layer: {cfg.n_experts} experts, top "
+            f"{cfg.experts_per_token}, fp32 on the card against the CPU: "
+            f"routing equal; {check} [tol {MOE_LAYER_TOL} of max|out|, aux "
+            f"rtol {MOE_AUX_RTOL}] [{card}]")
+        if not err <= MOE_LAYER_TOL * scale:
+            raise AssertionError(f"MoE layer output differs by {err}")
+        if not abs(a_g - a_c) <= MOE_AUX_RTOL * abs(a_c):
+            raise AssertionError(f"MoE layer aux differs: {a_g} vs {a_c}")
+        if check["groups"] < 2:
+            raise AssertionError("the MoE layer check ran one group only")
+        if capacity_factor == MOE_DROP_CAPACITY and not check["dropped_share"]:
+            raise AssertionError(f"no slot was dropped at capacity factor "
+                                 f"{capacity_factor}")
+        checks.append(check)
+    return checks
+
+
+def quadrant_batch(rng, n: int, size: int):
+    """tests/test_moe_vit.py's task at ``size`` pixels: noise, and the
+    quadrant named by the label (4 classes) brightened by 2."""
+    import numpy as np
+
+    images = rng.normal(0, 0.3, (n, size, size, 3)).astype(np.float32)
+    labels = rng.integers(0, 4, n)
+    half = size // 2
+    for i, lab in enumerate(labels):
+        y0, x0 = (lab // 2) * half, (lab % 2) * half
+        images[i, y0:y0 + half, x0:x0 + half] += 2.0
+    return images, labels
+
+
+def phase_vit_training(card: str) -> dict:
+    """vit-b16-224 trained for VIT_STEPS steps on one batch of VIT_BATCH
+    synthetic images with ``make_optimizer``, through the kernels. Returns
+    each kernel's launches in that run."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import (VIT_CONFIGS, VisionTransformer,
+                                      classification_loss)
+    from ray_tpu_torch.parallel import make_optimizer
+
+    cfg = VIT_CONFIGS[VIT_CONFIG]
+    t0 = time.perf_counter()
+    model = VisionTransformer(cfg, device="cuda", seed=0)
+    params = dict(model.named_parameters())
+    opt = make_optimizer(learning_rate=VIT_LR, warmup_steps=1)
+    state = opt.init(params)
+    images, labels = quadrant_batch(np.random.default_rng(0), VIT_BATCH,
+                                    cfg.image_size)
+    images = torch.from_numpy(images).cuda()
+    labels = torch.from_numpy(labels).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    log(f"vit training: {VIT_CONFIG} up in {time.perf_counter() - t0:.2f} s "
+        f"({n_params / 1e6:.3f} M params, {cfg.n_layers} layers, head_dim "
+        f"{cfg.head_dim}, {cfg.num_patches + 1} tokens), batch {VIT_BATCH}")
+
+    # one step's logits and grads against plain attention, same weights
+    plain = VisionTransformer(dataclasses.replace(cfg, attention_impl="xla"),
+                              device="cuda", params=params)
+    got = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        logits = m(images)
+        loss = classification_loss(logits, labels)
+        got[name] = (logits.detach(), loss.item(), torch.autograd.grad(
+            loss, list(m.parameters())))
+    del plain
+    (lk, loss_k, gk), (lp, loss_p, gp) = got["kernel"], got["plain"]
+    diff = (lk - lp).abs()
+    atol, rtol = LOGITS_TOL
+    rel = leaf_rel_errors(list(params), gk, gp)
+    worst = max(rel, key=rel.get)
+    check = {"loss_kernel": loss_k, "loss_plain": loss_p,
+             "logits_max_abs_err": diff.max().item(),
+             "max_leaf_rel_err": rel[worst], "worst_leaf": worst,
+             "median_leaf_rel_err": sorted(rel.values())[len(rel) // 2]}
+    del got, gk, gp
+    log(f"vit training: one step, kernels vs plain attention: {check} "
+        f"[logits tol {LOGITS_TOL}, grads {VIT_GRAD_TOL}]")
+    if not bool((diff <= atol + rtol * lp.abs()).all()):
+        raise AssertionError("ViT logits differ beyond LOGITS_TOL")
+    if not rel[worst] <= VIT_GRAD_TOL:
+        raise AssertionError(f"ViT gradient of {worst} differs by "
+                             f"{rel[worst]}, beyond {VIT_GRAD_TOL}")
+
+    def step():
+        logits = model(images)
+        loss = classification_loss(logits, labels)
+        opt.update(params, torch.autograd.grad(loss, list(params.values())),
+                   state)
+        return {"loss": loss.detach(),
+                "accuracy": (logits.argmax(-1) == labels).float().mean()}
+
+    L = cfg.n_layers
+    launches, run = run_steps(step, VIT_STEPS, {
+        "flash_attention_fwd": L, "attention_delta": L,
+        "flash_attention_bwd": L, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}, "vit training")
+    fit = check_vit_fit(cfg, run, images, labels, model)
+    totals = step_totals(profiled(step)[1], "vit training")
+    log(f"vit training: one profiled step {totals}")
+    metrics = {"card": card, "config": VIT_CONFIG, "batch": VIT_BATCH,
+               "steps": VIT_STEPS, **run,
+               "images_per_s": VIT_BATCH / run["step_s_median"],
+               "device_busy_share": totals["total"] / 1e3
+               / run["step_s_median"],
+               "profiled_step": totals, "grad_check": check, "fit": fit}
+    log("vit training metrics: " + json.dumps(metrics))
+    return launches
+
+
+def check_vit_fit(cfg, run, images, labels, model) -> dict:
+    """Whether the ViT's run fitted its batch (VIT_FIT_LOSS), beside the
+    control: the head alone trained from the same weights with the same
+    optimizer and steps. Also reports the trained model's accuracy on
+    another batch of the task, unchecked."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import VisionTransformer, classification_loss
+    from ray_tpu_torch.parallel import make_optimizer
+
+    control = VisionTransformer(cfg, device="cuda", seed=0)
+    head = {k: p for k, p in control.named_parameters()
+            if k.startswith("head.")}
+    opt = make_optimizer(learning_rate=VIT_LR, warmup_steps=1)
+    state = opt.init(head)
+    for _ in range(VIT_STEPS):
+        loss = classification_loss(control(images), labels)
+        opt.update(head, torch.autograd.grad(loss, list(head.values())),
+                   state)
+    held_images, held_labels = quadrant_batch(np.random.default_rng(1),
+                                              VIT_BATCH, cfg.image_size)
+    with torch.no_grad():
+        held = model(torch.from_numpy(held_images).cuda()).argmax(-1).cpu()
+    tail = run["accuracy"][-5:]
+    fit = {"final_loss": run["loss"][-1],
+           "accuracy_last5": sum(tail) / len(tail),
+           "head_only_final_loss": loss.item(),
+           "held_out_accuracy": (held.numpy() == held_labels).mean().item(),
+           "bound": VIT_FIT_LOSS}
+    log(f"vit training: fit of the batch {fit}")
+    if not fit["final_loss"] < VIT_FIT_LOSS < fit["head_only_final_loss"]:
+        raise AssertionError(f"vit training: the loss {fit['final_loss']} "
+                             f"is not below {VIT_FIT_LOSS}, or the head "
+                             "alone reached it")
+    if not fit["accuracy_last5"] > 0.9:
+        raise AssertionError(f"vit training did not fit its batch: {tail}")
+    return fit
+
+
+def phase_training(card: str, config: str = TRAIN_CONFIG,
+                   label: str = "training") -> dict:
+    """An LM config (the dense 1b, or moe-1b) trained for TRAIN_STEPS steps
+    on one batch through ``TrainStepBundle`` with the kernels, at full
+    width and depth. Returns each kernel's launches in that run."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
     from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
 
-    cfg = CONFIGS[TRAIN_CONFIG]
+    cfg = CONFIGS[config]
     t0 = time.perf_counter()
     bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
         learning_rate=1e-4, warmup_steps=1))
@@ -585,92 +980,192 @@ def phase_training(card: str) -> dict:
     batch = bundle.make_batch(np.random.default_rng(0), TRAIN_BATCH,
                               TRAIN_SEQ)
     torch.cuda.synchronize()
-    log(f"training: {TRAIN_CONFIG} bundle up in {time.perf_counter() - t0:.2f}"
-        f" s ({cfg.num_params() / 1e9:.3f} B params, {cfg.n_layers} layers, "
-        f"remat={cfg.remat}), batch {TRAIN_BATCH} x {TRAIN_SEQ}")
-    grad_check = check_training_grads(bundle, params, batch)
+    log(f"{label}: {config} bundle up in {time.perf_counter() - t0:.2f}"
+        f" s ({cfg.num_params() / 1e9:.3f} B params, "
+        f"{cfg.active_params() / 1e9:.3f} B active a token, {cfg.n_layers} "
+        f"layers, {cfg.n_experts} experts, remat={cfg.remat}), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    grad_check = check_training_grads(bundle, params, batch, label)
 
-    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
-                flash_attention_bwd_dq, flash_attention_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        params, opt_state, loss = bundle.step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        losses.append(loss)
-    launches = {c.__name__: c.launches for c in counters}
-    peak_bytes = torch.cuda.max_memory_allocated()
-    losses = [x.item() for x in losses]
-
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"training loss not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall: {losses}")
     # bf16: one Delta and one flash_bwd a layer, never the earlier pair
-    per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-                "attention_delta": cfg.n_layers,
-                "flash_attention_bwd": cfg.n_layers,
-                "flash_attention_bwd_dq": 0,
-                "flash_attention_bwd_dkv": 0}
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"training launched {launches}, want {want} "
-                             f"({per_step} a step x {TRAIN_STEPS} steps)")
-    log(f"training: {TRAIN_STEPS} steps, losses {losses}; launches "
-        f"{launches} = {per_step} a step")
-
-    timed = sorted(times[TRAIN_WARMUP:])
-    step_s = timed[len(timed) // 2]
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    breakdown = profile_step(bundle, params, opt_state, batch)
+    launches, run = run_steps(
+        lambda: {"loss": bundle.step(params, opt_state, batch)[2]},
+        TRAIN_STEPS, {
+            "flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+            "attention_delta": cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+        label)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / run["step_s_median"]
+    breakdown = profile_step(bundle, params, opt_state, batch, label)
     metrics = {
-        "card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
-        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
-        "step_s_median": step_s, "step_s": times,
+        "card": card, "config": config, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, **run,
+        "device_busy_share": breakdown["total"] / 1e3
+        / run["step_s_median"],
         "tokens_per_s": tokens_per_s,
         "mfu": tokens_per_s * cfg.flops_per_token() / H100_BF16_FLOPS,
         "flops_per_token": cfg.flops_per_token(),
-        "max_memory_allocated_bytes": peak_bytes,
-        "launches_per_step": {k: n // TRAIN_STEPS
-                              for k, n in launches.items()},
         "grad_check": grad_check, "device_ms_by_part": breakdown,
     }
-    log("training metrics: " + json.dumps(metrics))
+    if cfg.n_experts:
+        metrics["mfu_counts"] = (
+            "6 x active params (K of E experts a token) + 12 L d S, the JAX "
+            "formula; the experts' capacity padding (capacity_factor "
+            f"{cfg.capacity_factor}) and the router are not counted")
+    log(f"{label} metrics: " + json.dumps(metrics))
     return launches
 
 
-def check_training_grads(bundle, params, batch) -> dict:
-    """One step's loss and gradients through the kernels against the same
-    step with plain attention (``attention_impl="xla"``), from the same
-    params and batch (see TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)."""
+def run_steps(step, n_steps: int, per_step: dict, label: str):
+    """``step()`` (one training step; it returns a dict of 0-d tensors,
+    ``loss`` among them) ``n_steps`` times, with every launch counter set
+    to 0 just before and read just after; each step timed to its end on the
+    card, beside the host's share (the time to enqueue it). Raises unless
+    the loss is finite and falls and each kernel launched ``per_step`` times
+    a step. Returns the launches, and the run's record: each value by step,
+    the step times, their medians over the steps after TRAIN_WARMUP, and
+    the peak memory."""
+    import numpy as np
+    import torch
+
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    values, times, enqueue = [], [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        values.append(step())
+        enqueue.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {c.__name__: c.launches for c in counters}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    record = {key: [v[key].item() for v in values] for key in values[0]}
+    losses = record["loss"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label} loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label} loss did not fall: {losses}")
+    want = {k: n * n_steps for k, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{label} launched {launches}, want {want} "
+                             f"({per_step} a step x {n_steps} steps)")
+    log(f"{label}: {n_steps} steps, losses {losses}; launches {launches} = "
+        f"{per_step} a step")
+
+    def median(xs):
+        xs = sorted(xs[TRAIN_WARMUP:])
+        return xs[len(xs) // 2]
+
+    return launches, {**record, "step_s": times,
+                      "step_s_median": median(times),
+                      "enqueue_s_median": median(enqueue),
+                      "max_memory_allocated_bytes": peak_bytes,
+                      "launches_per_step": per_step}
+
+
+def leaf_rel_errors(names, got, want) -> dict:
+    """||got - want|| / ||want|| for each leaf. A key projection's bias has
+    an exact gradient of 0 (it adds one constant to each query's scores,
+    which softmax ignores), so both sides hold only rounding noise there:
+    its difference is measured against its kernel's gradient instead."""
+    norms = {n: w.float().norm() for n, w in zip(names, want)}
+    out = {}
+    for n, g, w in zip(names, got, want):
+        ref = norms[n[:-len("bias")] + "kernel" if n.endswith(".key.bias")
+                    else n]
+        out[n] = ((g.float() - w.float()).norm()
+                  / ref.clamp_min(1e-30)).item()
+    return out
+
+
+def _record_routing(model, chosen: dict) -> list:
+    """Forward pre-hooks on every ``MoEMLP`` of ``model`` that keep, per
+    layer, the top-K experts its router picks on its first call's input
+    (remat calls it again in the backward), whatever routing the layer then
+    runs. Returns the hooks' handles."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import MoEMLP
+
+    def hook(module, args):
+        if module not in chosen:
+            x = args[0]
+            g = module.group_size(x.shape[0] * x.shape[1])
+            with torch.no_grad():
+                routing = MoEMLP.route(module, x.reshape(-1, g, x.shape[-1]))
+            chosen[module] = routing.expert
+    return [m.register_forward_pre_hook(hook) for m in model.modules()
+            if isinstance(m, MoEMLP)]
+
+
+def check_training_grads(bundle, params, batch, label: str) -> dict:
+    """One step's loss (with the MoE aux, as the bundle's) and gradients
+    through the kernels against the same step with plain attention
+    (``attention_impl="xla"``), from the same params and batch (see
+    TRAIN_LOSS_TOL, TRAIN_GRAD_TOL). For a MoE config the plain step
+    replays the kernel step's routing (each layer's experts, so its slots
+    and drops; gates and aux from its own router), and the share of tokens
+    whose own top-K differs from the replayed one is bounded apart
+    (MOE_ROUTE_TOL)."""
+    import functools
+
     import torch
 
     from ray_tpu_torch.models import Transformer, lm_loss
+    from ray_tpu_torch.models.transformer import MoEMLP
 
-    plain = Transformer(dataclasses.replace(bundle.cfg, attention_impl="xla"),
+    cfg = bundle.cfg
+    plain = Transformer(dataclasses.replace(cfg, attention_impl="xla"),
                         device=bundle.device, params=params)
-    result = {}
+    pairs = list(zip(
+        (m for m in bundle.model.modules() if isinstance(m, MoEMLP)),
+        (m for m in plain.modules() if isinstance(m, MoEMLP))))
+    result, chosen = {}, {}
     for name, model in (("kernel", bundle.model), ("plain", plain)):
         weights = [p for _, p in model.named_parameters()]
-        loss = lm_loss(model(batch["tokens"]), batch["targets"],
-                       batch["mask"])
-        result[name] = (loss.detach(), torch.autograd.grad(loss, weights))
+        hooks = _record_routing(model, chosen)
+        logits, aux = model(batch["tokens"], return_aux=True)
+        loss = lm_loss(logits, batch["targets"], batch["mask"])
+        if aux:
+            loss = loss + cfg.moe_aux_coef * sum(aux.values())
+        del logits
+        grads = torch.autograd.grad(loss, weights)
+        for h in hooks:
+            h.remove()
+        result[name] = (loss.detach(), grads)
+        if name == "kernel":  # the plain step runs the kernel step's routing
+            for mk, mp in pairs:
+                mp.route = functools.partial(MoEMLP.route, mp,
+                                             expert=chosen[mk])
+    for _, mp in pairs:  # the partial refers to its module: free the cycle
+        del mp.route
     (loss_k, grads_k), (loss_p, grads_p) = result["kernel"], result["plain"]
-    rel = {key: ((gk.float() - gp.float()).norm()
-                 / gp.float().norm().clamp_min(1e-30)).item()
-           for key, gk, gp in zip(params, grads_k, grads_p)}
+    rel = leaf_rel_errors(list(params), grads_k, grads_p)
     worst = max(rel, key=rel.get)
     check = {"loss_kernel": loss_k.item(), "loss_plain": loss_p.item(),
              "max_leaf_rel_err": rel[worst], "worst_leaf": worst,
              "median_leaf_rel_err": sorted(rel.values())[len(rel) // 2]}
-    log(f"training: one step, kernels vs plain attention: {check}")
+    if cfg.n_experts:
+        n_moe = sum(1 for k in params if k.endswith(".router.kernel"))
+        if not len(pairs) == n_moe or not all(
+                mk in chosen and mp in chosen for mk, mp in pairs):
+            raise AssertionError("a MoE layer's routing was not recorded")
+        flipped = [(chosen[mk].sort(-1).values != chosen[mp].sort(-1).values)
+                   .any(-1).float().mean().item() for mk, mp in pairs]
+        share = sum(flipped) / len(flipped)
+        check.update(routed_otherwise_share=share,
+                     routed_otherwise_by_layer=flipped)
+        if not share <= MOE_ROUTE_TOL:
+            raise AssertionError(f"{share:.4f} of the tokens are routed "
+                                 f"otherwise, beyond {MOE_ROUTE_TOL}")
+    del plain, pairs, chosen
+    log(f"{label}: one step, kernels vs plain attention: {check}")
     if not abs(check["loss_kernel"] - check["loss_plain"]) <= TRAIN_LOSS_TOL:
-        raise AssertionError(f"training loss differs beyond {TRAIN_LOSS_TOL}")
+        raise AssertionError(f"{label} loss differs beyond {TRAIN_LOSS_TOL}")
     if not rel[worst] <= TRAIN_GRAD_TOL:
         raise AssertionError(f"gradient of {worst} differs by {rel[worst]} "
                              f"(relative), beyond {TRAIN_GRAD_TOL}")
@@ -684,27 +1179,40 @@ KERNEL_NAMES = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_bwd_delta")
 
 
-def profile_step(bundle, params, opt_state, batch) -> dict:
+# the ops of MoEMLP's dispatch and combine (and their backward): the copy
+# of each slot's token into its buffer row, the gathers of rows, the
+# index_add of the combine's backward, the slot count's cumsum. The
+# combine's fp32 weighted sum is booked as elementwise work ("other").
+MOE_INDEX_OPS = ("aten::index_copy", "aten::index_select", "aten::index_add_",
+                 "aten::cumsum")
+# the router's own ops beside its fp32 product: softmax and top-K (the
+# model's only softmax; the loss takes log_softmax)
+MOE_ROUTER_OPS = ("aten::_softmax", "aten::_softmax_backward_data",
+                  "aten::topk")
+
+
+def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
     """One more step under ``torch.profiler``: device ms of the flash
     kernels; of the rest of the attention backward (``attn_bwd_glue``: the
     device time under ``FlashAttention``'s backward other than the
     ``flash_bwd`` kernel, i.e. the Delta kernel, the zeroed dQ accumulator
     and its cast to bf16); of the matrix products by the layer their shapes
-    name (attention projections, MLP, lm_head); of the optimizer's foreach
-    ops; and of the rest. The full table goes to chiprun_out/."""
+    name (attention projections, MLP, lm_head; for a MoE config the expert
+    products, batched over E, and the router's, with E columns); of a MoE
+    config's router ops and its dispatch and combine (``MOE_ROUTER_OPS``,
+    ``MOE_INDEX_OPS``); of the optimizer's foreach ops; and of the rest.
+    The full table goes to OUT_DIR."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = bundle.cfg
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        bundle.step(params, opt_state, batch)
-        torch.cuda.synchronize()
+    prof, averages = profiled(lambda: bundle.step(params, opt_state, batch))
     parts = {**dict.fromkeys(KERNEL_NAMES, 0.0), "attn_bwd_glue": 0.0,
              "attn_projections": 0.0, "mlp": 0.0, "lm_head": 0.0,
              "other_matmul": 0.0, "optimizer": 0.0}
+    if cfg.n_experts:
+        parts.update(moe_router=0.0, moe_dispatch_combine=0.0,
+                     moe_expert_gemms=0.0)
     total = 0.0
-    averages = prof.key_averages(group_by_input_shape=True)
     for evt in averages:
         ms = evt.self_device_time_total / 1e3
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -713,9 +1221,17 @@ def profile_step(bundle, params, opt_state, batch) -> dict:
                 if f"{kernel}_kernel" in evt.key:
                     parts[kernel] += ms
             continue
-        if evt.key in MM_OPS:
+        if cfg.n_experts and evt.key in MOE_INDEX_OPS:
+            parts["moe_dispatch_combine"] += ms
+        elif cfg.n_experts and evt.key in MOE_ROUTER_OPS:
+            parts["moe_router"] += ms
+        elif evt.key in MM_OPS:
             dims = {d for shape in evt.input_shapes for d in shape}
-            if cfg.vocab_size in dims:
+            if cfg.n_experts and evt.key == "aten::bmm":
+                parts["moe_expert_gemms"] += ms
+            elif cfg.n_experts and cfg.n_experts in dims:
+                parts["moe_router"] += ms
+            elif cfg.vocab_size in dims:
                 parts["lm_head"] += ms
             elif cfg.d_ff in dims:
                 parts["mlp"] += ms
@@ -734,13 +1250,43 @@ def profile_step(bundle, params, opt_state, batch) -> dict:
     parts["attn_bwd_glue"] = node_ms - sum(parts[k] for k in KERNEL_NAMES
                                            if k != "flash_fwd")
     parts["other"] = total - sum(parts.values())
-    parts["total"] = total
+    parts.update(step_totals(averages, label))
+    log(f"{label}: one profiled step, device ms by part {parts}")
+    return parts
+
+
+def profiled(step):
+    """``step()`` once under ``torch.profiler`` (CPU and CUDA activity, op
+    shapes recorded): the profiler and its key averages by op and shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    return prof, prof.key_averages(group_by_input_shape=True)
+
+
+def step_totals(averages, label: str) -> dict:
+    """A profiled step's device ms in all, the host ms spent issuing it
+    (inflated by the profiler's own bookkeeping) and the device kernels it
+    launched; its table goes to OUT_DIR/<label>_step_profile.txt."""
+    import torch
+
+    device = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in averages
+            if e.device_type != torch.autograd.DeviceType.CUDA]
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "train_step_profile.txt"), "w") as f:
+    name = label.replace(" ", "_")
+    with open(os.path.join(OUT_DIR, f"{name}_step_profile.txt"), "w") as f:
         f.write(averages.table(sort_by="self_device_time_total",
                                row_limit=60))
-    log(f"training: one profiled step, device ms by part {parts}")
-    return parts
+    return {"total": sum(e.self_device_time_total for e in device) / 1e3,
+            "host_ms_profiled": sum(e.self_cpu_time_total
+                                    for e in host) / 1e3,
+            "kernels_launched": sum(e.count for e in device)}
 
 
 def make_prompt(rng, n_tokens: int) -> str:
@@ -886,17 +1432,21 @@ def main() -> int:
     phase_build()
     fwd = phase_kernels(dev["card"])
     bwd = phase_bwd_kernels(dev["card"])
-    train_launches = phase_training(dev["card"])
+    d64 = phase_d64_kernels(dev["card"])
+    paths = {"training": phase_training(dev["card"])}
+    phase_moe_layer(dev["card"])
+    paths["moe_training"] = phase_training(dev["card"], MOE_CONFIG,
+                                           "moe training")
+    paths["vit_training"] = phase_vit_training(dev["card"])
     serve_launches = phase_serving(dev["card"])["launches"]
-    by_path = {
-        "flash_fwd": {"training": train_launches["flash_attention_fwd"],
-                      "serving": serve_launches},
-        "flash_bwd": {"training": train_launches["flash_attention_bwd"]},
-        "flash_bwd_delta": {"training": train_launches["attention_delta"]},
-        "flash_bwd_dq": {"training": train_launches["flash_attention_bwd_dq"]},
-        "flash_bwd_dkv": {
-            "training": train_launches["flash_attention_bwd_dkv"]},
-    }
+    wrapper = {"flash_fwd": "flash_attention_fwd",
+               "flash_bwd": "flash_attention_bwd",
+               "flash_bwd_delta": "attention_delta",
+               "flash_bwd_dq": "flash_attention_bwd_dq",
+               "flash_bwd_dkv": "flash_attention_bwd_dkv"}
+    by_path = {kernel: {path: launches[fn] for path, launches in
+                        paths.items()} for kernel, fn in wrapper.items()}
+    by_path["flash_fwd"]["serving"] = serve_launches
     source = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
               "flash_bwd": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_delta": "ray_tpu_torch/csrc/flash_bwd.cu",
@@ -924,7 +1474,8 @@ def main() -> int:
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
             **{key: entry[key] for key in ("mma_ms", "backward_ms",
-                                           "train_shape") if key in entry}})
+                                           "train_shape") if key in entry},
+            **({"d64_shapes": d64[name]} if name in d64 else {})})
     log(dev["card"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))

@@ -37,7 +37,6 @@ from ray_tpu_torch.llm import model_runner
 from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
 from ray_tpu_torch.llm.tokenizer import get_tokenizer
 from ray_tpu_torch.models.convert import check_params, init_params
-from ray_tpu_torch.models.transformer import check_dense
 from ray_tpu_torch.utils import DeviceLike, resolve_device
 
 
@@ -85,7 +84,11 @@ class TorchLLMEngine:
         self.config = config
         self.ecfg: EngineConfig = config.engine_config
         self.mcfg = config.transformer_config()
-        check_dense(self.mcfg)
+        if self.mcfg.n_experts > 0:
+            raise NotImplementedError(
+                f"TorchLLMEngine serves dense models only, as the JAX engine "
+                f"does (its model runner reads each layer's dense mlp); "
+                f"{config.model_id!r} has {self.mcfg.n_experts} experts")
         self.tokenizer = get_tokenizer(config.tokenizer)
         if config.checkpoint_path:
             raise NotImplementedError(

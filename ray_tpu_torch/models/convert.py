@@ -4,22 +4,29 @@ The port keeps flax's key paths and shapes (``models/transformer.py``), so
 ``from_jax_params`` is a copy: the unboxed tree ``{"params": {...}}`` with
 numpy leaves becomes a flat state dict whose keys are the paths joined by
 dots, without the ``params`` root. ``init_params`` draws the port's own
-weights from a ``torch.Generator`` with the flax initialisers' laws:
-normal(0.02 / sqrt(2 L)) for the projections, normal(0.02) for the
-embedding and lm_head, ones for the norm scales. ``from_jax_opt_state``
-carries the optimizer's state across, so a JAX run resumes in the port.
+weights from a ``torch.Generator`` with the flax initialisers' laws. For
+the LM: normal(0.02 / sqrt(2 L)) for the projections and the expert stacks,
+normal(0.02) for the embedding, the lm_head and the MoE router, ones for
+the norm scales. For the ViT (``models/vit.py``): lecun_normal (a normal
+truncated at two deviations, std sqrt(1 / fan_in) / 0.8796) for the patch
+embedding, the attention projections and the head, xavier_uniform for the
+MLP, normal(0.02) for the position embedding, zeros for the biases and the
+class token, ones for the norm scales. ``from_jax_opt_state`` carries the
+optimizer's state across, so a JAX run resumes in the port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.transformer import TransformerConfig, state_dict_shapes
+from ray_tpu_torch.models import transformer, vit
 from ray_tpu_torch.utils import DeviceLike, resolve_device
+
+Config = Union[transformer.TransformerConfig, vit.ViTConfig]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -42,8 +49,16 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in _flatten(tree).items()}
 
 
-def check_params(params: Mapping[str, Any], cfg: TransformerConfig) -> None:
-    """Raise unless ``params`` holds exactly the config's leaves and shapes."""
+def state_dict_shapes(cfg: Config) -> Dict[str, tuple]:
+    """The flax paths and shapes of either model family's parameters."""
+    if isinstance(cfg, vit.ViTConfig):
+        return vit.state_dict_shapes(cfg)
+    return transformer.state_dict_shapes(cfg)
+
+
+def check_params(params: Mapping[str, Any], cfg: Config) -> None:
+    """Raise unless ``params`` holds exactly the config's leaves and shapes
+    (an LM's ``TransformerConfig`` or a ``ViTConfig``)."""
     want = state_dict_shapes(cfg)
     missing = sorted(set(want) - set(params))
     extra = sorted(set(params) - set(want))
@@ -56,23 +71,48 @@ def check_params(params: Mapping[str, Any], cfg: TransformerConfig) -> None:
             raise ValueError(f"{key} has shape {got}, the config wants {shape}")
 
 
-def init_params(cfg: TransformerConfig, seed: int = 0,
+def init_params(cfg: Config, seed: int = 0,
                 device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Random weights from ``seed`` (a ``torch.Generator`` on ``device``) in
-    ``cfg.param_dtype``. The draws differ from flax's for the same seed; the
-    laws are the same."""
+    ``cfg.param_dtype``, for either model family. The draws differ from
+    flax's for the same seed; the laws are the same."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    proj_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    draw = _vit_law if isinstance(cfg, vit.ViTConfig) else _lm_law
     params = {}
     for key, shape in state_dict_shapes(cfg).items():
         if key.endswith(".scale"):
             params[key] = torch.ones(shape, dtype=torch.float32, device=dev)
             continue
-        std = 0.02 if key in ("embed", "lm_head") else proj_std
         w = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
-        params[key] = w.normal_(0.0, std, generator=gen)
+        params[key] = draw(cfg, key, w, gen)
     return params
+
+
+def _lm_law(cfg, key, w, gen):
+    if key in ("embed", "lm_head") or key.endswith(".router.kernel"):
+        return w.normal_(0.0, 0.02, generator=gen)
+    return w.normal_(0.0, 0.02 / math.sqrt(2 * cfg.n_layers), generator=gen)
+
+
+# flax's truncated_normal: the std of a standard normal cut at +-2
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _vit_law(cfg, key, w, gen):
+    if key.endswith(".bias") or key == "cls_token":
+        return w.zero_()
+    if key == "pos_embed":
+        return w.normal_(0.0, 0.02, generator=gen)
+    if ".fc" in key:  # xavier_uniform over the (in, out) kernel
+        limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+        return w.uniform_(-limit, limit, generator=gen)
+    # lecun_normal: fan_in is every kernel dim but the output ones
+    out_dims = 2 if key.endswith(("query.kernel", "key.kernel",
+                                  "value.kernel")) else 1
+    std = math.sqrt(1.0 / math.prod(w.shape[:-out_dims])) / _TRUNCATED_STD
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                       generator=gen)
 
 
 def from_jax_opt_state(opt_state):

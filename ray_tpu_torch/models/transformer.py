@@ -1,4 +1,4 @@
-"""The flagship decoder-only LM (llama family), dense path, in PyTorch.
+"""The flagship decoder-only LM (llama family), dense and MoE, in PyTorch.
 
 Counterpart of ``ray_tpu/models/transformer.py``. Parameters keep the flax
 tree's key paths and shapes, so a state dict key reads as the flax path
@@ -15,15 +15,18 @@ own KV head count. With ``cfg.remat`` and grad enabled each block is
 recomputed in the backward (``torch.utils.checkpoint``), as the JAX model's
 ``nn.remat(Block, policy=nothing_saveable)``.
 
-Not ported yet (ROADMAP.md): ``MoEMLP`` (building a config with experts
-raises).
+A config with experts puts ``MoEMLP`` in every ``moe_every``-th block
+(``layer_i.moe``). Its load-balancing loss is an output of the block, not
+a side effect, so the recompute under remat cannot count it twice;
+``Transformer(..., return_aux=True)`` gives it per layer, keyed like the
+flax ``losses`` collection.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,9 +73,8 @@ class TransformerConfig:
         dense_mlp = 3 * d * f
         total = 0
         for i in range(self.n_layers):
-            moe = self.n_experts > 0 and i % max(self.moe_every, 1) == 0
             total += attn + (self.n_experts * 3 * d * f + d * self.n_experts
-                             if moe else dense_mlp)
+                             if uses_moe(self, i) else dense_mlp)
         return v * d + total + d + (0 if self.tie_embeddings else d * v)
 
     def active_params(self) -> int:
@@ -83,7 +85,7 @@ class TransformerConfig:
         d, f = self.d_model, self.d_ff
         total = self.num_params()
         for i in range(self.n_layers):
-            if i % max(self.moe_every, 1) == 0:
+            if uses_moe(self, i):
                 inactive = self.n_experts - self.experts_per_token
                 total -= inactive * 3 * d * f
         return total
@@ -118,11 +120,9 @@ CONFIGS = {
 }
 
 
-def check_dense(cfg: TransformerConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoEMLP is not ported yet (ROADMAP.md queue 1, item 'MoE'); "
-            "only dense configs build")
+def uses_moe(cfg: TransformerConfig, layer: int) -> bool:
+    """Whether block ``layer`` holds ``MoEMLP`` rather than ``MLP``."""
+    return cfg.n_experts > 0 and layer % max(cfg.moe_every, 1) == 0
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -163,22 +163,29 @@ class RMSNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """A flax DenseGeneral kernel without bias: ``kernel`` keeps its flax
-    shape; inputs contract over ``in_dims`` leading kernel dims."""
+    """A flax DenseGeneral: ``kernel`` keeps its flax shape; inputs, in
+    ``dtype``, contract over ``in_dims`` leading kernel dims. With
+    ``use_bias`` the ``bias`` (the kernel's output dims) is added after the
+    product, in ``dtype``, as flax adds it."""
 
-    def __init__(self, shape, in_dims: int, dtype, param_dtype, device=None):
+    def __init__(self, shape, in_dims: int, dtype, param_dtype, device=None,
+                 use_bias: bool = False):
         super().__init__()
         self.in_dims = in_dims
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(shape, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            shape[in_dims:], dtype=param_dtype, device=device)) \
+            if use_bias else None
 
     def forward(self, x):
         w = self.kernel.to(self.dtype)
         n_in = math.prod(w.shape[:self.in_dims])
         lead = x.shape[:x.dim() - self.in_dims]
         y = x.reshape(-1, n_in) @ w.reshape(n_in, -1)
-        return y.reshape(*lead, *w.shape[self.in_dims:])
+        y = y.reshape(*lead, *w.shape[self.in_dims:])
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class Attention(nn.Module):
@@ -215,21 +222,164 @@ class MLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+class Routing(NamedTuple):
+    """``MoEMLP.route``'s choice for (G, g) tokens: the router's fp32
+    ``probs`` (G, g, E); per (token, k) slot the ``expert`` index, its
+    ``gate`` (fp32, normalised over the K slots before any drop), its
+    ``pos`` in that expert's capacity buffer of the group, and ``keep``
+    (pos < C); and the capacity ``capacity`` (C)."""
+
+    probs: torch.Tensor
+    expert: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+class MoEMLP(nn.Module):
+    """Top-K routed mixture-of-experts MLP with the JAX package's semantics
+    (``ray_tpu/models/transformer.py:MoEMLP``): tokens are cut into G groups
+    of g (the largest divisor of B*S up to ``GROUP_SIZE``); each expert
+    takes at most C = max(1, int(capacity_factor * g * K / E)) slots of a
+    group, filled in (token, k) order; a slot past C is dropped (its token
+    keeps only the residual). ``forward`` returns ``(out, aux)``, aux the
+    load-balancing loss E * sum_e f_e p_e.
+
+    The JAX model dispatches and combines with one-hot einsums, which keep a
+    TPU's matrix unit busy; here they are index operations with the same
+    results. A buffer row of the (E, G*C, D) expert input holds one token
+    (a token's K experts are distinct), so dispatch is a copy; a token's
+    output sums its K kept slots, each expert output times bf16(gate), in
+    fp32, rounded to the compute dtype. The expert FFN is three batched
+    products over the stacked weights. Nothing syncs with the host.
+
+    Built alone, it lies on the card unless ``device`` names another, with
+    weights drawn from ``seed`` (``reset_parameters``)."""
+
+    GROUP_SIZE = 4096  # tokens per dispatch group, as in the JAX model
+
+    def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = Dense((d, E), 1, dtype=torch.float32,
+                            param_dtype=torch.float32, device=dev)
+        kw = dict(dtype=cfg.param_dtype, device=dev)
+        self.gate_proj = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.up_proj = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.down_proj = nn.Parameter(torch.empty((E, f, d), **kw))
+        self.reset_parameters(seed)
+
+    def reset_parameters(self, seed: int = 0) -> None:
+        """The weights drawn from ``seed`` with the LM's laws
+        (``convert.init_params``): the router normal(0.02), the expert
+        stacks normal(0.02 / sqrt(2 L))."""
+        from ray_tpu_torch.models.convert import _lm_law
+
+        gen = torch.Generator(device=self.gate_proj.device).manual_seed(seed)
+        with torch.no_grad():
+            for key, w in self.named_parameters(prefix="moe"):
+                _lm_law(self.cfg, key, w, gen)
+
+    def group_size(self, n_tokens: int) -> int:
+        return next(c for c in range(min(self.GROUP_SIZE, n_tokens), 0, -1)
+                    if n_tokens % c == 0)
+
+    def route(self, xf: torch.Tensor,
+              expert: Optional[torch.Tensor] = None) -> Routing:
+        """The routing of ``xf`` (G, g, D) in the compute dtype: an fp32
+        router product on it, softmax, top-K, and the capacity slots. A
+        given ``expert`` (G, g, K) replaces the top-K choice (its gates are
+        the probabilities at those experts), so that a routing can be
+        replayed on another run's inputs."""
+        cfg = self.cfg
+        G, g, _ = xf.shape
+        E, K = cfg.n_experts, cfg.experts_per_token
+        C = max(1, int(cfg.capacity_factor * g * K / E))
+        probs = torch.softmax(self.router(xf.float()), dim=-1)
+        if expert is None:
+            expert = torch.topk(probs, K, dim=-1).indices
+        gate = probs.gather(-1, expert)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        # a slot's position is the number of earlier slots of the group, in
+        # (token, k) order, that chose the same expert: a running count
+        # along each expert's row of a (G, E, g*K) indicator (the scan runs
+        # along the innermost dim), read at the slot's own expert
+        slots = expert.reshape(G, 1, g * K)
+        chose = slots == torch.arange(E, device=xf.device)[:, None]
+        pos = chose.int().cumsum(-1).gather(1, slots) - 1
+        pos = pos.reshape(G, g, K)
+        return Routing(probs, expert, gate, pos, pos < C, C)
+
+    def forward(self, x):
+        cfg = self.cfg
+        B, S, D = x.shape
+        N, E, K = B * S, cfg.n_experts, cfg.experts_per_token
+        g = self.group_size(N)
+        G = N // g
+        r = self.route(x.reshape(G, g, D))
+        C = r.capacity
+        rows = E * G * C
+        # each slot's row in the (E, G*C) buffer; a dropped slot's is the
+        # spare row past the end
+        group = torch.arange(G, device=x.device)[:, None, None]
+        dest = r.expert * (G * C) + group * C + r.pos
+        dest = torch.where(r.keep, dest, rows).reshape(-1)
+        # dispatch: each slot's copy of its token into its row of a zeroed
+        # buffer (rows no slot took stay zero); its backward gathers the
+        # rows back and sums each token's K slots, with no atomics
+        x_slots = x.reshape(N, 1, D).expand(N, K, D).reshape(N * K, D)
+        expert_in = x.new_zeros(rows + 1, D).index_copy(0, dest, x_slots)
+        expert_in = expert_in[:rows].view(E, G * C, D)
+        # the experts: batched products over the stacked weights
+        w_gate, w_up, w_down = (w.to(cfg.dtype) for w in (
+            self.gate_proj, self.up_proj, self.down_proj))
+        h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
+        expert_out = torch.bmm(h, w_down).reshape(rows, D)
+        # combine: each slot's expert output (zero for a dropped slot) times
+        # bf16(gate * keep), summed over the K slots in fp32
+        out_pad = torch.cat([expert_out, expert_out.new_zeros(1, D)])
+        picked = out_pad.index_select(0, dest).view(N, K, D)
+        weight = (r.gate * r.keep).to(cfg.dtype).reshape(N, K, 1)
+        out = (picked.float() * weight.float()).sum(1).to(cfg.dtype)
+        # load balance: top-1 token share times mean router prob, per expert
+        token_frac = F.one_hot(r.expert[..., 0], E).float().mean((0, 1))
+        aux = E * (token_frac * r.probs.mean((0, 1))).sum()
+        return out.reshape(B, S, D), aux
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Attention then the MLP (``MoEMLP`` when ``use_moe``), pre-norm with
+    residuals. ``forward`` returns ``(x, aux)``: the MoE layer's loss, or
+    None."""
+
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False,
+                 device=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
-        self.mlp = MLP(cfg, device=device)
+        if use_moe:
+            self.moe = MoEMLP(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, positions, segment_ids=None):
         h = x + self.attn(self.attn_norm(x), positions, segment_ids)
-        return h + self.mlp(self.mlp_norm(h))
+        if hasattr(self, "moe"):
+            out, aux = self.moe(self.mlp_norm(h))
+            return h + out, aux
+        return h + self.mlp(self.mlp_norm(h)), None
 
 
 class Transformer(nn.Module):
-    """Decoder-only LM. ``forward`` returns fp32 logits (B, S, V).
+    """Decoder-only LM. ``forward`` returns fp32 logits (B, S, V), and with
+    ``return_aux=True`` ``(logits, aux)``: each MoE layer's load-balancing
+    loss keyed ``layer_<i>.moe.moe_aux`` (the path of the flax model's
+    ``losses`` collection; empty for a dense config).
 
     ``params`` is a state dict keyed by flax paths (``convert.from_jax_params``
     or ``convert.init_params``); without it the weights are drawn from
@@ -238,7 +388,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  params: Optional[Mapping[str, Any]] = None, seed: int = 0):
         super().__init__()
-        check_dense(cfg)
         from ray_tpu_torch.models.convert import init_params
 
         dev = resolve_device(device)
@@ -246,7 +395,8 @@ class Transformer(nn.Module):
         self.embed = nn.Parameter(torch.empty(
             (cfg.vocab_size, cfg.d_model), dtype=cfg.param_dtype, device=dev))
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg, device=dev))
+            self.add_module(f"layer_{i}",
+                            Block(cfg, uses_moe(cfg, i), device=dev))
         self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device=dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
@@ -257,25 +407,32 @@ class Transformer(nn.Module):
         self.load_state_dict(
             {k: torch.as_tensor(v) for k, v in params.items()})
 
-    def forward(self, tokens, positions=None, segment_ids=None):
+    def forward(self, tokens, positions=None, segment_ids=None,
+                return_aux: bool = False):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions[None].expand(tokens.shape)
         x = self.embed.to(cfg.dtype)[tokens]
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = {}
         for i in range(cfg.n_layers):
             block = getattr(self, f"layer_{i}")
             if remat:  # keep only the block's input; recompute the rest
-                x = checkpoint(block, x, positions, segment_ids,
-                               use_reentrant=False, preserve_rng_state=False)
+                x, layer_aux = checkpoint(
+                    block, x, positions, segment_ids, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
-                x = block(x, positions, segment_ids)
+                x, layer_aux = block(x, positions, segment_ids)
+            if layer_aux is not None:
+                aux[f"layer_{i}.moe.moe_aux"] = layer_aux
         x = self.final_norm(x)
         if cfg.tie_embeddings:
-            return (x @ self.embed.to(cfg.dtype).T).float()
-        # fp32 product of the bf16 operands (preferred_element_type=f32)
-        return x.float() @ self.lm_head.to(cfg.dtype).float()
+            logits = (x @ self.embed.to(cfg.dtype).T).float()
+        else:
+            # fp32 product of the bf16 operands (preferred_element_type=f32)
+            logits = x.float() @ self.lm_head.to(cfg.dtype).float()
+        return (logits, aux) if return_aux else logits
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -290,10 +447,10 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
-    """Flax path (without the ``params`` root) -> shape, for a dense config."""
-    check_dense(cfg)
+    """Flax path (without the ``params`` root) -> shape. A MoE layer's
+    expert stacks are bare parameters (no ``.kernel``), as in flax."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
-    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    H, KVH, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
     shapes = {"embed": (cfg.vocab_size, d)}
     for i in range(cfg.n_layers):
         p = f"layer_{i}"
@@ -304,10 +461,20 @@ def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
             f"{p}.attn.v_proj.kernel": (d, KVH, hd),
             f"{p}.attn.o_proj.kernel": (H, hd, d),
             f"{p}.mlp_norm.scale": (d,),
-            f"{p}.mlp.gate_proj.kernel": (d, f),
-            f"{p}.mlp.up_proj.kernel": (d, f),
-            f"{p}.mlp.down_proj.kernel": (f, d),
         })
+        if uses_moe(cfg, i):
+            shapes.update({
+                f"{p}.moe.router.kernel": (d, E),
+                f"{p}.moe.gate_proj": (E, d, f),
+                f"{p}.moe.up_proj": (E, d, f),
+                f"{p}.moe.down_proj": (E, f, d),
+            })
+        else:
+            shapes.update({
+                f"{p}.mlp.gate_proj.kernel": (d, f),
+                f"{p}.mlp.up_proj.kernel": (d, f),
+                f"{p}.mlp.down_proj.kernel": (f, d),
+            })
     shapes["final_norm.scale"] = (d,)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)

@@ -29,7 +29,7 @@ import torch
 from ray_tpu_torch.ops import _build
 
 _MASKED = -1e30
-_KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)  # the head dims the flash kernels take
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -135,8 +135,8 @@ def _check_kernel_inputs(kernel: str, q, k, v, *more) -> None:
     if H % k.shape[2]:
         raise ValueError(f"{H} query heads do not group over {k.shape[2]} "
                          "KV heads")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel} supports head_dim {_KERNEL_HEAD_DIMS}, "
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{kernel} supports head_dim {KERNEL_HEAD_DIMS}, "
                          f"got {D}")
     if S < 1 or B * H > 65535:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
@@ -245,9 +245,9 @@ def attention_delta(o, do) -> torch.Tensor:
                              "b, s, h strides")
     if o.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"flash_bwd_delta takes bf16 or fp32, got {o.dtype}")
-    if o.shape[-1] not in _KERNEL_HEAD_DIMS:
+    if o.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_bwd_delta supports head_dim "
-                         f"{_KERNEL_HEAD_DIMS}, got {o.shape[-1]}")
+                         f"{KERNEL_HEAD_DIMS}, got {o.shape[-1]}")
     return _launch_delta(o, do)
 
 

@@ -7,9 +7,12 @@ Counterpart of ``ray_tpu/parallel/train.py`` (its single-device subset):
   ``warmup_cosine_decay_schedule``, written out on tensors with
   ``torch._foreach_*`` ops over all leaves at once.
 - ``TrainStepBundle`` draws the parameters, takes a step (forward, one
-  backward, the optimizer) and evaluates. Parameters and the optimizer's
-  moments are flat dicts keyed by flax paths (``layer_0.attn.q_proj.kernel``),
-  so a JAX run's state converts by copying (``models/convert.py``).
+  backward, the optimizer) and evaluates, for a dense or a MoE config (the
+  step's loss adds ``moe_aux_coef`` times the MoE layers' aux; the
+  evaluation leaves it out, as the JAX bundle does). Parameters and the
+  optimizer's moments are flat dicts keyed by flax paths
+  (``layer_0.attn.q_proj.kernel``), so a JAX run's state converts by
+  copying (``models/convert.py``).
 
 Not ported yet (ROADMAP.md queue 1): the mesh and its shardings,
 ``shard_update`` with its bucketed reduce-scatter, ``grad_dtype``,
@@ -27,7 +30,7 @@ import torch
 
 from ray_tpu_torch.models.convert import check_params, init_params
 from ray_tpu_torch.models.transformer import (Transformer, TransformerConfig,
-                                              check_dense, lm_loss)
+                                              lm_loss)
 from ray_tpu_torch.utils import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -143,7 +146,6 @@ class TrainStepBundle:
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  optimizer: Optional[AdamW] = None,
                  optimizer_factory: Optional[Callable] = None):
-        check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if optimizer is None:
@@ -169,12 +171,19 @@ class TrainStepBundle:
         return own
 
     def _loss(self, batch) -> torch.Tensor:
-        logits = self.model(batch["tokens"])
-        return lm_loss(logits, batch["targets"], batch.get("mask"))
+        """``lm_loss`` plus ``moe_aux_coef`` times the sum of the MoE layers'
+        load-balancing losses (none for a dense config), as the JAX
+        bundle's ``loss_fn``."""
+        logits, aux = self.model(batch["tokens"], return_aux=True)
+        loss = lm_loss(logits, batch["targets"], batch.get("mask"))
+        if aux:
+            loss = loss + self.cfg.moe_aux_coef * sum(aux.values())
+        return loss
 
     def step(self, params: Mapping[str, torch.Tensor], opt_state: OptState,
              batch: Mapping[str, torch.Tensor]):
-        """One optimization step: ``lm_loss``, one backward, the optimizer."""
+        """One optimization step: the loss with the MoE aux, one backward,
+        the optimizer."""
         params = self._bind(params)
         loss = self._loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -184,8 +193,11 @@ class TrainStepBundle:
     @torch.no_grad()
     def eval_step(self, params: Mapping[str, torch.Tensor],
                   batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """``lm_loss`` alone: the MoE aux is left out, as in the JAX
+        bundle's ``eval_step``."""
         self._bind(params)
-        return self._loss(batch)
+        return lm_loss(self.model(batch["tokens"]), batch["targets"],
+                       batch.get("mask"))
 
     def make_batch(self, rng: np.random.Generator, batch_size: int,
                    seq_len: int) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,8 @@ import torch
 from ray_tpu_torch.llm import model_runner as mr
 from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import TorchLLMEngine
-from ray_tpu_torch.models import CONFIGS
+from ray_tpu_torch.models import (CONFIGS, VIT_CONFIGS, MoEMLP,
+                                  VisionTransformer, classification_loss)
 from ray_tpu_torch.ops.attention import (attention, attention_delta,
                                          attention_delta_plain,
                                          bwd_products, bwd_softmax_grads,
@@ -342,3 +343,162 @@ def test_train_step_through_kernels_matches_plain(cuda_device):
     for key, p in runs["auto"][1].items():
         diff = (p - runs["xla"][1][key]).abs().max().item()
         assert diff <= atol, f"{key} parts by {diff:.3e} > {atol:.3e}"
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """One ``MoEMLP`` in fp32 (moe-tiny width, 120 tokens in 8 groups of 15
+    at half capacity, so slots are dropped) on the card and on the CPU from
+    the same weights and input: the same routing, and outputs, aux and
+    grads within fp32's rounding of sums taken in other orders. fp32
+    products stay fp32 on the card (TF32 off), so no routing choice
+    flips."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(MoEMLP, "GROUP_SIZE", 16)
+    cfg = dataclasses.replace(CONFIGS["moe-tiny"], dtype=torch.float32,
+                              capacity_factor=0.5)
+    layer = MoEMLP(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(4, 30, cfg.d_model, generator=gen)
+    cot = torch.randn(x.shape, generator=gen)
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        mod = MoEMLP(cfg, device=dev)
+        mod.load_state_dict(layer.state_dict())
+        xd = x.to(dev).requires_grad_()
+        g = mod.group_size(xd.shape[0] * xd.shape[1])
+        routing = mod.route(xd.detach().reshape(-1, g, cfg.d_model))
+        out, aux = mod(xd)
+        grads = torch.autograd.grad((out * cot.to(dev)).sum() + aux,
+                                    [xd] + list(mod.parameters()))
+        runs[name] = (routing, out, aux, grads)
+    (r_cpu, o_cpu, a_cpu, g_cpu), (r_gpu, o_gpu, a_gpu, g_gpu) = (
+        runs["cpu"], runs["card"])
+    assert not bool(r_cpu.keep.all())  # slots were dropped
+    for name in ("expert", "pos", "keep"):
+        assert torch.equal(getattr(r_cpu, name),
+                           getattr(r_gpu, name).cpu()), name
+    torch.testing.assert_close(o_gpu.cpu(), o_cpu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(a_gpu.cpu(), a_cpu, atol=0, rtol=1e-5)
+    for got, want in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_moe_train_step_through_kernels_matches_plain(cuda_device):
+    """A 2-layer MoE model (both layers routed, head_dim 64, MHA as
+    moe-1b), fp32, 3 steps on one batch through the kernels (remat on)
+    against the same steps with plain attention, from the same params: the
+    launches, the losses (with the aux) to the kernels' fp32 accuracy, and
+    the params within Adam's update bound."""
+    cfg = dataclasses.replace(CONFIGS["moe-tiny"], d_model=128, n_heads=2,
+                              n_kv_heads=2, dtype=torch.float32, remat=True)
+    opt_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                attention_delta, flash_attention_bwd)
+    runs = {}
+    for impl in ("auto", "xla"):
+        bundle = TrainStepBundle(dataclasses.replace(cfg, attention_impl=impl),
+                                 device=cuda_device,
+                                 optimizer=make_optimizer(**opt_kw))
+        params, opt = bundle.init(seed=0)
+        batch = bundle.make_batch(np.random.default_rng(0), 4, 96)
+        before = [c.launches for c in counters]
+        losses = []
+        for _ in range(3):
+            params, opt, loss = bundle.step(params, opt, batch)
+            losses.append(loss.item())
+        launched = tuple(c.launches - n for c, n in zip(counters, before))
+        runs[impl] = (losses, params, launched)
+    assert runs["auto"][2] == (3 * 2 * cfg.n_layers, 3 * cfg.n_layers,
+                               3 * cfg.n_layers, 0)
+    assert runs["xla"][2] == (0, 0, 0, 0)
+    np.testing.assert_allclose(runs["auto"][0], runs["xla"][0], rtol=1e-4)
+    sched = make_optimizer(**opt_kw).schedule
+    atol = 2 * 1.2 * sum(sched(t) for t in range(3))
+    for key, p in runs["auto"][1].items():
+        diff = (p - runs["xla"][1][key]).abs().max().item()
+        assert diff <= atol, f"{key} parts by {diff:.3e} > {atol:.3e}"
+
+
+# ViT through the non-causal kernels against plain attention, per dtype:
+# (logits atol, logits rtol, per-leaf relative grad error). fp32: the
+# kernels keep ~16 bits of every product (the hi/lo split), so a 2-layer
+# model's logits and grads part by far less than 1e-3. bf16: kernel and
+# plain round P (and in the backward dS) to bf16 at other points, a few
+# 2^-8 roundings per layer and pass (2 layers x 2 passes x 4); the logits
+# bound is the 1b prefill check's (chip_smoke.LOGITS_TOL).
+VIT_TOL = {torch.float32: (1e-3, 1e-3, 1e-3),
+           torch.bfloat16: (5e-2, 2e-2, 16 * 2.0 ** -8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vit_through_the_full_attention_kernels_matches_plain(cuda_device,
+                                                              dtype):
+    """A 2-layer ViT at 224 x 224 with 16-pixel patches (S = 197, a ragged
+    tile) and head_dim 64: logits and the grads of ``classification_loss``
+    through the kernels (non-causal) against the same model with plain
+    attention; each layer launches the forward kernel once and the
+    backward's (bf16: Delta and ``flash_bwd``; fp32: Delta and the
+    pair) once."""
+    cfg = dataclasses.replace(VIT_CONFIGS["vit-b16-224"], d_model=128,
+                              n_heads=2, n_layers=2, d_ff=256,
+                              num_classes=10, dtype=dtype)
+    assert cfg.num_patches + 1 == 197 and cfg.head_dim == 64
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    images = torch.randn(4, 224, 224, 3, generator=gen, device=cuda_device)
+    labels = torch.randint(0, 10, (4,), generator=gen, device=cuda_device)
+    model = VisionTransformer(cfg, device=cuda_device, seed=0)
+    plain = VisionTransformer(dataclasses.replace(cfg, attention_impl="xla"),
+                              device=cuda_device,
+                              params=dict(model.named_parameters()))
+    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+                flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        before = [c.launches for c in counters]
+        logits = m(images)
+        grads = torch.autograd.grad(classification_loss(logits, labels),
+                                    list(m.parameters()))
+        torch.cuda.synchronize()
+        out[name] = (logits.detach(), grads,
+                     [c.launches - n for c, n in zip(counters, before)])
+    L = cfg.n_layers
+    assert out["kernel"][2] == ([L, L, L, 0, 0] if dtype == torch.bfloat16
+                                else [L, L, 0, L, L])
+    assert out["plain"][2] == [0] * 5
+    atol, rtol, grad_tol = VIT_TOL[dtype]
+    torch.testing.assert_close(out["kernel"][0], out["plain"][0], atol=atol,
+                               rtol=rtol)
+    # a key bias's exact gradient is 0 (softmax ignores a constant added
+    # to a query's scores): both sides hold rounding noise, measured
+    # against the key kernel's gradient
+    grads = {kind: dict(zip([n for n, _ in model.named_parameters()],
+                            out[kind][1])) for kind in ("kernel", "plain")}
+    for name, gk in grads["kernel"].items():
+        gp = grads["plain"][name]
+        ref = grads["plain"][name.replace(".key.bias", ".key.kernel")]
+        rel = ((gk.float() - gp.float()).norm()
+               / ref.float().norm().clamp_min(1e-30)).item()
+        assert rel <= grad_tol, f"{name}: grads part by {rel:.3e}"
+
+
+def test_moe_train_step_never_waits_for_the_card(cuda_device):
+    """A MoE train step (bf16, remat, both layers routed) issues its work
+    without one host sync: routing, slot counts, dispatch and combine stay
+    on the card (``torch.cuda.set_sync_debug_mode`` raises on any op that
+    waits for it)."""
+    cfg = dataclasses.replace(CONFIGS["moe-tiny"], d_model=128, n_heads=2,
+                              n_kv_heads=2, remat=True)
+    bundle = TrainStepBundle(cfg, device=cuda_device)
+    params, opt = bundle.init(seed=0)
+    batch = bundle.make_batch(np.random.default_rng(0), 4, 96)
+    bundle.step(params, opt, batch)  # first use: workspaces, kernel builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, loss = bundle.step(params, opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(loss.item())

@@ -43,6 +43,7 @@ def test_import_builds_and_loads_no_kernel():
         "import sys, ray_tpu_torch\n"
         "from ray_tpu_torch import llm, models, ops, parallel, utils\n"
         "from ray_tpu_torch.llm import engine, serve_llm, model_runner\n"
+        "from ray_tpu_torch.models import convert, transformer, vit\n"
         "from ray_tpu_torch.parallel import train\n"
         "from ray_tpu_torch.ops import _build\n"
         "assert not _build.is_loaded('flash_fwd')\n"

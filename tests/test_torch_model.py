@@ -129,5 +129,11 @@ def test_init_params_seeded_with_flax_laws():
 
 
 def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(CONFIGS["moe-tiny"], device="cpu")
+    """MoE configs build and train in the port (tests/test_torch_moe.py),
+    but the engine serves dense models only, as the JAX engine does: it
+    refuses a MoE config before drawing any weight."""
+    from ray_tpu_torch.llm.config import LLMConfig
+    from ray_tpu_torch.llm.engine import TorchLLMEngine
+
+    with pytest.raises(NotImplementedError, match="dense models only"):
+        TorchLLMEngine(LLMConfig(model_id="moe-tiny"), device="cpu")
