@@ -58,7 +58,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    width (random weights from a seed, default engine geometry) answers
    concurrent completion requests; the kernel launch counts of that run
    are held against the prefill calls, and one admitted batch's prefill
-   logits against the same batch with plain attention.
+   logits against the same batch with plain attention;
+10. parallel: a collective group of world size 1 over NCCL (the machine
+   has one card) with every ``TorchGroup`` op checked exactly;
+   ``ring_attention`` and ``ulysses_attention`` through it against
+   ``FlashAttention``; the ring's per-step math for 4 and 8 virtual ranks
+   on one 16384-token sequence (16 heads, head_dim 128, bf16, causal and
+   full) through the kernels, against the unsharded kernels and the plain
+   version within bounds derived from theirs, with each block kind's time
+   (the ``ring_attention`` path of the launch counts); the int8 and fp8
+   codecs on the card at the 1b's parameter count against the CPU's; and
+   the 1b trained on a ``data=1`` mesh against the single-device step
+   (the ``mesh_training`` path); a ``parallel metrics:`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, so the comparisons with the plain versions do not count.
@@ -79,6 +90,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -588,6 +600,9 @@ def time_bwd(q, k, v, do, card) -> dict:
         "flash_bwd_delta": lambda: att.attention_delta(o, do),
         "library": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                retain_graph=True),
+        # Delta's yardstick: one library call on o and dO; it rounds its
+        # output to bf16, where the kernel writes fp32
+        "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
     }
     times = {name: [] for name in runs}
     for r in range(TIME_ROUNDS):
@@ -621,13 +636,15 @@ def time_bwd(q, k, v, do, card) -> dict:
     # a part of it, so they get it for reference
     for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
         entries[kernel]["library_ms"] = ms["library"]
+    entries["flash_bwd_delta"]["library_ms"] = ms["library_delta"]
     entries["flash_bwd"].update(backward_ms=ms["backward"],
                                 mma_ms=ms["mma"])
     log(f"time bf16 backward at {TRAIN_SHAPE} causal: flash_attention_bwd "
         f"(Delta + zeros + flash_bwd + cast) {ms['backward']:.4f} ms; "
         f"library (sdpa backward) {ms['library']:.4f} ms; the earlier "
-        f"mma.sync pair {ms['mma']:.4f} ms; plain {ms['plain']:.4f} ms "
-        f"[{card}]")
+        f"mma.sync pair {ms['mma']:.4f} ms; plain {ms['plain']:.4f} ms; "
+        f"Delta's library call (vecdot, bf16 out) "
+        f"{ms['library_delta']:.4f} ms [{card}]")
     return entries
 
 
@@ -718,6 +735,7 @@ def phase_d64_kernels(card: str) -> dict:
             "flash_bwd_delta": lambda: att.attention_delta(o, do),
             "library_bwd": lambda: torch.autograd.grad(
                 lib_out, (qg, kg, vg), dot, retain_graph=True),
+            "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
         }
         times = {key: [] for key in runs}
         for r in range(TIME_ROUNDS):
@@ -748,7 +766,7 @@ def phase_d64_kernels(card: str) -> dict:
                                for key in ("dq", "dk", "dv"))}
         out["flash_bwd_delta"][name] = {
             **shape, "ms": ms["flash_bwd_delta"],
-            "plain_ms": ms["plain_delta"], "library_ms": None,
+            "plain_ms": ms["plain_delta"], "library_ms": ms["library_delta"],
             "bound_ms": db, "bound_by": dby,
             "max_abs_err": errs["delta"]["max_abs"]}
         for key, t in times.items():
@@ -762,7 +780,8 @@ def phase_d64_kernels(card: str) -> dict:
             f"of bound; whole bf16 backward {ms['backward']:.4f} ms, sdpa "
             f"backward {ms['library_bwd']:.4f} ms, plain "
             f"{ms['plain_bwd']:.4f} ms; Delta {ms['flash_bwd_delta']:.4f} "
-            f"ms, bound {db:.4f} ms ({dby}) [{card}]")
+            f"ms, bound {db:.4f} ms ({dby}), library (vecdot, bf16 out) "
+            f"{ms['library_delta']:.4f} ms [{card}]")
         del q, k, v, do, o, lse, delta, dq_acc, dk, dv, lib_out, qg, kg, vg
     return out
 
@@ -1427,6 +1446,638 @@ def check_prefill_logits(engine, prompts) -> None:
                              f"rtol {rtol}")
 
 
+# -- parallel: the collective group, ring and Ulysses, codecs, the mesh -------
+
+# the ring's block math at full width: one sequence of RING_SEQ tokens with
+# RING_HEADS query and KV heads of head_dim RING_D, bf16, over RING_RANKS
+# virtual ranks; the plain version takes RING_CHUNK query rows at a time, so
+# that its fp32 scores fit on the card at that length
+RING_SEQ, RING_HEADS, RING_D = 16384, 16, 128
+RING_RANKS = (4, 8)
+RING_CHUNK = 1024
+WORLD1_SHAPE = (2, 2048, 16, 128)  # (B, S, H, D): ring, Ulysses at world 1
+MESH_STEPS = 3
+CODEC_CPU_SLICE = 1 << 24  # values of the card's encoding checked on the CPU
+
+
+def phase_parallel(card: str) -> dict:
+    """The parallel layer on the card: a collective group of world size 1
+    over NCCL (``init_collective_group``, a TCP store on 127.0.0.1) with
+    every ``TorchGroup`` op checked exactly; ``ring_attention`` and
+    ``ulysses_attention`` through it equal to ``FlashAttention``; the
+    ring's block math for RING_RANKS virtual ranks at full width against
+    the unsharded kernels and the plain version, with its times; the
+    codecs at the 1b's parameter count; and the 1b trained on a
+    ``data=1`` mesh against the single-device step. The machine has one
+    card, and NCCL takes one rank a card, so a world larger than 1 runs
+    on gloo in the CPU tests. Returns the kernel launches of the ring path
+    and of the mesh's training run."""
+    import socket
+
+    import torch
+
+    from ray_tpu_torch import collective as col
+
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    log(f"parallel: torch.cuda.device_count() {torch.cuda.device_count()}, "
+        f"NCCL {nccl}, torch {torch.__version__}")
+    with socket.socket() as sock:  # a free port on this machine
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    group = col.init_collective_group(
+        1, 0, group_name="smoke", init_method=f"tcp://127.0.0.1:{port}")
+    log(f"parallel: {group.backend} group of world size 1 up in "
+        f"{time.perf_counter() - t0:.2f} s")
+    metrics = {"card": card, "device_count": torch.cuda.device_count(),
+               "nccl": nccl, "torch": torch.__version__,
+               "backend": group.backend, "world_size": group.world_size}
+    try:
+        metrics["group_ops"] = check_group_ops(group)
+        launches, metrics["world1_attention"] = check_world1_attention(
+            group, card)
+        ring_launches, metrics["ring_blocks"] = phase_ring_blocks(card)
+        launches = {k: launches[k] + ring_launches[k] for k in launches}
+        metrics["codecs"] = check_codecs(card)
+        mesh_launches, metrics["mesh_training"] = phase_mesh_training(card)
+    finally:
+        col.destroy_collective_group("smoke")
+    log("parallel metrics: " + json.dumps(metrics))
+    return {"ring_attention": launches, "mesh_training": mesh_launches}
+
+
+def check_group_ops(group) -> list:
+    """Every ``TorchGroup`` op at world size 1 on card tensors, each equal
+    to its definition (at one rank: the input, or zeros where ``ppermute``
+    sends nothing), and the quantized reduce-scatter and allreduce equal to
+    the codec's own round trip on the CPU. ``send`` and ``recv`` need a
+    second rank (a rank does not send to itself); they run on gloo in
+    tests/test_torch_collective.py."""
+    import torch
+
+    from ray_tpu_torch.collective import ReduceOp, quant
+
+    x = torch.arange(-12, 12, dtype=torch.float32, device="cuda").reshape(
+        8, 3)
+    checks = []
+
+    def same(what, got, want):
+        if not (got.device.type == "cuda" and torch.equal(got, want)):
+            raise AssertionError(f"{group.backend} world 1: {what} is not "
+                                 "its definition")
+        checks.append(what)
+
+    for op in ReduceOp:
+        same(f"allreduce {op.name}", group.allreduce(x, op), x)
+        same(f"reducescatter {op.name}", group.reducescatter(x, op), x)
+        same(f"reduce {op.name}", group.reduce(x, 0, op), x)
+    same("allgather", group.allgather(x), x)
+    same("broadcast", group.broadcast(x, 0), x)
+    for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+        same(f"alltoall {dtype}", group.alltoall(x.to(dtype)), x.to(dtype))
+    same("ppermute (0, 0)", group.ppermute(x, [(0, 0)]), x)
+    same("ppermute none", group.ppermute(x, []), torch.zeros_like(x))
+    group.barrier()
+    v = torch.randn(1 << 20, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    for name in ("int8", "fp8", "bf16"):
+        codec = quant.QuantCodec(name)
+        want = quant.dequantize(quant.quantize(v.cpu(), codec)).cuda()
+        same(f"quantized_reduce_scatter_1d {name}",
+             quant.quantized_reduce_scatter_1d(group, codec)(v), want)
+    codec = quant.QuantCodec("int8")
+    wire = quant.to_wire(quant.quantize(v, codec), extra=torch.ones(
+        2, device="cuda"))
+    got = group.allreduce_quantized(wire, codec)
+    ref = quant.reduce_wire_payloads(
+        [quant.to_wire(quant.quantize(v.cpu(), codec),
+                       extra=torch.ones(2))], codec.spec())
+    for key in ("codes", "scales", "extra"):
+        same(f"allreduce_quantized {key}", got[key], ref[key].cuda())
+    torch.cuda.synchronize()
+    log(f"parallel: {group.backend} world 1, every op equal to its "
+        f"definition: {checks}")
+    return checks
+
+
+def check_world1_attention(group, card: str):
+    """``ring_attention`` and ``ulysses_attention`` through the NCCL group
+    at world size 1 on card tensors (WORLD1_SHAPE, bf16, causal and full),
+    forward and gradients against ``FlashAttention`` on the same inputs
+    within TOL and BWD_TOL (at one rank each is the whole sequence, so the
+    same kernels run). Returns the kernel launches of the two functions'
+    runs (counted before the references run) and the errors."""
+    import importlib
+
+    import torch
+
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ulysses_attention)
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    B, S, H, D = WORLD1_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    runs = {}
+    for causal in (True, False):
+        for name, fn in (("ring_attention", ring_attention),
+                         ("ulysses_attention", ulysses_attention)):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = fn(*leaves, group, causal)
+            runs[name, causal] = (o.detach(), *torch.autograd.grad(
+                o, leaves, do))
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"flash_attention_fwd": 4, "attention_delta": 4,
+            "flash_attention_bwd": 4, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"ring and Ulysses at world 1 launched "
+                             f"{launches}, want {want}")
+    errors = {}
+    for causal in (True, False):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = att.FlashAttention.apply(*leaves, causal)
+        ref = (o.detach(), *torch.autograd.grad(o, leaves, do))
+        pv = att.flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
+        o_p, lse_p = att.flash_attention_fwd_plain(q, k, v, causal)
+        delta = att.attention_delta_plain(o_p, do)
+        p, ds = att.bwd_softmax_grads(q, k, v, do, lse_p, delta, causal)
+        mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+        del p, ds, o_p, lse_p
+        for name in ("ring_attention", "ulysses_attention"):
+            got = runs[name, causal]
+            where = f"{name} world 1 {WORLD1_SHAPE} bf16 causal={int(causal)}"
+            errs = {"o": compare(name, "o", got[0], ref[0],
+                                 TOL["bfloat16"]["o"], where, pv)}
+            for key, g, r, m in zip(("dq", "dk", "dv"), got[1:], ref[1:],
+                                    mag):
+                errs[key] = compare(name, key, g, r, BWD_TOL["bfloat16"],
+                                    where, m)
+            errors[f"{name} causal={int(causal)}"] = {
+                key: e["max_abs"] for key, e in errs.items()}
+        del pv, mag
+    log(f"parallel: ring and Ulysses at world 1 against FlashAttention, "
+        f"max abs errors {errors} [tol {TOL['bfloat16']['o']}, "
+        f"{BWD_TOL['bfloat16']}]; launches {launches} [{card}]")
+    return launches, errors
+
+
+def ring_blocks(i: int, n: int, causal: bool) -> list:
+    """The blocks rank i attends to, in the ring's order: rank (i - t) mod
+    n at step t, without the future ones under a causal mask."""
+    owners = [(i - t) % n for t in range(n)]
+    return [j for j in owners if not (causal and j > i)]
+
+
+def ring_emulate(q, k, v, do, n: int, causal: bool) -> dict:
+    """The ring's forward and backward for n virtual ranks in one process,
+    through the per-step functions of ``ops.ring_attention``, as
+    ``ring_attention_fwd`` and ``ring_attention_bwd`` run them on each
+    rank: rank i's blocks attended and merged by lse; then each block's
+    backward fed rank i's merged lse and Delta, its dQ added into rank i's
+    one fp32 buffer, dK and dV summed at their owner in fp32; the sums cast
+    to bf16. Returns the whole sequence's o, lse, Delta and gradients."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import attention_delta
+    from ray_tpu_torch.ops.ring_attention import (attend_block,
+                                                  block_backward,
+                                                  merge_blocks)
+
+    L = q.shape[1] // n
+
+    def part(x, i):
+        return x[:, i * L:(i + 1) * L]
+
+    out = {key: [] for key in ("o", "lse", "delta", "dq")}
+    for i in range(n):
+        o = lse = None
+        for j in ring_blocks(i, n, causal):
+            o_b, lse_b = attend_block(part(q, i), part(k, j), part(v, j),
+                                      causal and j == i)
+            o, lse = ((o_b.float(), lse_b) if o is None
+                      else merge_blocks(o, lse, o_b, lse_b))
+        out["o"].append(o.to(q.dtype))
+        out["lse"].append(lse)
+    dkv = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+           for _ in range(2)]
+    for i in range(n):
+        delta = attention_delta(out["o"][i], part(do, i))
+        dq = torch.zeros(part(q, i).shape, dtype=torch.float32,
+                         device=q.device)
+        for j in ring_blocks(i, n, causal):
+            dk, dv = block_backward(part(q, i), part(k, j), part(v, j),
+                                    part(do, i), out["lse"][i], delta,
+                                    causal and j == i, dq)
+            part(dkv[0], j).add_(dk)
+            part(dkv[1], j).add_(dv)
+        out["delta"].append(delta)
+        out["dq"].append(dq.to(q.dtype))
+    return {"o": torch.cat(out["o"], dim=1),
+            "lse": torch.cat(out["lse"], dim=1),
+            "delta": torch.cat(out["delta"], dim=1),
+            "dq": torch.cat(out["dq"], dim=1),
+            "dk": dkv[0].to(k.dtype), "dv": dkv[1].to(v.dtype)}
+
+
+def plain_scores(qf, kf, causal: bool, r0: int, r1: int):
+    """fp32 scaled scores of query rows r0:r1 against every key, (B, H,
+    r1 - r0, S), masked with -1e30 above the diagonal under ``causal``."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", qf[:, r0:r1], kf)
+    s *= 1.0 / math.sqrt(qf.shape[-1])
+    if causal:
+        rows = torch.arange(r0, r1, device=qf.device)[:, None]
+        cols = torch.arange(kf.shape[1], device=qf.device)[None]
+        s.masked_fill_(cols > rows, -1e30)
+    return s
+
+
+def plain_fwd_chunked(q, k, v, causal: bool, n: int = 1):
+    """``flash_attention_fwd_plain`` by RING_CHUNK query rows at a time, for
+    sequences whose whole fp32 scores would not fit: o, lse, P |V| (its o
+    on |v|, the tolerance's magnitude) and sum_j |P_j V_j| over n equal key
+    blocks j (P the whole row's probabilities in fp32: w_j o_j of block j,
+    w_j its merge weight)."""
+    import torch
+
+    B, S, H, D = q.shape
+    L = S // n
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o, pv = torch.empty_like(q), torch.empty_like(q)
+    blocks = torch.zeros_like(qf)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    for r0 in range(0, S, RING_CHUNK):
+        r1 = min(S, r0 + RING_CHUNK)
+        s = plain_scores(qf, kf, causal, r0, r1)
+        lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)
+        del s
+        probs = p.to(q.dtype)
+        o[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        pv[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", probs, v.abs())
+        for j in range(n):
+            keys = slice(j * L, (j + 1) * L)
+            blocks[:, r0:r1] += torch.einsum(
+                "bhqk,bkhd->bqhd", p[..., keys], vf[:, keys]).abs()
+    return o, lse.reshape(B * H, S, 1), pv, blocks
+
+
+def plain_bwd_chunked(q, k, v, do, lse, delta, causal: bool, n: int = 1):
+    """The plain backward (``bwd_softmax_grads`` and ``bwd_products``, H =
+    KVH) from the given lse and Delta, by RING_CHUNK query rows at a time,
+    in fp32. Returns the gradients; the same products on absolute values
+    (the tolerance's M); and the sums over n equal blocks of the blocks'
+    shares in absolute value: sum_j |dQ_ij| over key blocks j, sum_i
+    |dK_ij|, sum_i |dV_ij| over query blocks i."""
+    import torch
+
+    B, S, H, D = q.shape
+    L = S // n
+    if L % RING_CHUNK and L > RING_CHUNK:
+        raise ValueError(f"{RING_CHUNK}-row chunks do not tile {L}-row "
+                         "blocks")
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    lse, delta = lse.reshape(B, H, S, 1), delta.reshape(B, H, S, 1)
+    keys = ("dq", "dk", "dv")
+    grads, mags, sums, share = ({key: torch.zeros_like(qf) for key in keys}
+                                for _ in range(4))
+    for r0 in range(0, S, RING_CHUNK):
+        r1 = min(S, r0 + RING_CHUNK)
+        rows = slice(r0, r1)
+        p = torch.exp(plain_scores(qf, kf, causal, r0, r1) - lse[:, :, rows])
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rows], vf)
+        ds = p * (dp - delta[:, :, rows]) * (1.0 / math.sqrt(D))
+        del dp
+        grads["dq"][:, rows] = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+        for key, x, y in (("dk", ds, qf[:, rows]), ("dv", p, dof[:, rows])):
+            c = torch.einsum("bhqk,bqhd->bkhd", x, y)
+            grads[key] += c
+            share[key] += c
+        for j in range(n):
+            cols = slice(j * L, (j + 1) * L)
+            sums["dq"][:, rows] += torch.einsum(
+                "bhqk,bkhd->bqhd", ds[..., cols], kf[:, cols]).abs()
+        if r1 % L == 0 or r1 == S:  # the end of a query block
+            for key in ("dk", "dv"):
+                sums[key] += share[key].abs()
+                share[key].zero_()
+        ds = ds.abs_()
+        mags["dq"][:, rows] = torch.einsum("bhqk,bkhd->bqhd", ds, kf.abs())
+        mags["dk"] += torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, rows].abs())
+        mags["dv"] += torch.einsum("bhqk,bqhd->bkhd", p, dof[:, rows].abs())
+        del p, ds
+    return grads, mags, sums
+
+
+def phase_ring_blocks(card: str):
+    """The ring's block math for RING_RANKS virtual ranks in one process
+    (``ring_emulate``), causal and full, on one 1 x RING_SEQ sequence of
+    RING_HEADS heads at head_dim RING_D in bf16; launches counted over
+    those runs alone. Then held against the unsharded kernels on the whole
+    sequence and against the plain version by query chunks (fp32 scores):
+
+    - forward, ring against plain: each block's o_j is within the kernel's
+      bound (TOL) of its plain value, and the merge is a convex sum with
+      weights w_j = exp(lse_j - lse), so |o - o_plain| <= 1e-3 + 2e-2
+      sum_j w_j |o_j| + 2^-8 P|V|, with w_j o_j = P_j V_j of the plain
+      version (P the row's probabilities) and sum_j w_j P_j|V_j| = P|V|;
+      the fp32 merge and the rounding of o to bf16 (2^-9 of |o|) fall
+      under the rtol. lse: each block's is within 1e-3, logaddexp is a
+      weighted mean of them, and the n merges round by 2^-23 of |lse|
+      each: 1e-3 + n 2^-22 |lse|;
+    - backward, ring against the plain backward fed the ring's own lse and
+      Delta: each block's dX within BWD_TOL of its plain value, summed over
+      the n blocks: n 1e-4 + 2e-2 sum_j |dX_ij| + 2^-8 M, the block shares
+      dX_ij and M (a sum over the blocks too) of the plain version; the
+      fp32 sums and their cast to bf16 fall under the rtol;
+    - the unsharded kernels against plain: TOL and BWD_TOL as they are;
+    - ring against the unsharded kernels: the two bounds above added, and
+      for the backward the plain backward's own change between the ring's
+      lse, Delta and the unsharded ones (measured in fp32).
+
+    Times: each block kind, the merge, Delta at one rank's length, the
+    whole emulated ring (every rank's work on this one card), the busiest
+    rank's share (the last one: a real ring's step time) and the unsharded
+    kernels, beside the bound."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    S, H, D = RING_SEQ, RING_HEADS, RING_D
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn(1, S, H, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    runs = {(n, causal): ring_emulate(q, k, v, do, n, causal)
+            for causal in (True, False) for n in RING_RANKS}
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    blocks = sum(len(ring_blocks(i, n, causal)) for n in RING_RANKS
+                 for causal in (True, False) for i in range(n))
+    want = {"flash_attention_fwd": blocks, "attention_delta":
+            2 * sum(RING_RANKS), "flash_attention_bwd": blocks,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"ring blocks launched {launches}, want {want}")
+    log(f"ring blocks: {RING_RANKS} virtual ranks, causal and full, "
+        f"launched {launches}")
+    report = {"shape": [1, S, H, H, D], "ranks": list(RING_RANKS),
+              "checks": {}, "times": {}}
+    atol, rtol, m = TOL["bfloat16"]["o"]
+    latol = TOL["bfloat16"]["lse"][0]
+    batol, brtol, bm = BWD_TOL["bfloat16"]
+    for causal in (True, False):
+        where = f"1 x {S}, {H} heads, D {D}, bf16, causal={int(causal)}"
+        o_f, lse_f = att.flash_attention_fwd(q, k, v, causal)
+        delta_f = att.attention_delta(o_f, do)
+        full = dict(zip(("dq", "dk", "dv"), att.flash_attention_bwd_rows(
+            q, k, v, do, lse_f, delta_f, causal)))
+        plain_f, mag_f, _ = plain_bwd_chunked(q, k, v, do, lse_f, delta_f,
+                                              causal)
+        errs = {}
+
+        def check(label, kernel, key, got, ref, tol, at, mag):
+            errs[label] = compare(kernel, key, got, ref, tol, at,
+                                  mag)["max_abs"]
+
+        for key in ("dq", "dk", "dv"):
+            check(f"full {key} vs plain", "flash_bwd", key, full[key],
+                  plain_f[key], BWD_TOL["bfloat16"], where, mag_f[key])
+        for n in RING_RANKS:
+            ring = runs[n, causal]
+            at = f"{where}, {n} virtual ranks"
+            o_p, lse_p, pv, o_blocks = plain_fwd_chunked(q, k, v, causal, n)
+            pv = pv.float()
+            merge = n * 2.0 ** -22 * lse_p.abs()
+            check("full o vs plain", "flash_fwd", "o", o_f, o_p,
+                  TOL["bfloat16"]["o"], where, pv)
+            check("full lse vs plain", "flash_fwd", "lse", lse_f, lse_p,
+                  TOL["bfloat16"]["lse"], where, None)
+            check(f"{n} o vs plain", "ring", "o", ring["o"], o_p,
+                  (atol, 0.0, 1.0), at, rtol * o_blocks + m * pv)
+            check(f"{n} lse vs plain", "ring", "lse", ring["lse"], lse_p,
+                  (latol, 0.0, 1.0), at, merge)
+            check(f"{n} o vs full", "ring", "o", ring["o"], o_f,
+                  (2 * atol, 0.0, 1.0), at,
+                  rtol * (o_blocks + o_p.float().abs()) + 2 * m * pv)
+            check(f"{n} lse vs full", "ring", "lse", ring["lse"], lse_f,
+                  (2 * latol, 0.0, 1.0), at, merge)
+            del o_p, lse_p, pv, o_blocks, merge
+            plain_r, mag_r, sums = plain_bwd_chunked(
+                q, k, v, do, ring["lse"], ring["delta"], causal, n)
+            for key in ("dq", "dk", "dv"):
+                check(f"{n} {key} vs plain", "ring", key, ring[key],
+                      plain_r[key], (n * batol, 0.0, 1.0), at,
+                      brtol * sums[key] + bm * mag_r[key])
+                check(f"{n} {key} vs full", "ring", key, ring[key],
+                      full[key], ((n + 1) * batol, 0.0, 1.0), at,
+                      brtol * (sums[key] + plain_f[key].abs())
+                      + bm * (mag_r[key] + mag_f[key])
+                      + (plain_r[key] - plain_f[key]).abs())
+            del plain_r, mag_r, sums
+        report["checks"][f"causal={int(causal)}"] = errs
+        log(f"check ring blocks {where}: max abs errors {errs} [tol fwd "
+            f"{TOL['bfloat16']}, bwd {BWD_TOL['bfloat16']}, summed over "
+            f"blocks, plus n 2^-22 |lse| for the merge]")
+        del plain_f, mag_f
+        report["times"][f"causal={int(causal)}"] = time_ring(
+            q, k, v, do, o_f, lse_f, delta_f, causal, card)
+        del o_f, lse_f, delta_f, full
+    del runs
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
+    """Times of the ring's parts at each RING_RANKS (CUDA events, median of
+    TIME_ROUNDS rounds in turns) beside the unsharded kernels: a diagonal
+    block (causal when the ring is) and an off-diagonal one (full), forward
+    and backward, a merge, Delta at one rank's length, the whole emulated
+    ring (every rank's blocks on this one card) and the busiest rank's
+    share (the last one, which attends to every block)."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    from ray_tpu_torch.ops.ring_attention import (attend_block,
+                                                  block_backward,
+                                                  merge_blocks)
+
+    B, S, H, D = q.shape
+    out = {}
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    unsharded = {
+        "fwd": lambda: att.flash_attention_fwd(q, k, v, causal),
+        "bwd": lambda: att.flash_attention_bwd_rows(q, k, v, do, lse_f,
+                                                    delta_f, causal,
+                                                    dq_acc=dq),
+        "delta": lambda: att.attention_delta(o_f, do)}
+    for n in RING_RANKS:
+        L = S // n
+        qs, ks, vs, dos = (x[:, :L] for x in (q, k, v, do))
+        o_b, lse_b = attend_block(qs, ks, vs, False)
+        o32 = o_b.float()
+        delta = att.attention_delta(o_b, dos)
+        dq_b = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
+        runs = {
+            "fwd_diagonal": lambda: attend_block(qs, ks, vs, causal),
+            "fwd_off_diagonal": lambda: attend_block(qs, ks, vs, False),
+            "merge": lambda: merge_blocks(o32, lse_b, o_b, lse_b),
+            "bwd_diagonal": lambda: block_backward(qs, ks, vs, dos, lse_b,
+                                                   delta, causal, dq_b),
+            "bwd_off_diagonal": lambda: block_backward(qs, ks, vs, dos,
+                                                       lse_b, delta, False,
+                                                       dq_b),
+            "delta": lambda: att.attention_delta(o_b, dos),
+            "whole_ring": lambda: ring_emulate(q, k, v, do, n, causal)}
+        times = {key: [] for key in runs}
+        for r in range(TIME_ROUNDS):
+            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                iters = 2 if key == "whole_ring" else 20
+                times[key].append(cuda_time_ms(runs[key], iters, warmup=1))
+        ms = {key: sorted(t)[len(t) // 2] for key, t in times.items()}
+        # the busiest rank, the last: its diagonal, n - 1 full blocks and
+        # n - 1 merges forward; Delta, the diagonal and n - 1 full blocks
+        # backward
+        ms["last_rank_fwd"] = (ms["fwd_diagonal"] + (n - 1)
+                               * (ms["fwd_off_diagonal"] + ms["merge"]))
+        ms["last_rank_bwd"] = (ms["delta"] + ms["bwd_diagonal"] + (n - 1)
+                               * ms["bwd_off_diagonal"])
+        out[n] = ms
+    base = {key: cuda_time_ms(fn, 20) for key, fn in unsharded.items()}
+    fb, fby = flash_bound(B, H, H, D, S, causal, 2)
+    bb, bby = bwd_bound("flash_bwd", B, H, H, D, S, causal, 2)
+    out["unsharded"] = {**base, "fwd_bound_ms": fb, "fwd_bound_by": fby,
+                        "bwd_bound_ms": bb, "bwd_bound_by": bby}
+    log(f"time ring blocks 1 x {S}, {H} heads, D {D}, bf16 causal="
+        f"{int(causal)}: {json.dumps(out)}; unsharded flash_fwd "
+        f"{base['fwd']:.4f} ms against its bound {fb:.4f} ms ({fby}), "
+        f"flash_bwd {base['bwd']:.4f} ms against {bb:.4f} ms ({bby}) "
+        f"[{card}]")
+    return out
+
+
+def check_codecs(card: str) -> dict:
+    """int8 and fp8 encode and decode on the card of a flat fp32 vector of
+    the 1b's parameter count: GB/s (bytes read and written once each), the
+    largest error, held within the codec's rounding (int8: half a step,
+    scale / 2; fp8 e4m3: 2^-4 of the value, or half the smallest
+    subnormal's step, 2^-10 scale, near 0; each plus fp32's roundings),
+    and the first CODEC_CPU_SLICE values' codes and scales equal
+    to the port's codec on the CPU, bit for bit."""
+    import torch
+
+    from ray_tpu_torch.collective import quant
+    from ray_tpu_torch.models import CONFIGS
+
+    n = CONFIGS[TRAIN_CONFIG].num_params()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(n, generator=gen, device="cuda")
+    out = {"values": n}
+    for name in ("int8", "fp8"):
+        codec = quant.QuantCodec(name)
+        qt = quant.quantize(x, codec)
+        y = quant.dequantize(qt)
+        nb = qt.scales.numel()
+        enc_ms = cuda_time_ms(lambda: quant.quantize(x, codec), 3, warmup=1)
+        dec_ms = cuda_time_ms(lambda: quant.dequantize(qt), 3, warmup=1)
+        wire = n + 4 * nb
+        scale = qt.scales.repeat_interleave(codec.block)[:n]
+        err = (y - x).abs()
+        bound = (0.5 * scale if name == "int8" else
+                 torch.maximum(2.0 ** -4 * x.abs(), 2.0 ** -10 * scale))
+        # fp32's roundings of x / scale (up to 448 x 2^-24 of the scale)
+        # and of the decoded product
+        bound = bound + 2.0 ** -15 * scale + 2.0 ** -23 * x.abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"codec {name}: an error beyond the "
+                                 "codec's rounding")
+        cpu = quant.quantize(x[:CODEC_CPU_SLICE].cpu(), codec)
+        if not (torch.equal(qt.codes[:CODEC_CPU_SLICE].cpu(), cpu.codes)
+                and torch.equal(qt.scales[:CODEC_CPU_SLICE // codec.block]
+                                .cpu(), cpu.scales)):
+            raise AssertionError(f"codec {name}: the card's codes differ "
+                                 "from the CPU's")
+        out[name] = {"encode_ms": enc_ms, "decode_ms": dec_ms,
+                     "encode_gb_s": (4 * n + wire) / enc_ms / 1e6,
+                     "decode_gb_s": (wire + 4 * n) / dec_ms / 1e6,
+                     "max_abs_err": err.max().item(),
+                     "max_rel_to_bound": (err / bound).max().item(),
+                     "wire_bytes": wire, "raw_bytes": 4 * n}
+        del qt, y, scale, err, bound, cpu
+    del x
+    torch.cuda.empty_cache()
+    log(f"parallel: codecs on {n} fp32 values: {json.dumps(out)}; codes "
+        f"and scales of the first {CODEC_CPU_SLICE} equal to the CPU's "
+        f"[{card}]")
+    return out
+
+
+def phase_mesh_training(card: str):
+    """The 1b at TRAIN_BATCH x TRAIN_SEQ: MESH_STEPS steps of the
+    single-device bundle, then as many of the bundle on a ``data=1`` mesh
+    over the NCCL group (its loss's count, the loss and every gradient
+    all-reduced), from the same seed and batch; each step's loss within
+    TRAIN_LOSS_TOL of the single-device one. The mesh run's launches are
+    counted (``run_steps``)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.parallel import (AXES, TrainStepBundle, create_mesh,
+                                        make_optimizer)
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+
+    def bundle(**kw):
+        b = TrainStepBundle(cfg, optimizer=make_optimizer(
+            learning_rate=1e-4, warmup_steps=1), **kw)
+        params, opt = b.init(seed=0)
+        batch = b.make_batch(np.random.default_rng(0), TRAIN_BATCH,
+                             TRAIN_SEQ)
+        return b, params, opt, batch
+
+    b, params, opt, batch = bundle(device="cuda")
+    single = [b.step(params, opt, batch)[2].item() for _ in range(MESH_STEPS)]
+    del b, params, opt, batch
+    torch.cuda.empty_cache()
+    mesh = create_mesh({**dict.fromkeys(AXES, 1), "data": 1})
+    b, params, opt, batch = bundle(mesh=mesh)
+    launches, run = run_steps(
+        lambda: {"loss": b.step(params, opt, batch)[2]}, MESH_STEPS, {
+            "flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+            "attention_delta": cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+        "mesh training")
+    diffs = [abs(a - s) for a, s in zip(run["loss"], single)]
+    report = {"config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 mesh.mesh.shape)),
+              "losses_mesh": run["loss"], "losses_single": single,
+              "max_loss_diff": max(diffs), "step_s": run["step_s"],
+              "max_memory_allocated_bytes":
+                  run["max_memory_allocated_bytes"]}
+    log(f"mesh training: {report} [tol {TRAIN_LOSS_TOL}] [{card}]")
+    if not max(diffs) <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"the mesh's losses part from the single "
+                             f"device's by {max(diffs)}")
+    del b, params, opt, batch, mesh
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -1439,6 +2090,7 @@ def main() -> int:
                                            "moe training")
     paths["vit_training"] = phase_vit_training(dev["card"])
     serve_launches = phase_serving(dev["card"])["launches"]
+    paths.update(phase_parallel(dev["card"]))
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

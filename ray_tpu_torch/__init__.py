@@ -1,10 +1,12 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
 
 A package of its own beside ``ray_tpu`` (the JAX reference), importing none
-of it. Ported so far: the paged-KV LLM serving path (``llm``), the dense
-decoder LM it serves (``models``), its single-device training step
-(``parallel``) and the flash-attention forward and backward as CUDA kernels
-(``ops``). Entry points run on the card unless given
+of it. Ported so far: the paged-KV LLM serving path (``llm``), the decoder
+LMs and the ViT (``models``), their training step on one device or on a
+mesh's data axis (``parallel``), the collective group on
+``torch.distributed`` with its codecs (``collective``), and the
+flash-attention forward and backward as CUDA kernels with ring and Ulysses
+attention on them (``ops``). Entry points run on the card unless given
 ``device="cpu"``.
 
 Submodules load lazily: importing this package imports neither the model
@@ -13,7 +15,7 @@ code nor the kernels, and kernels are built only when first launched.
 
 import importlib
 
-_SUBMODULES = ("llm", "models", "ops", "parallel", "utils")
+_SUBMODULES = ("collective", "llm", "models", "ops", "parallel", "utils")
 
 
 def __getattr__(name):

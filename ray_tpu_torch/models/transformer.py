@@ -436,14 +436,21 @@ class Transformer(nn.Module):
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross entropy; ``targets`` are the inputs shifted by one."""
+            mask: Optional[torch.Tensor] = None,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy; ``targets`` are the inputs shifted by one.
+    ``count``, where given, is what the (masked) sum of the token losses is
+    divided by in place of the mask's own sum: the data-parallel step
+    passes the mask's sum over all ranks, so that each rank's loss is its
+    share of the global mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    if mask is not None:
-        mask = mask.float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+    if mask is None and count is None:
+        return nll.mean()
+    total = nll.sum() if mask is None else (nll * mask.float()).sum()
+    if count is None:
+        count = mask.float().sum()
+    return total / torch.clamp(count, min=1.0)
 
 
 def state_dict_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:

@@ -380,28 +380,66 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True
     On CPU tensors: the plain version."""
     if _on_cpu(q, k, v, o, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    delta = attention_delta(o, do)
-    if q.dtype == torch.bfloat16:
-        _check_kernel_inputs("flash_bwd", q, k, v, do)
-        _check_row_stats(q, lse=lse, delta=delta)
-        return _launch_bwd(q, k, v, do, lse, delta, causal)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
-    return dq, dk, dv
+    return flash_attention_bwd_rows(q, k, v, do, lse, attention_delta(o, do),
+                                    causal)
 
 
 flash_attention_bwd.launches = 0
 
 
-def _launch_bwd(q, k, v, do, lse, delta, causal: bool):
-    # the kernel adds every q tile's share into dq_acc, so it starts at 0
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+def flash_attention_bwd_rows(q, k, v, do, lse, delta, causal: bool = True,
+                             dq_acc: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The backward from row statistics the caller gives: ``lse`` (B * H,
+    S, 1) and ``delta`` (B * H, S), fp32, as the forward and
+    ``attention_delta`` make them. Ring attention calls it for each block
+    with the lse and Delta of the merged output, which are not the block's
+    own.
+
+    Returns ``(dq, dk, dv)`` as ``flash_attention_bwd``. With ``dq_acc`` (an
+    fp32 tensor of q's shape), dQ is added into it in fp32 and ``dq_acc``
+    is returned in dq's place: the bf16 kernel adds each q tile's share
+    into that buffer by TMA reduce-add in any case, so a caller summing dQ
+    over several blocks pays neither a cast nor a rounding a block.
+
+    On CUDA tensors bf16 launches ``flash_bwd`` (counted in
+    ``flash_attention_bwd.launches``) and fp32 the pair
+    ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, or raises;
+    CPU tensors take the plain version."""
+    if dq_acc is not None and (dq_acc.shape != q.shape
+                               or dq_acc.dtype != torch.float32
+                               or dq_acc.device != q.device
+                               or not dq_acc.is_contiguous()
+                               or dq_acc.data_ptr() % 16):
+        raise ValueError(f"dq_acc must be a contiguous, 16-byte aligned fp32 "
+                         f"tensor of q's shape {tuple(q.shape)} on "
+                         f"{q.device}")
+    if _on_cpu(q, k, v, do):
+        if dq_acc is None:
+            return _bwd_plain(q, k, v, do, lse, delta, causal)
+        p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
+        dq, dk, dv = bwd_products(p, ds, q, k, do)
+        return dq_acc.add_(dq), dk.to(k.dtype), dv.to(v.dtype)
+    if q.dtype == torch.bfloat16:
+        _check_kernel_inputs("flash_bwd", q, k, v, do)
+        _check_row_stats(q, lse=lse, delta=delta)
+        return _launch_bwd(q, k, v, do, lse, delta, causal, dq_acc)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return (dq if dq_acc is None else dq_acc.add_(dq)), dk, dv
+
+
+def _launch_bwd(q, k, v, do, lse, delta, causal: bool, dq_acc=None):
+    # the kernel adds every q tile's share into the accumulator, so a fresh
+    # one starts at 0
+    out = dq_acc if dq_acc is not None else torch.zeros(
+        q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("flash_bwd", "flash_bwd",
-            (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
+            (q, k, v, do, lse, delta, dk, dv, out), causal)
     flash_attention_bwd.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return (out if dq_acc is not None else out.to(q.dtype)), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -502,3 +502,60 @@ def test_moe_train_step_never_waits_for_the_card(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(loss.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_from_row_stats_adds_dq_into_one_buffer(cuda_device,
+                                                         dtype):
+    """``flash_attention_bwd_rows`` with ``dq_acc``, as the ring runs it:
+    two key blocks' dQ added into one fp32 buffer equal the two computed
+    apart and summed, to fp32's reassociation: each of at most 16
+    additions of key tiles' shares rounds by 2^-24 of a running sum no
+    larger than M = |dS| |K| of the two blocks; dK and dV are the block's
+    own, bit for bit."""
+    from ray_tpu_torch.ops.attention import flash_attention_bwd_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k1, v1, k2, v2, do = (torch.randn(2, 256, 4, 128, generator=gen,
+                                         device="cuda", dtype=dtype)
+                             for _ in range(6))
+    _, lse = flash_attention_fwd(q, k1, v1, False)
+    delta = torch.randn(2 * 4, 256, generator=gen, device="cuda")
+    acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    got = [flash_attention_bwd_rows(q, k, v, do, lse, delta, False, acc)
+           for k, v in ((k1, v1), (k2, v2))]
+    assert got[0][0] is acc and got[1][0] is acc
+    apart = []
+    for k, v in ((k1, v1), (k2, v2)):
+        buf = torch.zeros_like(acc)
+        apart.append(flash_attention_bwd_rows(q, k, v, do, lse, delta, False,
+                                              buf))
+    want = apart[0][0] + apart[1][0]
+    mag = 0.0
+    for k, v in ((k1, v1), (k2, v2)):
+        p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, False)
+        mag = mag + bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())[0]
+    assert bool(((acc - want).abs() <= 2.0 ** -20 * mag).all())
+    for g, a in zip(got, apart):
+        assert torch.equal(g[1], a[1]) and torch.equal(g[2], a[2])
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8", "bf16"])
+def test_codecs_on_the_card_equal_the_cpu(cuda_device, name):
+    """The block codecs on card tensors: codes and scales equal to the same
+    codec's on the CPU, bit for bit, ragged tail and non-finite values
+    included (the scales divide by a tensor: CUDA's division by a Python
+    number multiplies by its rounded reciprocal)."""
+    from ray_tpu_torch.collective import quant
+
+    x = torch.randn(100_003, generator=torch.Generator().manual_seed(9))
+    x[[5, 700, 9000]] = torch.tensor([float("nan"), float("inf"),
+                                      -float("inf")])
+    codec = quant.QuantCodec(name, 64)
+    card, cpu = quant.quantize(x.cuda(), codec), quant.quantize(x, codec)
+    assert torch.equal(card.scales.cpu(), cpu.scales)
+    if name != "bf16":  # bf16 carries NaN through, whose bits may differ
+        assert torch.equal(card.codes.cpu(), cpu.codes)
+    torch.testing.assert_close(quant.dequantize(card).cpu(),
+                               quant.dequantize(cpu), rtol=0, atol=0,
+                               equal_nan=True)

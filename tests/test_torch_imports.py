@@ -41,10 +41,13 @@ def test_port_imports_no_jax_nor_reference_package(path):
 def test_import_builds_and_loads_no_kernel():
     code = (
         "import sys, ray_tpu_torch\n"
-        "from ray_tpu_torch import llm, models, ops, parallel, utils\n"
+        "from ray_tpu_torch import collective, llm, models, ops, parallel, "
+        "utils\n"
         "from ray_tpu_torch.llm import engine, serve_llm, model_runner\n"
         "from ray_tpu_torch.models import convert, transformer, vit\n"
-        "from ray_tpu_torch.parallel import train\n"
+        "from ray_tpu_torch.parallel import mesh, train\n"
+        "from ray_tpu_torch.collective import collective_group, quant\n"
+        "from ray_tpu_torch.ops import ring_attention\n"
         "from ray_tpu_torch.ops import _build\n"
         "assert not _build.is_loaded('flash_fwd')\n"
         "assert not _build.is_loaded('flash_bwd')\n"
