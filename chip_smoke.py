@@ -68,8 +68,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    version within bounds derived from theirs, with each block kind's time
    (the ``ring_attention`` path of the launch counts); the int8 and fp8
    codecs on the card at the 1b's parameter count against the CPU's; and
-   the 1b trained on a ``data=1`` mesh against the single-device step
-   (the ``mesh_training`` path); a ``parallel metrics:`` line.
+   the 1b trained on a ``data=1`` mesh (the ``mesh_training`` path) and
+   on a world-1 mesh of every axis, its fsdp gathers and reduce-scatters
+   and its tensor axis's reductions running as one-rank collectives (the
+   ``mesh_fsdp_tensor`` path), each against the single-device step, with
+   step times and peak memory side by side; a ``parallel metrics:`` line;
+11. tensor parallel: the tensor axis's per-rank math at full width for
+   virtual ranks in one process: the 1b's block at 4 x 2048 over 2, 4
+   and 8 ranks (8: 2 query heads and 1 KV head a rank) and one block of
+   the 7b at 1 x 4096 over 4 and 8, each rank's attention and MLP through
+   the port's modules and the flash kernels, the reductions summed
+   in-process, forward and backward held against the unsharded block
+   within a derived bound (the ``tensor_parallel`` path); the
+   vocabulary-parallel cross entropy at V = 32000 against ``lm_loss``;
+   the kernels and the library's attention at each rank's shape, beside
+   the bounds; a ``tensor parallel metrics:`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, so the comparisons with the plain versions do not count.
@@ -80,7 +93,8 @@ times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
 ``mma_ms`` and the training shape's under ``train_shape``, and at the
 training shape for the backward, ``flash_bwd`` with ``backward_ms`` and
 ``mma_ms``; ``d64_shapes`` holds the forward's, ``flash_bwd``'s and
-Delta's at the MoE and ViT shapes); the last line is ``{"ok": true,
+Delta's at the MoE and ViT shapes, ``tensor_parallel_shapes`` theirs at
+each rank's shape of phase 11); the last line is ``{"ok": true,
 "device": {...}}``. With no card, or outside a checkout of the repository,
 it prints no result and exits non-zero.
 """
@@ -660,6 +674,42 @@ def kernel_counters():
             flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
+def check_attention(q, k, v, do, causal: bool, where: str):
+    """The forward kernel, Delta and the whole bf16 backward (Delta and
+    ``flash_bwd``) at one shape against their plain versions on the same
+    inputs (TOL, BWD_TOL, DELTA_TOL; ``compare`` raises beyond them).
+    Returns the kernels' o, lse and Delta, and the errors by output."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    o, lse = att.flash_attention_fwd(q, k, v, causal)
+    delta = att.attention_delta(o, do)
+    dq, dk, dv = att.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = att.flash_attention_fwd_plain(q, k, v, causal)
+    pv = att.flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
+    errs = {key: compare("flash_fwd", key, got, ref, TOL["bfloat16"][key],
+                         where, pv)
+            for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref))}
+    del o_ref, lse_ref, pv
+    errs["delta"] = compare("flash_bwd_delta", "delta", delta,
+                            att.attention_delta_plain(o, do), DELTA_TOL,
+                            where, None)
+    p, ds = att.bwd_softmax_grads(q, k, v, do, lse, delta, causal)
+    ref = [x.to(q.dtype) for x in att.bwd_products(p, ds, q, k, do)]
+    mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
+    del p, ds
+    for key, got, r, m in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, mag):
+        errs[key] = compare("flash_bwd", key, got, r, BWD_TOL["bfloat16"],
+                            where, m)
+    del ref, mag, dq, dk, dv
+    log(f"check {where}: {errs} [tol fwd {TOL['bfloat16']}, bwd "
+        f"{BWD_TOL['bfloat16']}, delta {DELTA_TOL}]")
+    return o, lse, delta, errs
+
+
 def phase_d64_kernels(card: str) -> dict:
     """The forward and the whole bf16 backward at the MoE and ViT training
     shapes (``D64_SHAPES``), against their plain versions on the same
@@ -672,7 +722,6 @@ def phase_d64_kernels(card: str) -> dict:
     import importlib
 
     import torch
-    import torch.nn.functional as F
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -683,65 +732,10 @@ def phase_d64_kernels(card: str) -> dict:
                        for h in (H, KVH, KVH, H))
         where = (f"{name} B={B} S={S} H={H} KVH={KVH} D={D} bf16 "
                  f"causal={int(causal)}")
-        o, lse = att.flash_attention_fwd(q, k, v, causal)
-        delta = att.attention_delta(o, do)
-        dq, dk, dv = att.flash_attention_bwd(q, k, v, o, lse, do, causal)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = att.flash_attention_fwd_plain(q, k, v, causal)
-        pv = att.flash_attention_fwd_plain(q, k, v.abs(), causal)[0]
-        errs = {key: compare("flash_fwd", key, got, ref,
-                             TOL["bfloat16"][key], where, pv)
-                for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref))}
-        del o_ref, lse_ref, pv
-        errs["delta"] = compare("flash_bwd_delta", "delta", delta,
-                                att.attention_delta_plain(o, do), DELTA_TOL,
-                                where, None)
-        p, ds = att.bwd_softmax_grads(q, k, v, do, lse, delta, causal)
-        ref = [x.to(q.dtype) for x in att.bwd_products(p, ds, q, k, do)]
-        mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
-        del p, ds
-        for key, got, r, m in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
-                                  mag):
-            errs[key] = compare("flash_bwd", key, got, r,
-                                BWD_TOL["bfloat16"], where, m)
-        del ref, mag, dq, dk, dv
-        log(f"check d64 {where}: {errs} [tol fwd {TOL['bfloat16']}, bwd "
-            f"{BWD_TOL['bfloat16']}, delta {DELTA_TOL}]")
+        o, lse, delta, errs = check_attention(q, k, v, do, causal,
+                                              f"d64 {where}")
 
-        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-
-        def fused():  # the C entry called directly: no Delta, no zeros
-            att._launch("flash_bwd", "flash_bwd",
-                        (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
-
-        # yardsticks only: one library call on the same inputs (K/V
-        # repeated to H heads outside the timed region); never in the port
-        rep = H // KVH
-        qt, kt, vt = (x.transpose(1, 2) for x in (
-            q, k.repeat_interleave(rep, dim=2),
-            v.repeat_interleave(rep, dim=2)))
-        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-        lib_out = F.scaled_dot_product_attention(qg, kg, vg,
-                                                 is_causal=causal)
-        dot = do.transpose(1, 2)
-        runs = {
-            "flash_fwd": lambda: att.flash_attention_fwd(q, k, v, causal),
-            "library_fwd": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal),
-            "flash_bwd": fused,
-            "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
-                                                        causal),
-            "flash_bwd_delta": lambda: att.attention_delta(o, do),
-            "library_bwd": lambda: torch.autograd.grad(
-                lib_out, (qg, kg, vg), dot, retain_graph=True),
-            "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
-        }
-        times = {key: [] for key in runs}
-        for r in range(TIME_ROUNDS):
-            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
-                times[key].append(cuda_time_ms(runs[key], 20))
-        ms = {key: sorted(t)[len(t) // 2] for key, t in times.items()}
+        times, ms = time_attention(q, k, v, do, o, lse, delta, causal)
         ms["plain_fwd"] = cuda_time_ms(
             lambda: att.flash_attention_fwd_plain(q, k, v, causal), 5,
             warmup=1)
@@ -782,8 +776,58 @@ def phase_d64_kernels(card: str) -> dict:
             f"{ms['plain_bwd']:.4f} ms; Delta {ms['flash_bwd_delta']:.4f} "
             f"ms, bound {db:.4f} ms ({dby}), library (vecdot, bf16 out) "
             f"{ms['library_delta']:.4f} ms [{card}]")
-        del q, k, v, do, o, lse, delta, dq_acc, dk, dv, lib_out, qg, kg, vg
+        del q, k, v, do, o, lse, delta
     return out
+
+
+def time_attention(q, k, v, do, o, lse, delta, causal: bool,
+                   rounds: int = TIME_ROUNDS, iters: int = 20):
+    """The kernels at one shape, bf16, timed in turns over ``rounds``
+    rounds (CUDA events, ``iters`` launches a time): the forward kernel and
+    the library's forward, ``flash_bwd`` alone (its C entry: no Delta, no
+    zeros), the backward as ``flash_attention_bwd`` runs it (Delta, zeros,
+    kernel, cast), the Delta kernel, the library's backward (which computes
+    its own Delta) and Delta's library call (vecdot, which rounds its
+    output to bf16 where the kernel writes fp32). The library calls are
+    yardsticks only, on the same inputs with K/V repeated to H heads
+    outside the timed region; the port never calls them. Returns each
+    run's round times and their medians."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+    def fused():  # the C entry called directly: no counter, Delta or zeros
+        att._launch("flash_bwd", "flash_bwd",
+                    (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
+
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    dot = do.transpose(1, 2)
+    runs = {
+        "flash_fwd": lambda: att.flash_attention_fwd(q, k, v, causal),
+        "library_fwd": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal),
+        "flash_bwd": fused,
+        "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal),
+        "flash_bwd_delta": lambda: att.attention_delta(o, do),
+        "library_bwd": lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), dot, retain_graph=True),
+        "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
+    }
+    times = {key: [] for key in runs}
+    for r in range(rounds):
+        for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            times[key].append(cuda_time_ms(runs[key], iters))
+    return times, {key: sorted(t)[len(t) // 2] for key, t in times.items()}
 
 
 def phase_moe_layer(card: str) -> list:
@@ -1219,15 +1263,16 @@ def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
     name (attention projections, MLP, lm_head; for a MoE config the expert
     products, batched over E, and the router's, with E columns); of a MoE
     config's router ops and its dispatch and combine (``MOE_ROUTER_OPS``,
-    ``MOE_INDEX_OPS``); of the optimizer's foreach ops; and of the rest.
-    The full table goes to OUT_DIR."""
+    ``MOE_INDEX_OPS``); of the optimizer's foreach ops; of NCCL's kernels
+    (``collectives``, on a mesh); and of the rest. The full table goes to
+    OUT_DIR."""
     import torch
 
     cfg = bundle.cfg
     prof, averages = profiled(lambda: bundle.step(params, opt_state, batch))
     parts = {**dict.fromkeys(KERNEL_NAMES, 0.0), "attn_bwd_glue": 0.0,
              "attn_projections": 0.0, "mlp": 0.0, "lm_head": 0.0,
-             "other_matmul": 0.0, "optimizer": 0.0}
+             "other_matmul": 0.0, "optimizer": 0.0, "collectives": 0.0}
     if cfg.n_experts:
         parts.update(moe_router=0.0, moe_dispatch_combine=0.0,
                      moe_expert_gemms=0.0)
@@ -1239,6 +1284,8 @@ def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
             for kernel in KERNEL_NAMES:
                 if f"{kernel}_kernel" in evt.key:
                     parts[kernel] += ms
+            if "nccl" in evt.key.lower():
+                parts["collectives"] += ms
             continue
         if cfg.n_experts and evt.key in MOE_INDEX_OPS:
             parts["moe_dispatch_combine"] += ms
@@ -1468,10 +1515,11 @@ def phase_parallel(card: str) -> dict:
     ring's block math for RING_RANKS virtual ranks at full width against
     the unsharded kernels and the plain version, with its times; the
     codecs at the 1b's parameter count; and the 1b trained on a
-    ``data=1`` mesh against the single-device step. The machine has one
-    card, and NCCL takes one rank a card, so a world larger than 1 runs
-    on gloo in the CPU tests. Returns the kernel launches of the ring path
-    and of the mesh's training run."""
+    ``data=1`` mesh and on a world-1 mesh of every axis against the
+    single-device step. The machine has one card, and NCCL takes one rank
+    a card, so a world larger than 1 runs on gloo in the CPU tests. Returns
+    the kernel launches of the ring path and of the meshes' training
+    runs."""
     import socket
 
     import torch
@@ -1499,11 +1547,13 @@ def phase_parallel(card: str) -> dict:
         ring_launches, metrics["ring_blocks"] = phase_ring_blocks(card)
         launches = {k: launches[k] + ring_launches[k] for k in launches}
         metrics["codecs"] = check_codecs(card)
+        t0 = time.perf_counter()
         mesh_launches, metrics["mesh_training"] = phase_mesh_training(card)
+        log(f"mesh training: {time.perf_counter() - t0:.2f} s")
     finally:
         col.destroy_collective_group("smoke")
     log("parallel metrics: " + json.dumps(metrics))
-    return {"ring_attention": launches, "mesh_training": mesh_launches}
+    return {"ring_attention": launches, **mesh_launches}
 
 
 def check_group_ops(group) -> list:
@@ -1904,10 +1954,14 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
     block (causal when the ring is) and an off-diagonal one (full), forward
     and backward, a merge, Delta at one rank's length, the whole emulated
     ring (every rank's blocks on this one card) and the busiest rank's
-    share (the last one, which attends to every block)."""
+    share (the last one, which attends to every block). Beside each block
+    kind and the unsharded kernels, the library's call on the same inputs
+    (yardsticks the port never calls): one sdpa forward, the backward of
+    one (with its own Delta), and for Delta ``torch.linalg.vecdot``."""
     import importlib
 
     import torch
+    import torch.nn.functional as F
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
     from ray_tpu_torch.ops.ring_attention import (attend_block,
@@ -1917,12 +1971,27 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
     B, S, H, D = q.shape
     out = {}
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+
+    def library(qs, ks, vs, dos, block_causal):
+        """sdpa's forward and backward on these (B, S, H, D) blocks."""
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, ks, vs))
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=block_causal)
+        dot = dos.transpose(1, 2)
+        return (lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=block_causal),
+                lambda: torch.autograd.grad(o, leaves, dot,
+                                            retain_graph=True))
+
+    lib_fwd, lib_bwd = library(q, k, v, do, causal)
     unsharded = {
         "fwd": lambda: att.flash_attention_fwd(q, k, v, causal),
         "bwd": lambda: att.flash_attention_bwd_rows(q, k, v, do, lse_f,
                                                     delta_f, causal,
                                                     dq_acc=dq),
-        "delta": lambda: att.attention_delta(o_f, do)}
+        "delta": lambda: att.attention_delta(o_f, do),
+        "library_fwd": lib_fwd, "library_bwd": lib_bwd,
+        "library_delta": lambda: torch.linalg.vecdot(o_f, do, dim=-1)}
     for n in RING_RANKS:
         L = S // n
         qs, ks, vs, dos = (x[:, :L] for x in (q, k, v, do))
@@ -1930,6 +1999,8 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
         o32 = o_b.float()
         delta = att.attention_delta(o_b, dos)
         dq_b = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
+        diag_fwd, diag_bwd = library(qs, ks, vs, dos, causal)
+        off_fwd, off_bwd = library(qs, ks, vs, dos, False)
         runs = {
             "fwd_diagonal": lambda: attend_block(qs, ks, vs, causal),
             "fwd_off_diagonal": lambda: attend_block(qs, ks, vs, False),
@@ -1940,7 +2011,12 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
                                                        lse_b, delta, False,
                                                        dq_b),
             "delta": lambda: att.attention_delta(o_b, dos),
-            "whole_ring": lambda: ring_emulate(q, k, v, do, n, causal)}
+            "whole_ring": lambda: ring_emulate(q, k, v, do, n, causal),
+            "library_fwd_diagonal": diag_fwd,
+            "library_fwd_off_diagonal": off_fwd,
+            "library_bwd_diagonal": diag_bwd,
+            "library_bwd_off_diagonal": off_bwd,
+            "library_delta": lambda: torch.linalg.vecdot(o_b, dos, dim=-1)}
         times = {key: [] for key in runs}
         for r in range(TIME_ROUNDS):
             for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
@@ -1954,6 +2030,16 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
                                * (ms["fwd_off_diagonal"] + ms["merge"]))
         ms["last_rank_bwd"] = (ms["delta"] + ms["bwd_diagonal"] + (n - 1)
                                * ms["bwd_off_diagonal"])
+        # the plain versions once, at one block (the whole sequence's fp32
+        # scores, 16 GB a tensor at 16384, are not timed)
+        ms["plain_fwd_diagonal"] = cuda_time_ms(
+            lambda: att.flash_attention_fwd_plain(qs, ks, vs, causal), 3,
+            warmup=1)
+        ms["plain_bwd_diagonal"] = cuda_time_ms(
+            lambda: att.flash_attention_bwd_plain(qs, ks, vs, o_b, lse_b,
+                                                  dos, causal), 3, warmup=1)
+        ms["plain_delta"] = cuda_time_ms(
+            lambda: att.attention_delta_plain(o_b, dos), 20)
         out[n] = ms
     base = {key: cuda_time_ms(fn, 20) for key, fn in unsharded.items()}
     fb, fby = flash_bound(B, H, H, D, S, causal, 2)
@@ -2026,11 +2112,16 @@ def check_codecs(card: str) -> dict:
 
 def phase_mesh_training(card: str):
     """The 1b at TRAIN_BATCH x TRAIN_SEQ: MESH_STEPS steps of the
-    single-device bundle, then as many of the bundle on a ``data=1`` mesh
-    over the NCCL group (its loss's count, the loss and every gradient
-    all-reduced), from the same seed and batch; each step's loss within
-    TRAIN_LOSS_TOL of the single-device one. The mesh run's launches are
-    counted (``run_steps``)."""
+    single-device bundle, then as many on two world-1 meshes over the NCCL
+    group, from the same seed and batch: ``data=1`` alone (its loss's
+    count, the loss and every gradient all-reduced; the ``mesh_training``
+    path) and every axis at 1 (``mesh_fsdp_tensor``: the fsdp axis's
+    gathers and reduce-scatters, the tensor axis's reductions and its
+    vocabulary-parallel cross entropy, and the clip's gathered norm, each
+    a one-rank collective). Each step's loss within TRAIN_LOSS_TOL of the
+    single-device one; the step times, peak memory and a profiled step's
+    device ms by part side by side. Each mesh run's launches are counted
+    (``run_steps``; the profiled step comes after)."""
     import numpy as np
     import torch
 
@@ -2052,30 +2143,382 @@ def phase_mesh_training(card: str):
     single = [b.step(params, opt, batch)[2].item() for _ in range(MESH_STEPS)]
     del b, params, opt, batch
     torch.cuda.empty_cache()
-    mesh = create_mesh({**dict.fromkeys(AXES, 1), "data": 1})
-    b, params, opt, batch = bundle(mesh=mesh)
-    launches, run = run_steps(
-        lambda: {"loss": b.step(params, opt, batch)[2]}, MESH_STEPS, {
-            "flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-            "attention_delta": cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
-        "mesh training")
-    diffs = [abs(a - s) for a, s in zip(run["loss"], single)]
     report = {"config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
-              "seq": TRAIN_SEQ, "mesh": dict(zip(mesh.mesh_dim_names,
-                                                 mesh.mesh.shape)),
-              "losses_mesh": run["loss"], "losses_single": single,
-              "max_loss_diff": max(diffs), "step_s": run["step_s"],
-              "max_memory_allocated_bytes":
-                  run["max_memory_allocated_bytes"]}
-    log(f"mesh training: {report} [tol {TRAIN_LOSS_TOL}] [{card}]")
-    if not max(diffs) <= TRAIN_LOSS_TOL:
-        raise AssertionError(f"the mesh's losses part from the single "
-                             f"device's by {max(diffs)}")
-    del b, params, opt, batch, mesh
-    torch.cuda.empty_cache()
+              "seq": TRAIN_SEQ, "losses_single": single}
+    launches = {}
+    for path, axes in (("mesh_training", {"data": 1}),
+                       ("mesh_fsdp_tensor", dict.fromkeys(AXES, 1))):
+        mesh = create_mesh(axes)
+        b, params, opt, batch = bundle(mesh=mesh)
+        launches[path], run = run_steps(
+            lambda: {"loss": b.step(params, opt, batch)[2]}, MESH_STEPS, {
+                "flash_attention_fwd": (2 if cfg.remat else 1)
+                * cfg.n_layers,
+                "attention_delta": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+            path)
+        diffs = [abs(a - s) for a, s in zip(run["loss"], single)]
+        report[path] = {
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+            "losses": run["loss"], "max_loss_diff": max(diffs),
+            "step_s": run["step_s"], "enqueue_s": run["enqueue_s_median"],
+            "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+            "device_ms_by_part": profile_step(b, params, opt, batch, path)}
+        log(f"{path}: {report[path]} [tol {TRAIN_LOSS_TOL}] [{card}]")
+        if not max(diffs) <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"{path}: the mesh's losses part from the "
+                                 f"single device's by {max(diffs)}")
+        del b, params, opt, batch, mesh
+        torch.cuda.empty_cache()
+    log(f"mesh training: step s {report['mesh_training']['step_s']} (data "
+        f"only) against {report['mesh_fsdp_tensor']['step_s']} (every axis "
+        f"at 1); peak memory "
+        f"{report['mesh_training']['max_memory_allocated_bytes']} against "
+        f"{report['mesh_fsdp_tensor']['max_memory_allocated_bytes']} bytes "
+        f"[{card}]")
     return launches, report
+
+
+# the tensor axis's per-rank math at full width, for virtual ranks in one
+# process: (config, B, S, numbers of ranks). The 1b's block at the training
+# shape (at 8 ranks 2 query heads and 1 KV head a rank); one block of the 7b
+# preset (d 4096, 32/32 heads, d_ff 11008, head_dim 128) at 1 x 4096. Its
+# timings take fewer rounds.
+TP_CASES = (("1b", TRAIN_BATCH, TRAIN_SEQ, (2, 4, 8)), ("7b", 1, 4096, (4, 8)))
+TP_TIME_ROUNDS = {"1b": TIME_ROUNDS, "7b": 3}
+# The block on T virtual ranks against the whole block, bf16, the same
+# weights and input, per tensor ||got - want|| / ||want|| (the output, the
+# input's gradient, and each weight's, the ranks' shards concatenated). The
+# two sides run the same products on the same operands and round apart at:
+# - each of the four reductions of the tensor axis (the attention's and the
+#   MLP's partial products forward, the gradients into the two norms'
+#   outputs backward): the ranks round T partials to bf16 and T - 1 bf16
+#   sums, the whole block its one product, each rounding within 2^-9 of
+#   its value: at most T 2^-8 of sum_t |P_t|, whose norm is rho times the
+#   sum's (rho: the forward's ratio ||sum_t |P_t| || / ||sum_t P_t||,
+#   measured, and at least sqrt(T), what independent partials give);
+# - elsewhere, one bf16 step (2^-8) at each rounding that may fall apart:
+#   the products whose columns are split (q, k, v, gate, up) may take other
+#   fp32 orders, and what follows rounds again (RoPE, the kernels' o, P and
+#   dS, SiLU x up, the residual adds and the norms, their backward
+#   products): at most 16 along the longest path.
+# Summed with no cancellation: (4 T rho + 16) 2^-8.
+TP_OTHER_ROUNDINGS = 16
+# The vocabulary-parallel NLL against lm_loss's on the whole fp32 logits,
+# per token: both sum the exponentials of V = 32000 logits in fp32 in a
+# tree (the ranks over V / T, then T - 1 more additions), each within
+# ceil(log2 V) + T roundings of 2^-24 of the sum, which move its log by as
+# much, and round the NLL itself (2^-22 of it, four units of the last
+# place): |d nll| <= 2 (ceil(log2 V) + T) 2^-24 + 2^-22 |nll|. The logits'
+# gradient, (softmax - one-hot) / N, moves by the same relative amount:
+# |d g| <= (2 (ceil(log2 V) + T) 2^-24 + 2^-22) (|g| + 1 / N).
+
+
+def tp_block(cfg, seed: int):
+    """One dense ``Block`` of ``cfg`` on the card with weights from ``seed``:
+    the projections normal(0.02), the norm scales 1."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import Block
+
+    block = Block(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return block
+
+
+def tp_rank_modules(block, size: int, rank: int):
+    """Rank ``rank``'s ``Attention`` and ``MLP`` of a whole dense ``Block``
+    on a tensor axis of ``size`` ranks: its query and KV heads and its MLP
+    columns (``parallel.mesh.cut_leaf`` of the block's weights, as the train
+    step cuts its pieces), with no axis bound, so that each returns its
+    partial product and every rank can run in this one process."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import cut_leaf, param_layout
+
+    cfg = block.attn.cfg
+    dims = param_layout(cfg, {"tensor": size})
+    out = []
+    for name in ("attn", "mlp"):
+        whole = getattr(block, name)
+        part = type(whole)(cfg, device="meta")
+        for path, p in whole.named_parameters():
+            owner, _, leaf = path.rpartition(".")
+            piece = cut_leaf(p.detach(), dims[f"layer_0.{name}.{path}"],
+                             {"tensor": size}, {"tensor": rank})
+            setattr(part.get_submodule(owner), leaf, torch.nn.Parameter(
+                piece, requires_grad=p.requires_grad))
+        out.append(part)
+    return tuple(out)
+
+
+def tp_block_on_ranks(block, ranks, x, pos):
+    """A dense ``Block``'s forward with its attention and MLP run by the
+    ranks' modules (``tp_rank_modules``, in rank order) in one process,
+    what the tensor axis's collectives compute: each norm's output feeds
+    every rank, so autograd sums their gradients into it (copy-to-region's
+    all-reduce), and the partial products are summed in rank order in their
+    dtype (reduce-from-region's). The norms are the block's own. The card
+    holds one rank of NCCL, and threads cannot stand in for the ranks here:
+    every CUDA backward runs on the one autograd thread of the device, where
+    a rank waiting for another's gradient would wait for ever."""
+    import functools
+    import operator
+
+    n1 = block.attn_norm(x)
+    h = x + functools.reduce(operator.add,
+                             [attn(n1, pos) for attn, _ in ranks])
+    n2 = block.mlp_norm(h)
+    return h + functools.reduce(operator.add, [mlp(n2) for _, mlp in ranks])
+
+
+def tp_block_grads(block, ranks, x, pos, dout):
+    """The block's output and gradients on T virtual ranks
+    (``tp_block_on_ranks``), keyed by the block's parameter names (the
+    ranks' shards concatenated along the dims the tensor axis splits) and
+    "x"."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import param_layout
+
+    out = tp_block_on_ranks(block, ranks, x, pos)
+    shared = {"x": x, "attn_norm.scale": block.attn_norm.scale,
+              "mlp_norm.scale": block.mlp_norm.scale}
+    pieces = [(f"{name}.{k}", p) for attn, mlp in ranks
+              for name, m in (("attn", attn), ("mlp", mlp))
+              for k, p in m.named_parameters()]
+    grads = torch.autograd.grad(out, list(shared.values())
+                                + [p for _, p in pieces], dout)
+    got = dict(zip(shared, grads[:len(shared)]))
+    dims = param_layout(block.attn.cfg, {"tensor": len(ranks)})
+    for k, _ in block.named_parameters():
+        if k not in got:
+            got[k] = torch.cat([g for (n, _), g in zip(
+                pieces, grads[len(shared):]) if n == k],
+                dims[f"layer_0.{k}"]["tensor"])
+    return out.detach(), got
+
+
+def tp_partials_ratio(block, ranks, x, pos) -> float:
+    """rho of TP_OTHER_ROUNDINGS' note: the larger of the attention's and
+    the MLP's ||sum_t |P_t| || / ||sum_t P_t|| over the ranks' partial
+    products."""
+    import torch
+
+    with torch.no_grad():
+        n1 = block.attn_norm(x)
+        parts = [attn(n1, pos).float() for attn, _ in ranks]
+        h = x + sum(parts).to(x.dtype)
+        ratios = [(sum(p.abs() for p in parts).norm() / sum(parts).norm())
+                  .item()]
+        n2 = block.mlp_norm(h)
+        parts = [mlp(n2).float() for _, mlp in ranks]
+        ratios.append((sum(p.abs() for p in parts).norm()
+                       / sum(parts).norm()).item())
+    return max(ratios)
+
+
+def check_vocab_parallel_ce(T: int, N: int, V: int, gen) -> dict:
+    """The vocabulary-parallel cross entropy over T stacked ranks against
+    ``lm_loss`` on N x V fp32 logits on the card (the bound above TP_CASES'
+    last note). Returns the largest errors and their bounds."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import lm_loss
+    from ray_tpu_torch.parallel.tensor_parallel import (StackedRanks,
+                                                        vocab_parallel_nll)
+
+    logits = 2 * torch.randn(N, V, generator=gen, device="cuda")
+    targets = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    whole = logits.clone().requires_grad_()
+    ref = lm_loss(whole, targets)
+    ref_nll = -torch.log_softmax(logits, -1).gather(-1, targets[:, None])[:, 0]
+    want = torch.autograd.grad(ref, whole)[0]
+    del whole
+    axis = StackedRanks(T)
+    stacked = logits.reshape(N, T, V // T).permute(1, 0, 2).contiguous() \
+        .requires_grad_()
+    nll = vocab_parallel_nll(stacked, targets, axis.starts(V // T, 1), axis)
+    got = torch.autograd.grad(nll, stacked, torch.full_like(nll, 1.0 / N))[0]
+    got = got.permute(1, 0, 2).reshape(N, V)
+    eps = 2 * (math.ceil(math.log2(V)) + T) * 2.0 ** -24
+    err = (nll - ref_nll).abs()
+    bound = eps + 2.0 ** -22 * ref_nll.abs()
+    gerr = (got - want).abs()
+    gbound = (eps + 2.0 ** -22) * (want.abs() + 1.0 / N)
+    out = {"nll_max_abs_err": err.max().item(),
+           "nll_max_rel_to_bound": (err / bound).max().item(),
+           "loss_err": abs(nll[0].mean().item() - ref.item()),
+           "dlogits_max_abs_err": gerr.max().item(),
+           "dlogits_max_rel_to_bound": (gerr / gbound).max().item()}
+    if not (bool((err <= bound).all()) and bool((gerr <= gbound).all())
+            and out["loss_err"] <= eps + 2.0 ** -22 * abs(ref.item())):
+        raise AssertionError(f"vocab-parallel cross entropy over {T} ranks "
+                             f"beyond its bound: {out}")
+    return out
+
+
+def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
+                        where: str) -> dict:
+    """The kernels at one rank's shape (causal, bf16) against their plain
+    versions (``check_attention``: TOL, BWD_TOL, DELTA_TOL), then
+    ``time_attention`` beside ``flash_bound`` and ``bwd_bound``, and the
+    plain versions timed."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+                   for h in (H, KVH, KVH, H))
+    o, lse, delta, errs = check_attention(
+        q, k, v, do, True, f"tensor parallel {where} B={B} S={S} H={H} "
+        f"KVH={KVH} D={D} bf16 causal")
+    _, ms = time_attention(q, k, v, do, o, lse, delta, True, rounds)
+    plain = {
+        "flash_fwd": cuda_time_ms(
+            lambda: att.flash_attention_fwd_plain(q, k, v, True), 3,
+            warmup=1),
+        "flash_bwd": cuda_time_ms(
+            lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
+            3, warmup=1),
+        "flash_bwd_delta": cuda_time_ms(
+            lambda: att.attention_delta_plain(o, do), 20)}
+    bounds = {"flash_fwd": flash_bound(B, H, KVH, D, S, True, 2),
+              "flash_bwd": bwd_bound("flash_bwd", B, H, KVH, D, S, True, 2),
+              "flash_bwd_delta": bwd_bound("flash_bwd_delta", B, H, KVH, D,
+                                           S, True, 2)}
+    library = {"flash_fwd": "library_fwd", "flash_bwd": "library_bwd",
+               "flash_bwd_delta": "library_delta"}
+    max_err = {"flash_fwd": errs["o"]["max_abs"],
+               "flash_bwd": max(errs[key]["max_abs"]
+                                for key in ("dq", "dk", "dv")),
+               "flash_bwd_delta": errs["delta"]["max_abs"]}
+    out = {kernel: {"shape": [B, S, H, KVH, D], "causal": True,
+                    "ms": ms[kernel], "bound_ms": b, "bound_by": by,
+                    "plain_ms": plain[kernel],
+                    "library_ms": ms[library[kernel]],
+                    "max_abs_err": max_err[kernel]}
+           for kernel, (b, by) in bounds.items()}
+    out["flash_bwd"]["backward_ms"] = ms["backward"]
+    log(f"time tensor parallel {where} (B={B} S={S} H={H} KVH={KVH} D={D} "
+        f"bf16 causal): " + "; ".join(
+            f"{kernel} {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}), {100 * e['bound_ms'] / e['ms']:.1f}% of "
+            f"bound, plain {e['plain_ms']:.4f} ms, library "
+            f"{e['library_ms']:.4f} ms"
+            for kernel, e in out.items())
+        + f"; whole bf16 backward {ms['backward']:.4f} ms [{card}]")
+    return out
+
+
+def phase_tensor_parallel(card: str):
+    """The tensor axis's per-rank math at full width (TP_CASES), for
+    virtual ranks in one process on the card: each rank's ``Attention``
+    and ``MLP`` (``tp_rank_modules``: its query and KV heads and MLP
+    columns) run forward and backward through the flash kernels, the
+    partial products and the norms' gradients summed in-process in rank
+    order (``tp_block_on_ranks``), launches counted over those runs alone
+    (T forward, Delta and ``flash_bwd`` launches at T ranks); then held
+    against the unsharded block with plain attention
+    (``attention_impl="xla"``: the bound above TP_OTHER_ROUNDINGS). The
+    vocabulary-parallel cross entropy over the same T at the 1b's
+    vocabulary against ``lm_loss``. At each rank's shape the kernels
+    against their plain versions (TOL, BWD_TOL, DELTA_TOL), then their
+    times beside the library's attention. Returns the path's launches and
+    each kernel's entries by shape."""
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.models.transformer import Block
+
+    counters = kernel_counters()
+    launches = {c.__name__: 0 for c in counters}
+    report = {"card": card, "blocks": {}, "cross_entropy": {}}
+    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    for name, B, S, rank_counts in TP_CASES:
+        cfg = CONFIGS[name]
+        block = tp_block(cfg, seed=10)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        x, dout = (torch.randn(B, S, cfg.d_model, generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+                   for _ in range(2))
+        x.requires_grad_()
+        pos = torch.arange(S, device="cuda")[None].expand(B, S)
+        runs = {}
+        for T in rank_counts:
+            ranks = [tp_rank_modules(block, T, t) for t in range(T)]
+            for c in counters:
+                c.launches = 0
+            runs[T] = tp_block_grads(block, ranks, x, pos, dout)
+            torch.cuda.synchronize()
+            got = {c.__name__: c.launches for c in counters}
+            want = {"flash_attention_fwd": T, "attention_delta": T,
+                    "flash_attention_bwd": T, "flash_attention_bwd_dq": 0,
+                    "flash_attention_bwd_dkv": 0}
+            if got != want:
+                raise AssertionError(f"tensor parallel {name} at {T} ranks "
+                                     f"launched {got}, want {want}")
+            launches = {k: launches[k] + n for k, n in got.items()}
+            runs[T] += (tp_partials_ratio(block, ranks, x, pos),)
+            del ranks
+        plain = Block(dataclasses.replace(cfg, attention_impl="xla"),
+                      device="cuda")
+        plain.load_state_dict(block.state_dict())
+        del block
+        ref = plain(x, pos)[0]
+        names = ["x"] + [k for k, _ in plain.named_parameters()]
+        want = dict(zip(names, torch.autograd.grad(
+            ref, [x] + list(plain.parameters()), dout)))
+        ref = ref.detach()
+        for T, (out, grads, rho) in runs.items():
+            rho = max(rho, math.sqrt(T))
+            tol = (4 * T * rho + TP_OTHER_ROUNDINGS) * 2.0 ** -8
+            errs = {"out": ((out.float() - ref.float()).norm()
+                            / ref.float().norm()).item()}
+            errs.update(leaf_rel_errors(names, [grads[k] for k in names],
+                                        [want[k] for k in names]))
+            worst = max(errs, key=errs.get)
+            heads = f"{cfg.n_heads // T}/{cfg.n_kv_heads // T}"
+            report["blocks"][f"{name} T={T}"] = {
+                "shape": [B, S], "heads_per_rank": heads, "rho": rho,
+                "tol": tol, "errors": errs}
+            log(f"check tensor parallel {name} block {B} x {S} at {T} ranks "
+                f"({heads} heads a rank): relative errors {errs}, largest "
+                f"{worst} {errs[worst]:.3e} [tol (4 T rho + "
+                f"{TP_OTHER_ROUNDINGS}) 2^-8 = {tol:.3e}, rho {rho:.3f}]")
+            if not errs[worst] <= tol:
+                raise AssertionError(f"tensor parallel {name} at {T} ranks: "
+                                     f"{worst} parts by {errs[worst]:.3e} > "
+                                     f"{tol:.3e}")
+        del runs, ref, want, plain, x, dout
+        torch.cuda.empty_cache()
+        for T in rank_counts:
+            if name == TRAIN_CONFIG:
+                report["cross_entropy"][T] = check_vocab_parallel_ce(
+                    T, B * S, cfg.vocab_size, gen)
+                log(f"check vocab-parallel cross entropy {B * S} x "
+                    f"{cfg.vocab_size} over {T} ranks: "
+                    f"{report['cross_entropy'][T]} [{card}]")
+            shape = (B, cfg.n_heads // T, cfg.n_kv_heads // T, cfg.head_dim,
+                     S)
+            entry = time_rank_attention(*shape, TP_TIME_ROUNDS[name], card,
+                                        f"{name} T={T}")
+            for kernel, e in entry.items():
+                times[kernel][f"{name} T={T}"] = e
+        torch.cuda.empty_cache()
+    log("tensor parallel metrics: " + json.dumps(
+        {**report, "times": times}))
+    return launches, times
 
 
 def main() -> int:
@@ -2091,6 +2534,9 @@ def main() -> int:
     paths["vit_training"] = phase_vit_training(dev["card"])
     serve_launches = phase_serving(dev["card"])["launches"]
     paths.update(phase_parallel(dev["card"]))
+    t0 = time.perf_counter()
+    paths["tensor_parallel"], tp = phase_tensor_parallel(dev["card"])
+    log(f"tensor parallel: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",
@@ -2127,7 +2573,8 @@ def main() -> int:
             "library_ms": entry["library_ms"],
             **{key: entry[key] for key in ("mma_ms", "backward_ms",
                                            "train_shape") if key in entry},
-            **({"d64_shapes": d64[name]} if name in d64 else {})})
+            **({"d64_shapes": d64[name]} if name in d64 else {}),
+            **({"tensor_parallel_shapes": tp[name]} if name in tp else {})})
     log(dev["card"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))

@@ -18,7 +18,7 @@ optimizer's state across, so a JAX run resumes in the port.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,17 +76,22 @@ def init_params(cfg: Config, seed: int = 0,
     """Random weights from ``seed`` (a ``torch.Generator`` on ``device``) in
     ``cfg.param_dtype``, for either model family. The draws differ from
     flax's for the same seed; the laws are the same."""
+    return dict(iter_init_params(cfg, seed, device))
+
+
+def iter_init_params(cfg: Config, seed: int = 0, device: DeviceLike = None
+                     ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``init_params``' leaves one at a time, in the same draws: a mesh's
+    rank keeps its piece of each and drops the rest."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     draw = _vit_law if isinstance(cfg, vit.ViTConfig) else _lm_law
-    params = {}
     for key, shape in state_dict_shapes(cfg).items():
         if key.endswith(".scale"):
-            params[key] = torch.ones(shape, dtype=torch.float32, device=dev)
+            yield key, torch.ones(shape, dtype=torch.float32, device=dev)
             continue
         w = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
-        params[key] = draw(cfg, key, w, gen)
-    return params
+        yield key, draw(cfg, key, w, gen)
 
 
 def _lm_law(cfg, key, w, gen):

@@ -20,6 +20,14 @@ A config with experts puts ``MoEMLP`` in every ``moe_every``-th block
 a side effect, so the recompute under remat cannot count it twice;
 ``Transformer(..., return_aux=True)`` gives it per layer, keyed like the
 flax ``losses`` collection.
+
+On a mesh (``parallel.TrainStepBundle``) each parameter holds this rank's
+piece (``Transformer(..., pieces=...)``): modules read their weights through
+``gather`` (``parallel/fsdp.py``, the whole leaf over the ``fsdp`` axis),
+and ``Attention``, ``MLP`` and the embedding and lm_head run on this rank's
+heads, hidden columns and vocabulary rows through ``tensor``
+(``parallel/tensor_parallel.py``). Both are None without a mesh, and the
+modules are then what they are on one device.
 """
 
 from __future__ import annotations
@@ -140,6 +148,13 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def _param(module: nn.Module, name: str) -> torch.Tensor:
+    """``module``'s parameter ``name``, whole: gathered over the mesh's fsdp
+    axis where the module holds a piece of it (``module.gather``)."""
+    p = getattr(module, name)
+    return p if module.gather is None else module.gather(name, p)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, dtype, eps: float = 1e-6
              ) -> torch.Tensor:
     x32 = x.float()
@@ -150,6 +165,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, dtype, eps: float = 1e-6
 class RMSNorm(nn.Module):
     """fp32 math, eps inside the rsqrt, output in the compute dtype."""
 
+    gather = None
+
     def __init__(self, dim: int, dtype=torch.bfloat16, eps: float = 1e-6,
                  device=None):
         super().__init__()
@@ -159,7 +176,7 @@ class RMSNorm(nn.Module):
             torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        return rms_norm(x, self.scale, self.dtype, self.eps)
+        return rms_norm(x, _param(self, "scale"), self.dtype, self.eps)
 
 
 class Dense(nn.Module):
@@ -167,6 +184,8 @@ class Dense(nn.Module):
     ``dtype``, contract over ``in_dims`` leading kernel dims. With
     ``use_bias`` the ``bias`` (the kernel's output dims) is added after the
     product, in ``dtype``, as flax adds it."""
+
+    gather = None
 
     def __init__(self, shape, in_dims: int, dtype, param_dtype, device=None,
                  use_bias: bool = False):
@@ -180,15 +199,22 @@ class Dense(nn.Module):
             if use_bias else None
 
     def forward(self, x):
-        w = self.kernel.to(self.dtype)
+        w = _param(self, "kernel").to(self.dtype)
         n_in = math.prod(w.shape[:self.in_dims])
         lead = x.shape[:x.dim() - self.in_dims]
         y = x.reshape(-1, n_in) @ w.reshape(n_in, -1)
         y = y.reshape(*lead, *w.shape[self.in_dims:])
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        return (y if self.bias is None
+                else y + _param(self, "bias").to(self.dtype))
 
 
 class Attention(nn.Module):
+    """GQA self-attention with RoPE. With a ``tensor`` axis the projections
+    hold this rank's query and KV heads, and the output projection's
+    partial product is summed over the axis."""
+
+    tensor = None
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -201,15 +227,25 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
+        if self.tensor is not None:
+            x = self.tensor.copy_to_region(x)
         q = _rope(self.q_proj(x), positions, cfg.rope_theta)
         k = _rope(self.k_proj(x), positions, cfg.rope_theta)
         v = self.v_proj(x)
         out = attention_op(q, k, v, causal=True, impl=cfg.attention_impl,
                            segment_ids=segment_ids)
-        return self.o_proj(out)
+        out = self.o_proj(out)
+        return out if self.tensor is None else \
+            self.tensor.reduce_from_region(out)
 
 
 class MLP(nn.Module):
+    """SwiGLU. With a ``tensor`` axis, gate and up hold this rank's hidden
+    columns and down its rows, whose partial product is summed over the
+    axis."""
+
+    tensor = None
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
@@ -219,7 +255,11 @@ class MLP(nn.Module):
         self.down_proj = Dense((f, d), 1, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tensor is not None:
+            x = self.tensor.copy_to_region(x)
+        out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return out if self.tensor is None else \
+            self.tensor.reduce_from_region(out)
 
 
 class Routing(NamedTuple):
@@ -258,11 +298,14 @@ class MoEMLP(nn.Module):
     weights drawn from ``seed`` (``reset_parameters``)."""
 
     GROUP_SIZE = 4096  # tokens per dispatch group, as in the JAX model
+    gather = None
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
-        dev = resolve_device(device)
+        # the meta device: a mesh's model, whose pieces are made afterwards
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
         d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
         self.router = Dense((d, E), 1, dtype=torch.float32,
@@ -271,7 +314,8 @@ class MoEMLP(nn.Module):
         self.gate_proj = nn.Parameter(torch.empty((E, d, f), **kw))
         self.up_proj = nn.Parameter(torch.empty((E, d, f), **kw))
         self.down_proj = nn.Parameter(torch.empty((E, f, d), **kw))
-        self.reset_parameters(seed)
+        if not meta:
+            self.reset_parameters(seed)
 
     def reset_parameters(self, seed: int = 0) -> None:
         """The weights drawn from ``seed`` with the LM's laws
@@ -335,8 +379,8 @@ class MoEMLP(nn.Module):
         expert_in = x.new_zeros(rows + 1, D).index_copy(0, dest, x_slots)
         expert_in = expert_in[:rows].view(E, G * C, D)
         # the experts: batched products over the stacked weights
-        w_gate, w_up, w_down = (w.to(cfg.dtype) for w in (
-            self.gate_proj, self.up_proj, self.down_proj))
+        w_gate, w_up, w_down = (_param(self, name).to(cfg.dtype) for name in (
+            "gate_proj", "up_proj", "down_proj"))
         h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
         expert_out = torch.bmm(h, w_down).reshape(rows, D)
         # combine: each slot's expert output (zero for a dropped slot) times
@@ -383,25 +427,45 @@ class Transformer(nn.Module):
 
     ``params`` is a state dict keyed by flax paths (``convert.from_jax_params``
     or ``convert.init_params``); without it the weights are drawn from
-    ``seed`` as the flax initialisers draw them."""
+    ``seed`` as the flax initialisers draw them.
+
+    ``pieces`` (path -> shape, for a mesh's rank: ``parallel.mesh.
+    piece_shape``) makes each parameter at the shape of this rank's piece,
+    uninitialised; the train step fills them and sets ``gather``,
+    ``tensor`` and ``vocab_start`` (the first vocabulary row of this rank's
+    embedding and lm_head). With a ``tensor`` axis the logits are this
+    rank's columns of the vocabulary."""
+
+    gather = None
+    tensor = None
+    vocab_start = 0
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
-                 params: Optional[Mapping[str, Any]] = None, seed: int = 0):
+                 params: Optional[Mapping[str, Any]] = None, seed: int = 0,
+                 pieces: Optional[Mapping[str, tuple]] = None):
         super().__init__()
         from ray_tpu_torch.models.convert import init_params
 
         dev = resolve_device(device)
+        build = dev if pieces is None else torch.device("meta")
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
-            (cfg.vocab_size, cfg.d_model), dtype=cfg.param_dtype, device=dev))
+            (cfg.vocab_size, cfg.d_model), dtype=cfg.param_dtype,
+            device=build))
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}",
-                            Block(cfg, uses_moe(cfg, i), device=dev))
-        self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device=dev)
+                            Block(cfg, uses_moe(cfg, i), device=build))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.dtype, device=build)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 (cfg.d_model, cfg.vocab_size), dtype=cfg.param_dtype,
-                device=dev))
+                device=build))
+        if pieces is not None:
+            for name, p in list(self.named_parameters()):
+                owner, _, leaf = name.rpartition(".")
+                setattr(self.get_submodule(owner), leaf, nn.Parameter(
+                    torch.empty(pieces[name], dtype=p.dtype, device=dev)))
+            return
         if params is None:
             params = init_params(cfg, seed=seed, device=dev)
         self.load_state_dict(
@@ -413,7 +477,9 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions[None].expand(tokens.shape)
-        x = self.embed.to(cfg.dtype)[tokens]
+        embed = _param(self, "embed").to(cfg.dtype)
+        x = (embed[tokens] if self.tensor is None
+             else self.tensor.embedding(embed, tokens, self.vocab_start))
         remat = cfg.remat and torch.is_grad_enabled()
         aux = {}
         for i in range(cfg.n_layers):
@@ -427,11 +493,13 @@ class Transformer(nn.Module):
             if layer_aux is not None:
                 aux[f"layer_{i}.moe.moe_aux"] = layer_aux
         x = self.final_norm(x)
+        if self.tensor is not None:
+            x = self.tensor.copy_to_region(x)
         if cfg.tie_embeddings:
-            logits = (x @ self.embed.to(cfg.dtype).T).float()
+            logits = (x @ _param(self, "embed").to(cfg.dtype).T).float()
         else:
             # fp32 product of the bf16 operands (preferred_element_type=f32)
-            logits = x.float() @ self.lm_head.to(cfg.dtype).float()
+            logits = x.float() @ _param(self, "lm_head").to(cfg.dtype).float()
         return (logits, aux) if return_aux else logits
 
 
@@ -445,6 +513,13 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
     share of the global mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return masked_mean(nll, mask, count)
+
+
+def masked_mean(nll: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``lm_loss`` from the token losses: their mean, or with ``mask`` their
+    masked sum over the mask's sum (over ``count`` where given)."""
     if mask is None and count is None:
         return nll.mean()
     total = nll.sum() if mask is None else (nll * mask.float()).sum()

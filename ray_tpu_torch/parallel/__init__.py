@@ -1,5 +1,6 @@
 """Training of the flagship LM: the optimizer, the step on one device or on
-the data axis of a mesh, and the mesh itself."""
+a mesh of data x fsdp x tensor, the mesh itself, and the fsdp and tensor
+axes' operators."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXES,
@@ -7,6 +8,7 @@ from ray_tpu_torch.parallel.mesh import (
     create_mesh,
     default_mesh_axes,
     mesh_placements,
+    param_layout,
     param_logical_axes,
 )
 from ray_tpu_torch.parallel.train import (
@@ -19,5 +21,5 @@ from ray_tpu_torch.parallel.train import (
 
 __all__ = ["AXES", "LOGICAL_RULES", "AdamW", "OptState", "TrainStepBundle",
            "create_mesh", "default_mesh_axes", "make_optimizer",
-           "mesh_placements", "param_logical_axes",
+           "mesh_placements", "param_layout", "param_logical_axes",
            "sharded_clip_by_global_norm"]

@@ -11,13 +11,20 @@ process group with those axis names. Each parameter's logical axes
 ``nn.with_logical_partitioning``) map onto mesh axes by ``LOGICAL_RULES``
 with flax's priority rule (``logical_to_mesh_axes``), and from there onto
 DTensor placements (``mesh_placements``).
+
+The train step holds each leaf as this rank's piece: ``param_layout`` gives,
+for each flax path, the dim that each of the ``fsdp`` and ``tensor`` axes
+splits (what the JAX bundle's ``param_shardings`` put on them);
+``cut_leaf`` takes a rank's piece of a whole leaf and ``gather_leaf`` puts
+the pieces back together.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.utils import DeviceLike, resolve_device
@@ -149,6 +156,70 @@ def mesh_placements(mesh, names: Sequence[Optional[str]]) -> tuple:
                  for a in mesh.mesh_dim_names)
 
 
-__all__ = ["AXES", "LOGICAL_RULES", "create_mesh", "default_mesh_axes",
+# the axes whose pieces of a leaf a rank holds (ZeRO-3 and Megatron); data
+# and seq keep whole leaves, expert splits MoE stacks (not ported yet)
+SHARDED_AXES = ("fsdp", "tensor")
+# a leaf's pieces: mesh axis -> the dim it splits
+LeafDims = Dict[str, int]
+
+
+def param_layout(cfg, sizes: Mapping[str, int]) -> Dict[str, LeafDims]:
+    """Flax path -> {mesh axis: the dim it splits} for the SHARDED_AXES of
+    a mesh with these axis sizes (an axis the mesh lacks splits nothing; one
+    of size 1 is kept, so that its collectives run). Raises ``ValueError``,
+    naming the leaf and the axis, where a dim does not divide by its
+    axis's size."""
+    from ray_tpu_torch.models.transformer import state_dict_shapes
+
+    shapes = state_dict_shapes(cfg)
+    layout = {}
+    for path, names in param_logical_axes(cfg).items():
+        dims = {}
+        for d, axes in enumerate(logical_to_mesh_axes(names)):
+            for axis in (() if axes is None else (axes,)
+                         if isinstance(axes, str) else axes):
+                if axis not in SHARDED_AXES or axis not in sizes:
+                    continue
+                if shapes[path][d] % sizes[axis]:
+                    raise ValueError(
+                        f"{path} {shapes[path]}: dim {d} ({names[d]}, "
+                        f"{shapes[path][d]}) does not split over the "
+                        f"{axis} axis's {sizes[axis]} ranks")
+                dims[axis] = d
+        layout[path] = dims
+    return layout
+
+
+def piece_shape(shape: Sequence[int], dims: LeafDims,
+                sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape of one rank's piece of a leaf of ``shape``."""
+    out = list(shape)
+    for axis, d in dims.items():
+        out[d] //= sizes[axis]
+    return tuple(out)
+
+
+def cut_leaf(x: torch.Tensor, dims: LeafDims, sizes: Mapping[str, int],
+             coords: Mapping[str, int]) -> torch.Tensor:
+    """The piece of the whole leaf ``x`` at mesh coordinates ``coords``
+    (axis -> index), as a contiguous tensor of its own."""
+    for axis, d in dims.items():
+        x = x.chunk(sizes[axis], d)[coords[axis]]
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def gather_leaf(piece: torch.Tensor, dims: LeafDims, groups) -> torch.Tensor:
+    """The whole leaf (a new tensor) from every rank's ``piece``:
+    all-gathered over each axis's group (``groups``: axis -> ``TorchGroup``)
+    along the dim it splits, in rank order."""
+    x = piece.clone(memory_format=torch.contiguous_format) if not dims \
+        else piece
+    for axis, d in dims.items():
+        x = groups[axis].allgather(x.movedim(d, 0)).movedim(0, d)
+    return x.contiguous()
+
+
+__all__ = ["AXES", "LOGICAL_RULES", "SHARDED_AXES", "create_mesh",
+           "cut_leaf", "default_mesh_axes", "gather_leaf",
            "logical_to_mesh_axes", "mesh_axis_sizes", "mesh_placements",
-           "param_logical_axes"]
+           "param_layout", "param_logical_axes", "piece_shape"]

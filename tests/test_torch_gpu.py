@@ -62,10 +62,13 @@ def cuda_device():
 # (B, S, H, KVH, D, fused): S not a multiple of the kernels' 128-row tiles
 # (77, 1000, 1), one tile (256 = 2 tiles), both head dims, GQA and MHA, and
 # q, k, v as non-contiguous slices of one fused (B, S, H + 2 KVH, D) tensor
+# and a tensor rank's heads: 2 query and 1 KV head (the 1b at tensor 8 at
+# D=128; the block of test_block_on_two_tensor_ranks_on_the_card at D=64)
 FLASH_CASES = [(2, 77, 4, 2, 64, False), (2, 256, 4, 4, 128, False),
                (1, 1000, 16, 8, 128, False), (3, 1, 4, 1, 64, False),
                (2, 1000, 4, 4, 64, False), (2, 77, 8, 2, 128, False),
-               (2, 1000, 16, 8, 128, True), (1, 77, 4, 4, 64, True)]
+               (2, 1000, 16, 8, 128, True), (1, 77, 4, 4, 64, True),
+               (2, 256, 2, 1, 64, False), (1, 1000, 2, 1, 128, False)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
@@ -165,9 +168,10 @@ def test_engine_prefill_runs_the_kernel(cuda_device):
 
 
 # (B, S, H, KVH, D): the 1b head dims (D=128, GQA) and 350m's (D=64, MHA),
-# ragged S, one row
+# ragged S, one row, and a tensor rank's 2 query and 1 KV head (FLASH_CASES)
 BWD_CASES = [(2, 77, 4, 2, 64), (1, 256, 4, 4, 128), (1, 1000, 16, 8, 128),
-             (3, 1, 4, 1, 64), (2, 200, 16, 16, 64)]
+             (3, 1, 4, 1, 64), (2, 200, 16, 16, 64), (2, 256, 2, 1, 64),
+             (1, 1000, 2, 1, 128)]
 
 
 def _bwd_inputs(device, dtype, case, seed=1):
@@ -559,3 +563,94 @@ def test_codecs_on_the_card_equal_the_cpu(cuda_device, name):
     torch.testing.assert_close(quant.dequantize(card).cpu(),
                                quant.dequantize(cpu), rtol=0, atol=0,
                                equal_nan=True)
+
+
+def test_mesh_step_on_the_card_matches_one_device(cuda_device):
+    """A 2-layer head_dim-64 fp32 model, 3 steps on a world-1 NCCL mesh of
+    every axis at 1 (the fsdp gathers and reduce-scatters, the tensor
+    axis's reductions and its vocabulary-parallel cross entropy, each a
+    one-rank collective) against the single-device step from the same
+    params: losses at rtol 1e-5 (fp32 sums in other orders), params within
+    Adam's update bound (2 x 1.2 x sum of lr, tests/test_torch_train.py)."""
+    import socket
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.parallel import AXES, create_mesh
+
+    cfg = dataclasses.replace(CONFIGS["tiny"], d_model=128, n_heads=2,
+                              n_kv_heads=1, dtype=torch.float32, remat=True)
+    opt_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    with socket.socket() as sock:  # a free port on this machine
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    col.init_collective_group(1, 0, group_name="gpu_mesh",
+                              init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        runs = []
+        for mesh in (None, create_mesh(dict.fromkeys(AXES, 1))):
+            bundle = TrainStepBundle(cfg, device=cuda_device, mesh=mesh,
+                                     optimizer=make_optimizer(**opt_kw))
+            params, opt = bundle.init(seed=0)
+            batch = bundle.make_batch(np.random.default_rng(0), 4, 96)
+            losses = []
+            for _ in range(3):
+                params, opt, loss = bundle.step(params, opt, batch)
+                losses.append(loss.item())
+            runs.append((losses, bundle.gather_params()))
+    finally:
+        col.destroy_collective_group("gpu_mesh")
+    (single, p_single), (meshed, p_mesh) = runs
+    np.testing.assert_allclose(meshed, single, rtol=1e-5)
+    sched = make_optimizer(**opt_kw).schedule
+    atol = 2 * 1.2 * sum(sched(t) for t in range(3))
+    for key, p in p_mesh.items():
+        diff = (p - p_single[key]).abs().max().item()
+        assert diff <= atol, f"{key} parts by {diff:.3e} > {atol:.3e}"
+
+
+def test_block_on_two_tensor_ranks_on_the_card(cuda_device):
+    """A bf16 block (4 query and 2 KV heads of head_dim 64) on 2 virtual
+    tensor ranks (the smoke's ``tp_block_on_ranks``: each rank's attention
+    through the flash kernels at 2 query heads and 1 KV head) against the
+    whole block with plain attention: one forward, Delta and ``flash_bwd``
+    launch a rank; the output and every gradient within the smoke's derived
+    bound, (4 T rho + 16) 2^-8 relative, with rho (the partial products'
+    ||sum |P_t| || over ||sum P_t||) taken at T, its value where no partial
+    cancels another. The kernels at this rank shape are held against plain
+    elementwise in FLASH_CASES and BWD_CASES."""
+    import chip_smoke
+    from ray_tpu_torch.models.transformer import Block
+
+    T = 2
+    cfg = dataclasses.replace(CONFIGS["tiny"], d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=512)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    block = Block(cfg, device=cuda_device)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if not name.endswith(".scale"):
+                p.normal_(0.0, 0.02, generator=gen)
+    x, dout = (torch.randn(2, 256, cfg.d_model, generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(2))
+    x.requires_grad_()
+    pos = torch.arange(256, device="cuda")[None].expand(2, 256)
+    ranks = [chip_smoke.tp_rank_modules(block, T, t) for t in range(T)]
+    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd)
+    before = [c.launches for c in counters]
+    out, got = chip_smoke.tp_block_grads(block, ranks, x, pos, dout)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [T] * 3
+    plain = Block(dataclasses.replace(cfg, attention_impl="xla"),
+                  device=cuda_device)
+    plain.load_state_dict(block.state_dict())
+    names = [k for k, _ in plain.named_parameters()]
+    ref = plain(x, pos)[0]
+    want = dict(zip(["x"] + names, torch.autograd.grad(
+        ref, [x] + list(plain.parameters()), dout)))
+    tol = (4 * T * T + chip_smoke.TP_OTHER_ROUNDINGS) * 2.0 ** -8
+    got["out"], want["out"] = out, ref
+    assert set(got) == set(want)
+    for k, w in want.items():
+        err = ((got[k].float() - w.float()).norm() / w.float().norm()).item()
+        assert err <= tol, f"{k} parts by {err:.3e} > {tol:.3e}"

@@ -45,7 +45,8 @@ def test_import_builds_and_loads_no_kernel():
         "utils\n"
         "from ray_tpu_torch.llm import engine, serve_llm, model_runner\n"
         "from ray_tpu_torch.models import convert, transformer, vit\n"
-        "from ray_tpu_torch.parallel import mesh, train\n"
+        "from ray_tpu_torch.parallel import fsdp, mesh, tensor_parallel, "
+        "train\n"
         "from ray_tpu_torch.collective import collective_group, quant\n"
         "from ray_tpu_torch.ops import ring_attention\n"
         "from ray_tpu_torch.ops import _build\n"

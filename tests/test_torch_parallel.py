@@ -196,9 +196,9 @@ def train_rank(rank: int, world: int, store: str, params_path: str) -> dict:
         except exc as e:
             errors[what] = str(e)
     try:
-        TrainStepBundle(cfg, mesh=_mesh({"fsdp": world}, world))
+        TrainStepBundle(cfg, mesh=_mesh({"seq": world}, world))
     except NotImplementedError as e:
-        errors["fsdp"] = str(e)
+        errors["seq"] = str(e)
     out["errors"] = errors
     for flavour in ("dp", "sharded", "pinned", "bf16", "uneven"):
         opt = out[flavour]["opt"]
@@ -380,13 +380,13 @@ def test_uneven_masks_take_the_global_mean(runs):
 
 
 def test_refusals(runs):
-    """MoE on data > 1, an fsdp axis, a batch the data axis does not split
+    """MoE on data > 1, a seq axis, a batch the data axis does not split
     and a mesh that does not match the world raise, naming why."""
     _, ranks = runs
     for r in ranks:
         errors = r["errors"]
         assert "expert-parallel" in errors["moe"]
-        assert "fsdp" in errors["fsdp"]
+        assert "seq" in errors["seq"]
         assert "does not split" in errors["rows"]
         assert "need" in errors["mesh_size"]
         # an (embed, mlp) kernel: embed on fsdp, mlp on tensor
