@@ -69,10 +69,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (the ``ring_attention`` path of the launch counts); the int8 and fp8
    codecs on the card at the 1b's parameter count against the CPU's; and
    the 1b trained on a ``data=1`` mesh (the ``mesh_training`` path) and
-   on a world-1 mesh of every axis, its fsdp gathers and reduce-scatters
-   and its tensor axis's reductions running as one-rank collectives (the
-   ``mesh_fsdp_tensor`` path), each against the single-device step, with
-   step times and peak memory side by side; a ``parallel metrics:`` line;
+   on a world-1 mesh of every axis, its fsdp gathers and reduce-scatters,
+   its tensor axis's reductions and its seq axis's one-rank ring running
+   as one-rank collectives (the ``mesh_fsdp_tensor`` path), and moe-1b at
+   full width and depth on a world-1 mesh of every axis (the
+   ``mesh_seq_expert`` path: also the MoE layers' routing exchange, global
+   statistics and expert collectives), each against the single-device
+   step, with step times, busy share, peak memory and device ms by part
+   (NCCL's kernels by kind) side by side; a ``parallel metrics:`` line;
 11. tensor parallel: the tensor axis's per-rank math at full width for
    virtual ranks in one process: the 1b's block at 4 x 2048 over 2, 4
    and 8 ranks (8: 2 query heads and 1 KV head a rank) and one block of
@@ -82,7 +86,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    within a derived bound (the ``tensor_parallel`` path); the
    vocabulary-parallel cross entropy at V = 32000 against ``lm_loss``;
    the kernels and the library's attention at each rank's shape, beside
-   the bounds; a ``tensor parallel metrics:`` line.
+   the bounds; a ``tensor parallel metrics:`` line;
+12. seq and expert parallel: the seq axis's per-rank math at full width
+   for virtual ranks in one process: the 1b's block at 4 x 2048 over 2
+   and 4 seq ranks (ring blocks of 4 x 1024 and 4 x 512 at 16/16 heads,
+   K/V repeated; global RoPE positions), through the ring's per-step
+   functions and the flash kernels, forward and backward held against the
+   whole block with plain attention within a derived bound (the
+   ``seq_parallel`` path), and the kernels at each block shape, diagonal
+   and off-diagonal, against plain and timed beside the bounds and sdpa;
+   moe-1b's MoE layer in fp32 at 4 x 2048 on 2, 4 and 8 virtual expert
+   ranks and 2 and 4 token ranks (``MoEMLP.forward_ranks`` over
+   ``expert_parallel.VirtualRanks``) against the whole layer: the same
+   routing, and out, aux and gradients within fp32's sums; ``seq parallel
+   metrics:`` and ``expert parallel metrics:`` lines.
+
+Delta's rows, and the forward's at each rank's shape, also carry the
+kernel's time without the wrapper's host path: 20 launches of the C entry
+back to back, and the same replayed from a CUDA graph (``time_launches``).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, so the comparisons with the plain versions do not count.
@@ -94,7 +115,8 @@ times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
 training shape for the backward, ``flash_bwd`` with ``backward_ms`` and
 ``mma_ms``; ``d64_shapes`` holds the forward's, ``flash_bwd``'s and
 Delta's at the MoE and ViT shapes, ``tensor_parallel_shapes`` theirs at
-each rank's shape of phase 11); the last line is ``{"ok": true,
+each rank's shape of phase 11, ``seq_parallel_shapes`` at each ring block
+of phase 12); the last line is ``{"ok": true,
 "device": {...}}``. With no card, or outside a checkout of the repository,
 it prints no result and exits non-zero.
 """
@@ -651,6 +673,8 @@ def time_bwd(q, k, v, do, card) -> dict:
     for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
         entries[kernel]["library_ms"] = ms["library"]
     entries["flash_bwd_delta"]["library_ms"] = ms["library_delta"]
+    entries["flash_bwd_delta"].update(time_delta_launches(
+        o, do, card, f"at the training shape {TRAIN_SHAPE}"))
     entries["flash_bwd"].update(backward_ms=ms["backward"],
                                 mma_ms=ms["mma"])
     log(f"time bf16 backward at {TRAIN_SHAPE} causal: flash_attention_bwd "
@@ -762,7 +786,8 @@ def phase_d64_kernels(card: str) -> dict:
             **shape, "ms": ms["flash_bwd_delta"],
             "plain_ms": ms["plain_delta"], "library_ms": ms["library_delta"],
             "bound_ms": db, "bound_by": dby,
-            "max_abs_err": errs["delta"]["max_abs"]}
+            "max_abs_err": errs["delta"]["max_abs"],
+            **time_delta_launches(o, do, card, f"d64 {where}")}
         for key, t in times.items():
             log(f"time d64 {where}: {key} rounds {t} median {ms[key]:.4f} "
                 f"ms [{card}]")
@@ -778,6 +803,57 @@ def phase_d64_kernels(card: str) -> dict:
             f"{ms['library_delta']:.4f} ms [{card}]")
         del q, k, v, do, o, lse, delta
     return out
+
+
+LAUNCH_BURST = 20  # launches back to back between two events
+
+
+def time_launches(lib: str, fn: str, tensors, causal: bool, card: str,
+                  where: str) -> dict:
+    """A kernel at one shape without its wrapper's host path: LAUNCH_BURST
+    launches of the C entry ``fn`` of ``lib`` on ``tensors`` (outputs
+    preallocated) back to back between two events, divided by LAUNCH_BURST
+    (``back_to_back_ms``: still the host's pace where a launch takes longer
+    to issue than to run), and the same launches captured once in a CUDA
+    graph and replayed (``graph_ms``: the device's time alone). Beside the
+    wrapper's time (``ms``), they tell whether a time is the kernel's or
+    the launch path's. A graph that cannot be captured is reported as
+    None."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+
+    def burst():
+        for _ in range(LAUNCH_BURST):
+            att._launch(lib, fn, tensors, causal)
+
+    result = {"back_to_back_ms": cuda_time_ms(burst, 5) / LAUNCH_BURST,
+              "graph_ms": None}
+    try:
+        graph = torch.cuda.CUDAGraph()
+        burst()  # warm the launch path outside the capture
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            burst()
+        result["graph_ms"] = cuda_time_ms(graph.replay, 5) / LAUNCH_BURST
+    except RuntimeError as e:
+        log(f"time {fn} {where}: no CUDA graph ({e})")
+    log(f"time {fn} {where}: {LAUNCH_BURST} C-entry launches back to back "
+        f"{result['back_to_back_ms']:.4f} ms a launch, replayed from a "
+        f"graph {result['graph_ms']} ms a launch [{card}]")
+    return result
+
+
+def time_delta_launches(o, do, card: str, where: str) -> dict:
+    """``time_launches`` of Delta (``flash_bwd_delta``) on o and dO."""
+    import torch
+
+    B, S, H, _ = o.shape
+    out = torch.empty((B * H, S), dtype=torch.float32, device=o.device)
+    return time_launches("flash_bwd", "flash_bwd_delta", (o, do, out), False,
+                         card, where)
 
 
 def time_attention(q, k, v, do, o, lse, delta, causal: bool,
@@ -1254,6 +1330,44 @@ MOE_ROUTER_OPS = ("aten::_softmax", "aten::_softmax_backward_data",
                   "aten::topk")
 
 
+# the autograd nodes of attention's backward: one device's, and the ring's
+# (the seq axis, at any size)
+ATTN_BWD_NODES = ("FlashAttentionBackward", "RingAttentionBackward")
+# NCCL's device events (``nccl:<op>``, or a kernel ``ncclDevKernel_<Op>``)
+# by the collective their name holds, lower-cased: the fsdp gathers, the
+# MoE routing exchange and expert gather (all_gather); the gradients' sums,
+# the tensor axis's reductions and the MoE statistics and copy-to-region
+# backward (all_reduce); the fsdp gradients (reduce_scatter); the ring's
+# sends (send, recv). At world 1 NCCL runs some of them as copies, which
+# the profiler books as memcpy ("other").
+NCCL_KINDS = {"all_gather": "collectives_all_gather",
+              "allgather": "collectives_all_gather",
+              "all_reduce": "collectives_all_reduce",
+              "allreduce": "collectives_all_reduce",
+              "reduce_scatter": "collectives_reduce_scatter",
+              "reducescatter": "collectives_reduce_scatter",
+              "send": "collectives_send_recv",
+              "recv": "collectives_send_recv"}
+
+
+# the backward nodes of the MoE layers' collectives (parallel/
+# expert_parallel.py); the tensor axis's copy also runs in attention and
+# the MLP
+MOE_COLLECTIVE_NODES = ("_SumOverBackward", "_GatherFromRegionBackward",
+                        "_CopyToRegionBackward")
+# the profiler ranges that ``expert_parallel.GroupAxes`` opens; the trace
+# also shows each as a span on the device, which is no kernel
+ANNOTATION = "expert_parallel."
+
+
+def is_annotation(evt) -> bool:
+    """A device-side span of a profiler range: booked as no device time."""
+    import torch
+
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and evt.key.startswith(ANNOTATION))
+
+
 def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
     """One more step under ``torch.profiler``: device ms of the flash
     kernels; of the rest of the attention backward (``attn_bwd_glue``: the
@@ -1264,28 +1378,36 @@ def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
     products, batched over E, and the router's, with E columns); of a MoE
     config's router ops and its dispatch and combine (``MOE_ROUTER_OPS``,
     ``MOE_INDEX_OPS``); of the optimizer's foreach ops; of NCCL's kernels
-    (``collectives``, on a mesh); and of the rest. The full table goes to
-    OUT_DIR."""
+    by kind (``NCCL_KINDS``, on a mesh); and of the rest. Beside them, the
+    MoE layers' collectives by op (``moe_collectives_by_op``, on a mesh).
+    The full table goes to OUT_DIR."""
     import torch
 
     cfg = bundle.cfg
     prof, averages = profiled(lambda: bundle.step(params, opt_state, batch))
     parts = {**dict.fromkeys(KERNEL_NAMES, 0.0), "attn_bwd_glue": 0.0,
              "attn_projections": 0.0, "mlp": 0.0, "lm_head": 0.0,
-             "other_matmul": 0.0, "optimizer": 0.0, "collectives": 0.0}
+             "other_matmul": 0.0, "optimizer": 0.0,
+             **dict.fromkeys(NCCL_KINDS.values(), 0.0)}
     if cfg.n_experts:
         parts.update(moe_router=0.0, moe_dispatch_combine=0.0,
                      moe_expert_gemms=0.0)
     total = 0.0
     for evt in averages:
         ms = evt.self_device_time_total / 1e3
+        if is_annotation(evt):
+            continue
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             total += ms
             for kernel in KERNEL_NAMES:
                 if f"{kernel}_kernel" in evt.key:
                     parts[kernel] += ms
             if "nccl" in evt.key.lower():
-                parts["collectives"] += ms
+                kind = next((part for name, part in NCCL_KINDS.items()
+                             if name in evt.key.lower()),
+                            "collectives_other")
+                parts.setdefault(kind, 0.0)
+                parts[kind] += ms
             continue
         if cfg.n_experts and evt.key in MOE_INDEX_OPS:
             parts["moe_dispatch_combine"] += ms
@@ -1309,14 +1431,32 @@ def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
             parts["optimizer"] += ms
     # the attention backward's own device time: its autograd node's
     # (outermost events only), less the kernels booked by name above
+    def attn_node(name):
+        return any(node in name for node in ATTN_BWD_NODES)
+
     node_ms = sum(evt.device_time_total / 1e3 for evt in prof.events()
-                  if "FlashAttentionBackward" in evt.name and not (
+                  if attn_node(evt.name) and not (
                       evt.cpu_parent is not None
-                      and "FlashAttentionBackward" in evt.cpu_parent.name))
+                      and attn_node(evt.cpu_parent.name)))
     parts["attn_bwd_glue"] = node_ms - sum(parts[k] for k in KERNEL_NAMES
                                            if k != "flash_fwd")
     parts["other"] = total - sum(parts.values())
+    # the MoE layers' collectives by op (already booked above by kind and
+    # as copies): the kernels of the ops inside each op's forward range
+    # (not the range's span on the device, which holds the gaps between
+    # them) and of its backward's autograd node
+    by_op = {}
+    for evt in prof.events():
+        if evt.name in MOE_COLLECTIVE_NODES:
+            ms = evt.device_time_total / 1e3
+        elif evt.name.startswith(ANNOTATION) and not is_annotation(evt):
+            ms = sum(c.device_time_total for c in evt.cpu_children) / 1e3
+        else:
+            continue
+        by_op[evt.name] = by_op.get(evt.name, 0.0) + ms
     parts.update(step_totals(averages, label))
+    if by_op:
+        parts["moe_collectives_by_op"] = by_op
     log(f"{label}: one profiled step, device ms by part {parts}")
     return parts
 
@@ -1340,8 +1480,8 @@ def step_totals(averages, label: str) -> dict:
     launched; its table goes to OUT_DIR/<label>_step_profile.txt."""
     import torch
 
-    device = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in averages if not is_annotation(e)
+              and e.device_type == torch.autograd.DeviceType.CUDA]
     host = [e for e in averages
             if e.device_type != torch.autograd.DeviceType.CUDA]
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1515,11 +1655,11 @@ def phase_parallel(card: str) -> dict:
     ring's block math for RING_RANKS virtual ranks at full width against
     the unsharded kernels and the plain version, with its times; the
     codecs at the 1b's parameter count; and the 1b trained on a
-    ``data=1`` mesh and on a world-1 mesh of every axis against the
-    single-device step. The machine has one card, and NCCL takes one rank
-    a card, so a world larger than 1 runs on gloo in the CPU tests. Returns
-    the kernel launches of the ring path and of the meshes' training
-    runs."""
+    ``data=1`` mesh and on a world-1 mesh of every axis, and moe-1b on a
+    world-1 mesh of every axis, against the single-device step. The
+    machine has one card, and NCCL takes one rank a card, so a world larger
+    than 1 runs on gloo in the CPU tests. Returns the kernel launches of
+    the ring path and of the meshes' training runs."""
     import socket
 
     import torch
@@ -1688,23 +1828,26 @@ def ring_emulate(q, k, v, do, n: int, causal: bool) -> dict:
     """The ring's forward and backward for n virtual ranks in one process,
     through the per-step functions of ``ops.ring_attention``, as
     ``ring_attention_fwd`` and ``ring_attention_bwd`` run them on each
-    rank: rank i's blocks attended and merged by lse; then each block's
-    backward fed rank i's merged lse and Delta, its dQ added into rank i's
-    one fp32 buffer, dK and dV summed at their owner in fp32; the sums cast
-    to bf16. Returns the whole sequence's o, lse, Delta and gradients."""
+    rank (``ring_emulate_fwd``, ``ring_emulate_bwd``). Returns the whole
+    sequence's o, lse, Delta and gradients."""
+    o, lse = ring_emulate_fwd(q, k, v, n, causal)
+    return {"o": o, "lse": lse,
+            **ring_emulate_bwd(q, k, v, do, o, lse, n, causal)}
+
+
+def ring_emulate_fwd(q, k, v, n: int, causal: bool):
+    """Rank i's blocks attended and merged by lse, for each of n virtual
+    ranks; the whole sequence's o (q's dtype) and lse."""
     import torch
 
-    from ray_tpu_torch.ops.attention import attention_delta
-    from ray_tpu_torch.ops.ring_attention import (attend_block,
-                                                  block_backward,
-                                                  merge_blocks)
+    from ray_tpu_torch.ops.ring_attention import attend_block, merge_blocks
 
     L = q.shape[1] // n
 
     def part(x, i):
         return x[:, i * L:(i + 1) * L]
 
-    out = {key: [] for key in ("o", "lse", "delta", "dq")}
+    outs, lses = [], []
     for i in range(n):
         o = lse = None
         for j in ring_blocks(i, n, causal):
@@ -1712,26 +1855,42 @@ def ring_emulate(q, k, v, do, n: int, causal: bool) -> dict:
                                       causal and j == i)
             o, lse = ((o_b.float(), lse_b) if o is None
                       else merge_blocks(o, lse, o_b, lse_b))
-        out["o"].append(o.to(q.dtype))
-        out["lse"].append(lse)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def ring_emulate_bwd(q, k, v, do, o, lse, n: int, causal: bool) -> dict:
+    """Each block's backward fed rank i's merged lse and Delta, its dQ added
+    into rank i's one fp32 buffer, dK and dV summed at their owner in fp32;
+    the sums cast to q's dtype. Returns Delta and the gradients."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import attention_delta
+    from ray_tpu_torch.ops.ring_attention import block_backward
+
+    L = q.shape[1] // n
+
+    def part(x, i):
+        return x[:, i * L:(i + 1) * L]
+
+    deltas, dqs = [], []
     dkv = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
            for _ in range(2)]
     for i in range(n):
-        delta = attention_delta(out["o"][i], part(do, i))
+        delta = attention_delta(part(o, i), part(do, i))
+        lse_i = part(lse, i).contiguous()  # the kernel reads it flat
         dq = torch.zeros(part(q, i).shape, dtype=torch.float32,
                          device=q.device)
         for j in ring_blocks(i, n, causal):
             dk, dv = block_backward(part(q, i), part(k, j), part(v, j),
-                                    part(do, i), out["lse"][i], delta,
+                                    part(do, i), lse_i, delta,
                                     causal and j == i, dq)
             part(dkv[0], j).add_(dk)
             part(dkv[1], j).add_(dv)
-        out["delta"].append(delta)
-        out["dq"].append(dq.to(q.dtype))
-    return {"o": torch.cat(out["o"], dim=1),
-            "lse": torch.cat(out["lse"], dim=1),
-            "delta": torch.cat(out["delta"], dim=1),
-            "dq": torch.cat(out["dq"], dim=1),
+        deltas.append(delta)
+        dqs.append(dq.to(q.dtype))
+    return {"delta": torch.cat(deltas, dim=1), "dq": torch.cat(dqs, dim=1),
             "dk": dkv[0].to(k.dtype), "dv": dkv[1].to(v.dtype)}
 
 
@@ -2040,8 +2199,12 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
                                                   dos, causal), 3, warmup=1)
         ms["plain_delta"] = cuda_time_ms(
             lambda: att.attention_delta_plain(o_b, dos), 20)
+        ms["delta_launches"] = time_delta_launches(
+            o_b, dos, card, f"ring block 1 x {L}")
         out[n] = ms
     base = {key: cuda_time_ms(fn, 20) for key, fn in unsharded.items()}
+    base["delta_launches"] = time_delta_launches(o_f, do, card,
+                                                 f"ring unsharded 1 x {S}")
     fb, fby = flash_bound(B, H, H, D, S, causal, 2)
     bb, bby = bwd_bound("flash_bwd", B, H, H, D, S, causal, 2)
     out["unsharded"] = {**base, "fwd_bound_ms": fb, "fwd_bound_by": fby,
@@ -2111,25 +2274,54 @@ def check_codecs(card: str) -> dict:
 
 
 def phase_mesh_training(card: str):
-    """The 1b at TRAIN_BATCH x TRAIN_SEQ: MESH_STEPS steps of the
-    single-device bundle, then as many on two world-1 meshes over the NCCL
-    group, from the same seed and batch: ``data=1`` alone (its loss's
-    count, the loss and every gradient all-reduced; the ``mesh_training``
-    path) and every axis at 1 (``mesh_fsdp_tensor``: the fsdp axis's
-    gathers and reduce-scatters, the tensor axis's reductions and its
-    vocabulary-parallel cross entropy, and the clip's gathered norm, each
-    a one-rank collective). Each step's loss within TRAIN_LOSS_TOL of the
-    single-device one; the step times, peak memory and a profiled step's
-    device ms by part side by side. Each mesh run's launches are counted
-    (``run_steps``; the profiled step comes after)."""
+    """Training on world-1 meshes over the NCCL group, each against the
+    single-device step from the same seed and batch (``mesh_runs``): the 1b
+    at TRAIN_BATCH x TRAIN_SEQ on ``data=1`` alone (its loss's count, the
+    loss and every gradient all-reduced; the ``mesh_training`` path) and on
+    every axis at 1 (``mesh_fsdp_tensor``: the fsdp axis's gathers and
+    reduce-scatters, the tensor axis's reductions and its
+    vocabulary-parallel cross entropy, the seq axis's one-rank ring and the
+    gradients' all-reduce over it, and the clip's gathered norm, each a
+    one-rank collective); then moe-1b on every axis at 1
+    (``mesh_seq_expert``: the same, and the MoE layers' routing exchange,
+    global statistics and expert collectives as one-rank collectives).
+    Returns the paths' launches and the report."""
+    from ray_tpu_torch.parallel import AXES
+
+    every = dict.fromkeys(AXES, 1)
+    launches, report = mesh_runs(card, TRAIN_CONFIG, (
+        ("mesh_training", {"data": 1}), ("mesh_fsdp_tensor", every)))
+    moe_launches, report["moe"] = mesh_runs(card, MOE_CONFIG, (
+        ("mesh_seq_expert", every),))
+    log(f"mesh training: step s {report['mesh_training']['step_s']} (data "
+        f"only) against {report['mesh_fsdp_tensor']['step_s']} (every axis "
+        f"at 1); peak memory "
+        f"{report['mesh_training']['max_memory_allocated_bytes']} against "
+        f"{report['mesh_fsdp_tensor']['max_memory_allocated_bytes']} bytes; "
+        f"moe-1b on every axis at 1: step s "
+        f"{report['moe']['mesh_seq_expert']['step_s']}, peak "
+        f"{report['moe']['mesh_seq_expert']['max_memory_allocated_bytes']} "
+        f"bytes [{card}]")
+    return {**launches, **moe_launches}, report
+
+
+def mesh_runs(card: str, config: str, paths):
+    """``config`` at TRAIN_BATCH x TRAIN_SEQ: MESH_STEPS steps of the
+    single-device bundle, then as many on each of ``paths`` ((name, mesh
+    axes), each a world-1 mesh over the NCCL group) from the same seed and
+    batch. Each step's loss within TRAIN_LOSS_TOL of the single-device one;
+    the step times, enqueue times, busy share, peak memory and a profiled
+    step's device ms by part (NCCL's kernels by kind) side by side. Each
+    mesh run's launches are counted (``run_steps``; the profiled step comes
+    after)."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.models import CONFIGS
-    from ray_tpu_torch.parallel import (AXES, TrainStepBundle, create_mesh,
-                                        make_optimizer)
+    from ray_tpu_torch.parallel import TrainStepBundle, create_mesh, \
+        make_optimizer
 
-    cfg = CONFIGS[TRAIN_CONFIG]
+    cfg = CONFIGS[config]
 
     def bundle(**kw):
         b = TrainStepBundle(cfg, optimizer=make_optimizer(
@@ -2143,11 +2335,10 @@ def phase_mesh_training(card: str):
     single = [b.step(params, opt, batch)[2].item() for _ in range(MESH_STEPS)]
     del b, params, opt, batch
     torch.cuda.empty_cache()
-    report = {"config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
-              "seq": TRAIN_SEQ, "losses_single": single}
+    report = {"config": config, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "losses_single": single}
     launches = {}
-    for path, axes in (("mesh_training", {"data": 1}),
-                       ("mesh_fsdp_tensor", dict.fromkeys(AXES, 1))):
+    for path, axes in paths:
         mesh = create_mesh(axes)
         b, params, opt, batch = bundle(mesh=mesh)
         launches[path], run = run_steps(
@@ -2159,24 +2350,21 @@ def phase_mesh_training(card: str):
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
             path)
         diffs = [abs(a - s) for a, s in zip(run["loss"], single)]
+        parts = profile_step(b, params, opt, batch, path)
         report[path] = {
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
             "losses": run["loss"], "max_loss_diff": max(diffs),
             "step_s": run["step_s"], "enqueue_s": run["enqueue_s_median"],
+            "device_busy_share": parts["total"] / 1e3
+            / run["step_s_median"],
             "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
-            "device_ms_by_part": profile_step(b, params, opt, batch, path)}
+            "device_ms_by_part": parts}
         log(f"{path}: {report[path]} [tol {TRAIN_LOSS_TOL}] [{card}]")
         if not max(diffs) <= TRAIN_LOSS_TOL:
             raise AssertionError(f"{path}: the mesh's losses part from the "
                                  f"single device's by {max(diffs)}")
         del b, params, opt, batch, mesh
         torch.cuda.empty_cache()
-    log(f"mesh training: step s {report['mesh_training']['step_s']} (data "
-        f"only) against {report['mesh_fsdp_tensor']['step_s']} (every axis "
-        f"at 1); peak memory "
-        f"{report['mesh_training']['max_memory_allocated_bytes']} against "
-        f"{report['mesh_fsdp_tensor']['max_memory_allocated_bytes']} bytes "
-        f"[{card}]")
     return launches, report
 
 
@@ -2366,11 +2554,12 @@ def check_vocab_parallel_ce(T: int, N: int, V: int, gen) -> dict:
 
 
 def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
-                        where: str) -> dict:
-    """The kernels at one rank's shape (causal, bf16) against their plain
-    versions (``check_attention``: TOL, BWD_TOL, DELTA_TOL), then
-    ``time_attention`` beside ``flash_bound`` and ``bwd_bound``, and the
-    plain versions timed."""
+                        where: str, causal: bool = True,
+                        label: str = "tensor parallel") -> dict:
+    """The kernels at one rank's shape (bf16) against their plain versions
+    (``check_attention``: TOL, BWD_TOL, DELTA_TOL), then ``time_attention``
+    beside ``flash_bound`` and ``bwd_bound``, the forward's and Delta's
+    launches alone (``time_launches``), and the plain versions timed."""
     import importlib
 
     import torch
@@ -2380,38 +2569,45 @@ def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16)
                    for h in (H, KVH, KVH, H))
+    kind = "causal" if causal else "full"
     o, lse, delta, errs = check_attention(
-        q, k, v, do, True, f"tensor parallel {where} B={B} S={S} H={H} "
-        f"KVH={KVH} D={D} bf16 causal")
-    _, ms = time_attention(q, k, v, do, o, lse, delta, True, rounds)
+        q, k, v, do, causal, f"{label} {where} B={B} S={S} H={H} "
+        f"KVH={KVH} D={D} bf16 {kind}")
+    _, ms = time_attention(q, k, v, do, o, lse, delta, causal, rounds)
     plain = {
         "flash_fwd": cuda_time_ms(
-            lambda: att.flash_attention_fwd_plain(q, k, v, True), 3,
+            lambda: att.flash_attention_fwd_plain(q, k, v, causal), 3,
             warmup=1),
         "flash_bwd": cuda_time_ms(
-            lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do, True),
-            3, warmup=1),
+            lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  causal), 3, warmup=1),
         "flash_bwd_delta": cuda_time_ms(
             lambda: att.attention_delta_plain(o, do), 20)}
-    bounds = {"flash_fwd": flash_bound(B, H, KVH, D, S, True, 2),
-              "flash_bwd": bwd_bound("flash_bwd", B, H, KVH, D, S, True, 2),
+    bounds = {"flash_fwd": flash_bound(B, H, KVH, D, S, causal, 2),
+              "flash_bwd": bwd_bound("flash_bwd", B, H, KVH, D, S, causal,
+                                     2),
               "flash_bwd_delta": bwd_bound("flash_bwd_delta", B, H, KVH, D,
-                                           S, True, 2)}
+                                           S, causal, 2)}
     library = {"flash_fwd": "library_fwd", "flash_bwd": "library_bwd",
                "flash_bwd_delta": "library_delta"}
     max_err = {"flash_fwd": errs["o"]["max_abs"],
                "flash_bwd": max(errs[key]["max_abs"]
                                 for key in ("dq", "dk", "dv")),
                "flash_bwd_delta": errs["delta"]["max_abs"]}
-    out = {kernel: {"shape": [B, S, H, KVH, D], "causal": True,
+    out = {kernel: {"shape": [B, S, H, KVH, D], "causal": causal,
                     "ms": ms[kernel], "bound_ms": b, "bound_by": by,
                     "plain_ms": plain[kernel],
                     "library_ms": ms[library[kernel]],
                     "max_abs_err": max_err[kernel]}
            for kernel, (b, by) in bounds.items()}
     out["flash_bwd"]["backward_ms"] = ms["backward"]
-    log(f"time tensor parallel {where} (B={B} S={S} H={H} KVH={KVH} D={D} "
-        f"bf16 causal): " + "; ".join(
+    out["flash_bwd_delta"].update(time_delta_launches(o, do, card, where))
+    out["flash_fwd"].update(time_launches(
+        "flash_fwd", "flash_fwd", (q, k, v, torch.empty_like(q),
+                                   torch.empty_like(lse)), causal, card,
+        where))
+    log(f"time {label} {where} (B={B} S={S} H={H} KVH={KVH} D={D} "
+        f"bf16 {kind}): " + "; ".join(
             f"{kernel} {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}), {100 * e['bound_ms'] / e['ms']:.1f}% of "
             f"bound, plain {e['plain_ms']:.4f} ms, library "
@@ -2521,6 +2717,297 @@ def phase_tensor_parallel(card: str):
     return launches, times
 
 
+# The seq axis's per-rank math at full width, for virtual ranks in one
+# process: the 1b's block at TRAIN_BATCH x TRAIN_SEQ with the sequence split
+# over each of SEQ_RANKS (ring blocks of 4 x 1024 and 4 x 512, 16/16 heads
+# after K and V are repeated, causal on the diagonal, full elsewhere).
+SEQ_RANKS = (2, 4)
+# The block on n virtual seq ranks against the whole block with plain
+# attention, bf16, per tensor ||got - want|| / ||want||. Beyond the
+# roundings of one block through the kernels (TP_OTHER_ROUNDINGS, as the
+# tensor-parallel phase derives them), the ranks round at:
+# - the forward's merge: each of up to n block outputs is rounded to bf16
+#   before the fp32 merge, each within 2^-9 of its value: at most
+#   2^-8 of sum_j w_j |o_j|, whose norm is rho times o's (rho: the
+#   forward's ratio ||sum_j w_j |o_j| || / ||o||, measured, and at least
+#   sqrt(n), what independent blocks give);
+# - the backward: dK and dV of each of up to n query blocks rounded to
+#   bf16 before their fp32 sum at the owner, and the sum over each KV
+#   head's two repeated query heads in bf16: at most n + 1 more 2^-8 of
+#   the shares' sum, taken at the same rho.
+# Summed with no cancellation: (2 n rho + rho + 16) 2^-8 <= (4 n rho + 16)
+# 2^-8, the tensor-parallel phase's form.
+SEQ_OTHER_ROUNDINGS = TP_OTHER_ROUNDINGS
+# moe-1b's MoE layer (d 1024, E 8, top 2, groups of 4096) at TRAIN_BATCH x
+# TRAIN_SEQ, fp32, on virtual ranks: (rows, seq, tensor, experts) of
+# ``parallel.expert_parallel.VirtualRanks``: experts over 2, 4 and 8 ranks;
+# tokens over 2 and 4 row ranks (at 4 a group of 4096 spans two ranks).
+EP_CASES = ((1, 1, 1, 2), (1, 1, 1, 4), (1, 1, 1, 8), (2, 1, 1, 1),
+            (4, 1, 1, 1))
+# Against the whole layer on the same weights and input, both on the card:
+# the ranks' experts are the whole layer's (each rank's router runs on its
+# own rows; fp32 products, TF32 off since ``phase_device``); the outputs,
+# the input's gradient and every weight's (summed over the token ranks)
+# within MOE_LAYER_TOL of the largest value (fp32 sums of up to F = 2816
+# products in other orders, and R <= 4 more terms), aux within
+# MOE_AUX_RTOL. A token whose
+# top-K the ranks' router products round apart from the whole layer's
+# (other GEMM shapes) would move its slots; the share of such tokens must
+# stay within MOE_ROUTE_TOL, and the whole layer replays the ranks'
+# choices (``route(..., expert=)``), so that both run the same slots.
+EP_AUX_COEF = 1.0
+
+
+def virtual_ring(q, k, v, n: int):
+    """``ring_attention`` for n virtual seq ranks in one process,
+    differentiable: q, k, v are the whole sequence's (B, S, H, D), equal
+    heads, rank i's the i-th chunk of S; the forward is
+    ``ring_emulate_fwd`` (each rank's blocks through ``attend_block``,
+    merged by lse), the backward ``ring_emulate_bwd`` (each block's
+    ``block_backward`` from its rank's merged lse and Delta)."""
+    import torch
+
+    class Ring(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = ring_emulate_fwd(q, k, v, n, True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            g = ring_emulate_bwd(q, k, v, do.contiguous(), o, lse, n, True)
+            return g["dq"], g["dk"], g["dv"]
+
+    return Ring.apply(q, k, v)
+
+
+def seq_block_on_ranks(block, x, n: int):
+    """The dense ``block`` on n virtual seq ranks: rank i's chunk of each
+    row through the norm and ``Attention.project`` at its tokens' global
+    positions (what ``Transformer.forward`` gives a seq rank), K and V
+    repeated to the query heads, the ring over every rank's q, k, v
+    (``virtual_ring``), then each rank's output projection, residual and
+    MLP. Returns the whole sequence's output."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import _repeat_kv
+
+    B, S, _ = x.shape
+    L = S // n
+    qkv, chunks = [], []
+    for i in range(n):
+        xi = x[:, i * L:(i + 1) * L]
+        pos = torch.arange(i * L, (i + 1) * L, device=x.device)
+        q, k, v = block.attn.project(block.attn_norm(xi),
+                                     pos[None].expand(B, L))
+        heads = q.shape[2]
+        qkv.append((q, _repeat_kv(k, heads), _repeat_kv(v, heads)))
+        chunks.append(xi)
+    o = virtual_ring(*(torch.cat(t, 1) for t in zip(*qkv)), n)
+    outs = []
+    for i, xi in enumerate(chunks):
+        h = xi + block.attn.o_proj(o[:, i * L:(i + 1) * L])
+        outs.append(h + block.mlp(block.mlp_norm(h)))
+    return torch.cat(outs, 1)
+
+
+def seq_merge_ratio(block, x, n: int) -> float:
+    """The forward merge's ||sum_j w_j |o_j| || / ||o|| on every rank, with
+    the block's own q, k, v (no launches counted: call it outside a counted
+    run)."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import _repeat_kv
+    from ray_tpu_torch.ops.ring_attention import attend_block, merge_blocks
+
+    with torch.no_grad():
+        B, S, _ = x.shape
+        L = S // n
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        q, k, v = block.attn.project(block.attn_norm(x), pos)
+        k, v = (_repeat_kv(t, q.shape[2]) for t in (k, v))
+        num = den = 0.0
+        for i in range(n):
+            qi = q[:, i * L:(i + 1) * L]
+            o = a = lse = None
+            for j in ring_blocks(i, n, True):
+                kj, vj = k[:, j * L:(j + 1) * L], v[:, j * L:(j + 1) * L]
+                o_b, lse_b = attend_block(qi, kj, vj, j == i)
+                if o is None:
+                    o, a, lse = o_b.float(), o_b.float().abs(), lse_b
+                else:
+                    a, _ = merge_blocks(a, lse, o_b.abs(), lse_b)
+                    o, lse = merge_blocks(o, lse, o_b, lse_b)
+            num += a.pow(2).sum().item()
+            den += o.pow(2).sum().item()
+    return math.sqrt(num / den)
+
+
+def phase_seq_parallel(card: str):
+    """The seq axis's per-rank math at full width (SEQ_RANKS), for virtual
+    ranks in one process on the card: the 1b's block on n seq ranks
+    (``seq_block_on_ranks``: global RoPE positions, K/V repeated, the
+    ring's blocks through the flash kernels, forward and backward), its
+    launches counted over those runs alone (n(n + 1) / 2 forward and
+    ``flash_bwd`` launches and n Delta), held against the whole block with
+    plain attention (the bound above SEQ_OTHER_ROUNDINGS). At each block
+    shape, diagonal (causal) and off-diagonal (full), the kernels against
+    their plain versions (TOL, BWD_TOL, DELTA_TOL), then their times beside
+    the library's attention. Returns the path's launches and each kernel's
+    entries by shape."""
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.models.transformer import Block
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    counters = kernel_counters()
+    launches = {c.__name__: 0 for c in counters}
+    report = {"card": card, "blocks": {}}
+    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    block = tp_block(cfg, seed=12)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, dout = (torch.randn(B, S, cfg.d_model, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(2))
+    x.requires_grad_()
+    names = ["x"] + [k for k, _ in block.named_parameters()]
+    runs = {}
+    for n in SEQ_RANKS:
+        for c in counters:
+            c.launches = 0
+        out = seq_block_on_ranks(block, x, n)
+        grads = torch.autograd.grad(out, [x] + list(block.parameters()),
+                                    dout)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters}
+        pairs = n * (n + 1) // 2
+        want = {"flash_attention_fwd": pairs, "attention_delta": n,
+                "flash_attention_bwd": pairs, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+        if got != want:
+            raise AssertionError(f"seq parallel at {n} ranks launched {got}, "
+                                 f"want {want}")
+        launches = {k: launches[k] + m for k, m in got.items()}
+        runs[n] = (out.detach(), dict(zip(names, grads)),
+                   seq_merge_ratio(block, x, n))
+    plain = Block(dataclasses.replace(cfg, attention_impl="xla"),
+                  device="cuda")
+    plain.load_state_dict(block.state_dict())
+    del block
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    ref = plain(x, pos)[0]
+    want = dict(zip(names, torch.autograd.grad(
+        ref, [x] + list(plain.parameters()), dout)))
+    ref = ref.detach()
+    for n, (out, grads, rho) in runs.items():
+        rho = max(rho, math.sqrt(n))
+        tol = (4 * n * rho + SEQ_OTHER_ROUNDINGS) * 2.0 ** -8
+        errs = {"out": ((out.float() - ref.float()).norm()
+                        / ref.float().norm()).item()}
+        errs.update(leaf_rel_errors(names, [grads[k] for k in names],
+                                    [want[k] for k in names]))
+        worst = max(errs, key=errs.get)
+        report["blocks"][f"n={n}"] = {"shape": [B, S], "block": [B, S // n],
+                                      "rho": rho, "tol": tol, "errors": errs}
+        log(f"check seq parallel {TRAIN_CONFIG} block {B} x {S} at {n} ranks "
+            f"(ring blocks {B} x {S // n}): relative errors {errs}, largest "
+            f"{worst} {errs[worst]:.3e} [tol (4 n rho + "
+            f"{SEQ_OTHER_ROUNDINGS}) 2^-8 = {tol:.3e}, rho {rho:.3f}]")
+        if not errs[worst] <= tol:
+            raise AssertionError(f"seq parallel at {n} ranks: {worst} parts "
+                                 f"by {errs[worst]:.3e} > {tol:.3e}")
+    del runs, ref, want, plain, x, dout
+    torch.cuda.empty_cache()
+    for n in SEQ_RANKS:
+        for causal in (True, False):
+            kind = "diagonal" if causal else "off-diagonal"
+            entry = time_rank_attention(
+                B, cfg.n_heads, cfg.n_heads, cfg.head_dim, S // n,
+                TIME_ROUNDS, card, f"{TRAIN_CONFIG} n={n} {kind}", causal,
+                "seq parallel")
+            for kernel, e in entry.items():
+                times[kernel][f"{TRAIN_CONFIG} n={n} {kind}"] = e
+    log("seq parallel metrics: " + json.dumps({**report, "times": times}))
+    return launches, times
+
+
+def phase_expert_parallel(card: str) -> dict:
+    """moe-1b's MoE layer at full width on virtual ranks (EP_CASES), fp32,
+    on the card: ``MoEMLP.forward_ranks`` over ``VirtualRanks`` (each
+    rank's experts, the routing exchange, the global statistics and the
+    expert collectives in one process) against the whole layer (the bounds
+    above EP_CASES). Returns the report."""
+    import functools
+
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.models.transformer import MoEMLP
+    from ray_tpu_torch.parallel.expert_parallel import VirtualRanks
+
+    cfg = dataclasses.replace(CONFIGS[MOE_CONFIG], dtype=torch.float32)
+    layer = MoEMLP(cfg, device="cuda", seed=14)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, dout = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                           generator=gen, device="cuda") for _ in range(2))
+    K = cfg.experts_per_token
+    g = layer.group_size(TRAIN_BATCH * TRAIN_SEQ)
+    own = layer.route(x.reshape(-1, g, cfg.d_model)).expert
+    names = [k for k, _ in layer.named_parameters()]
+    report = {"card": card, "config": MOE_CONFIG, "tokens": [TRAIN_BATCH,
+              TRAIN_SEQ], "group": g, "cases": {}}
+    for shape in EP_CASES:
+        axes = VirtualRanks(*shape)
+        got = axes.layer_grads(layer, x, dout, EP_AUX_COEF)
+        experts = got["experts"]
+        # the whole layer, replaying the ranks' choices
+        layer.route = functools.partial(MoEMLP.route, layer,
+                                        expert=experts.reshape(-1, g, K))
+        xw = x.clone().requires_grad_()
+        out, aux = layer(xw)
+        want = dict(zip(["x"] + names, torch.autograd.grad(
+            (out * dout).sum() + EP_AUX_COEF * aux,
+            [xw] + list(layer.parameters()))))
+        del layer.route
+        flipped = (experts.reshape(own.shape).sort(-1).values
+                   != own.sort(-1).values).any(-1).float().mean().item()
+        errs = {"out": max((o - axes.local(i, out)).abs().max().item()
+                           for i, o in enumerate(got["out"]))
+                / out.abs().max().item(),
+                "aux": max(abs(a.item() - aux.item()) for a in got["aux"])
+                / aux.item(),
+                "x": max((d - axes.local(i, want["x"])).abs().max().item()
+                         for i, d in enumerate(got["dx"]))
+                / want["x"].abs().max().item()}
+        for (_, e, name), dw in got["dw"].items():
+            w = want[name]
+            if name != "router.kernel":
+                w = w.chunk(shape[3], 0)[e]
+            errs[name] = max(errs.get(name, 0.0), (dw - w).abs().max()
+                             .item() / w.abs().max().item())
+        worst = max((k for k in errs if k != "aux"), key=errs.get)
+        case = f"rows={shape[0]} experts={shape[3]}"
+        report["cases"][case] = {"routed_otherwise_share": flipped,
+                                 "rel_errors": errs}
+        log(f"check expert parallel {MOE_CONFIG} layer {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} on {case}: routed otherwise {flipped:.2e}, "
+            f"relative errors {errs} [tol {MOE_LAYER_TOL}, aux "
+            f"{MOE_AUX_RTOL}, routing {MOE_ROUTE_TOL}] [{card}]")
+        if not flipped <= MOE_ROUTE_TOL:
+            raise AssertionError(f"expert parallel {case}: {flipped} of the "
+                                 "tokens routed otherwise")
+        if not errs[worst] <= MOE_LAYER_TOL or not errs["aux"] <= \
+                MOE_AUX_RTOL:
+            raise AssertionError(f"expert parallel {case}: {errs}")
+        del got, want, out
+        torch.cuda.empty_cache()
+    log("expert parallel metrics: " + json.dumps(report))
+    return report
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -2537,6 +3024,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["tensor_parallel"], tp = phase_tensor_parallel(dev["card"])
     log(f"tensor parallel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["seq_parallel"], sp = phase_seq_parallel(dev["card"])
+    phase_expert_parallel(dev["card"])
+    log(f"seq and expert parallel: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",
@@ -2574,7 +3065,8 @@ def main() -> int:
             **{key: entry[key] for key in ("mma_ms", "backward_ms",
                                            "train_shape") if key in entry},
             **({"d64_shapes": d64[name]} if name in d64 else {}),
-            **({"tensor_parallel_shapes": tp[name]} if name in tp else {})})
+            **({"tensor_parallel_shapes": tp[name]} if name in tp else {}),
+            **({"seq_parallel_shapes": sp[name]} if name in sp else {})})
     log(dev["card"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))

@@ -23,10 +23,16 @@ flax ``losses`` collection.
 
 On a mesh (``parallel.TrainStepBundle``) each parameter holds this rank's
 piece (``Transformer(..., pieces=...)``): modules read their weights through
-``gather`` (``parallel/fsdp.py``, the whole leaf over the ``fsdp`` axis),
-and ``Attention``, ``MLP`` and the embedding and lm_head run on this rank's
-heads, hidden columns and vocabulary rows through ``tensor``
-(``parallel/tensor_parallel.py``). Both are None without a mesh, and the
+``gather`` (``parallel/fsdp.py``, the whole leaf over the ``fsdp`` axis,
+and the router's columns over ``expert``), and ``Attention``, ``MLP`` and
+the embedding and lm_head run on this rank's heads, hidden columns and
+vocabulary rows through ``tensor`` (``parallel/tensor_parallel.py``).
+With ``seq`` (the mesh's seq group) the model holds a contiguous chunk of
+every row: RoPE takes the tokens' global positions and ``Attention`` runs
+ring attention over the group (``ops/ring_attention.py``), K and V repeated
+to the query heads first, as the JAX model repeats them. ``MoEMLP`` runs
+its experts and the global grouping through ``ep``
+(``parallel/expert_parallel.py``). All are None without a mesh, and the
 modules are then what they are on one device.
 """
 
@@ -41,7 +47,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.ops.attention import _repeat_kv
 from ray_tpu_torch.ops.attention import attention as attention_op
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.utils import DeviceLike, resolve_device
 
 
@@ -211,9 +219,12 @@ class Dense(nn.Module):
 class Attention(nn.Module):
     """GQA self-attention with RoPE. With a ``tensor`` axis the projections
     hold this rank's query and KV heads, and the output projection's
-    partial product is summed over the axis."""
+    partial product is summed over the axis. With a ``seq`` group ``x`` is
+    this rank's chunk of each row and attention is the ring over the group
+    (no ``segment_ids`` on more than one rank: the ring takes none)."""
 
     tensor = None
+    seq = None
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -225,15 +236,30 @@ class Attention(nn.Module):
         self.v_proj = Dense((d, cfg.n_kv_heads, hd), 1, **kw)
         self.o_proj = Dense((cfg.n_heads, hd, d), 2, **kw)
 
+    def project(self, x, positions):
+        """q, k, v of ``x`` at ``positions``, RoPE applied to q and k; k
+        and v keep their KV heads."""
+        theta = self.cfg.rope_theta
+        return (_rope(self.q_proj(x), positions, theta),
+                _rope(self.k_proj(x), positions, theta), self.v_proj(x))
+
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
         if self.tensor is not None:
             x = self.tensor.copy_to_region(x)
-        q = _rope(self.q_proj(x), positions, cfg.rope_theta)
-        k = _rope(self.k_proj(x), positions, cfg.rope_theta)
-        v = self.v_proj(x)
-        out = attention_op(q, k, v, causal=True, impl=cfg.attention_impl,
-                           segment_ids=segment_ids)
+        q, k, v = self.project(x, positions)
+        if self.seq is None or (segment_ids is not None
+                                and self.seq.world_size == 1):
+            out = attention_op(q, k, v, causal=True, impl=cfg.attention_impl,
+                               segment_ids=segment_ids)
+        elif segment_ids is not None:
+            raise ValueError(
+                f"segment_ids on a seq axis of {self.seq.world_size} ranks: "
+                "ring attention takes no segments")
+        else:
+            heads = q.shape[2]
+            out = ring_attention(q, _repeat_kv(k, heads), _repeat_kv(v, heads),
+                                 self.seq, causal=True)
         out = self.o_proj(out)
         return out if self.tensor is None else \
             self.tensor.reduce_from_region(out)
@@ -299,6 +325,7 @@ class MoEMLP(nn.Module):
 
     GROUP_SIZE = 4096  # tokens per dispatch group, as in the JAX model
     gather = None
+    ep = None
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  seed: int = 0):
@@ -332,6 +359,39 @@ class MoEMLP(nn.Module):
         return next(c for c in range(min(self.GROUP_SIZE, n_tokens), 0, -1)
                     if n_tokens % c == 0)
 
+    def capacity(self, g: int) -> int:
+        """C, the slots of one expert in a group of ``g`` tokens."""
+        cfg = self.cfg
+        return max(1, int(cfg.capacity_factor * g * cfg.experts_per_token
+                          / cfg.n_experts))
+
+    def choose(self, xf: torch.Tensor, expert: Optional[torch.Tensor] = None):
+        """The router on tokens ``xf`` (..., D) in the compute dtype: its
+        fp32 product, the softmax ``probs`` (..., E), the top-K ``expert``
+        (..., K) (or the given one) and their ``gate`` normalised over the K
+        slots."""
+        K = self.cfg.experts_per_token
+        probs = torch.softmax(self.router(xf.float()), dim=-1)
+        if expert is None:
+            expert = torch.topk(probs, K, dim=-1).indices
+        gate = probs.gather(-1, expert)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        return probs, expert, gate
+
+    def slot_positions(self, expert: torch.Tensor) -> torch.Tensor:
+        """Each slot's position in its expert's buffer of its group, for the
+        choices ``expert`` (G, g, K): the number of earlier slots of the
+        group, in (token, k) order, that chose the same expert."""
+        G, g, K = expert.shape
+        E = self.cfg.n_experts
+        # a running count along each expert's row of a (G, E, g*K)
+        # indicator (the scan runs along the innermost dim), read at the
+        # slot's own expert
+        slots = expert.reshape(G, 1, g * K)
+        chose = slots == torch.arange(E, device=expert.device)[:, None]
+        pos = chose.int().cumsum(-1).gather(1, slots) - 1
+        return pos.reshape(G, g, K)
+
     def route(self, xf: torch.Tensor,
               expert: Optional[torch.Tensor] = None) -> Routing:
         """The routing of ``xf`` (G, g, D) in the compute dtype: an fp32
@@ -339,29 +399,51 @@ class MoEMLP(nn.Module):
         given ``expert`` (G, g, K) replaces the top-K choice (its gates are
         the probabilities at those experts), so that a routing can be
         replayed on another run's inputs."""
-        cfg = self.cfg
-        G, g, _ = xf.shape
-        E, K = cfg.n_experts, cfg.experts_per_token
-        C = max(1, int(cfg.capacity_factor * g * K / E))
-        probs = torch.softmax(self.router(xf.float()), dim=-1)
-        if expert is None:
-            expert = torch.topk(probs, K, dim=-1).indices
-        gate = probs.gather(-1, expert)
-        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-        # a slot's position is the number of earlier slots of the group, in
-        # (token, k) order, that chose the same expert: a running count
-        # along each expert's row of a (G, E, g*K) indicator (the scan runs
-        # along the innermost dim), read at the slot's own expert
-        slots = expert.reshape(G, 1, g * K)
-        chose = slots == torch.arange(E, device=xf.device)[:, None]
-        pos = chose.int().cumsum(-1).gather(1, slots) - 1
-        pos = pos.reshape(G, g, K)
+        C = self.capacity(xf.shape[1])
+        probs, expert, gate = self.choose(xf, expert)
+        pos = self.slot_positions(expert)
         return Routing(probs, expert, gate, pos, pos < C, C)
 
+    def experts(self, x: torch.Tensor, dest: torch.Tensor,
+                rows: int) -> torch.Tensor:
+        """This module's experts on the slots of tokens ``x`` (N, D): slot
+        (n, k) is copied into buffer row ``dest[n * K + k]`` of ``rows``
+        (``rows`` itself: no row here) and the expert FFN runs on each
+        expert's (rows / E_here) rows. Returns the (rows, D) output; a row
+        no slot took stays zero through the FFN."""
+        cfg = self.cfg
+        N, D = x.shape
+        K = cfg.experts_per_token
+        w_gate, w_up, w_down = (_param(self, name).to(cfg.dtype) for name in (
+            "gate_proj", "up_proj", "down_proj"))
+        # dispatch: each slot's copy of its token into its row of a zeroed
+        # buffer; its backward gathers the rows back and sums each token's
+        # K slots, with no atomics
+        x_slots = x.reshape(N, 1, D).expand(N, K, D).reshape(N * K, D)
+        expert_in = x.new_zeros(rows + 1, D).index_copy(0, dest, x_slots)
+        expert_in = expert_in[:rows].view(w_gate.shape[0], -1, D)
+        # the experts: batched products over the stacked weights
+        h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
+        return torch.bmm(h, w_down).reshape(rows, D)
+
+    def combine(self, expert_out: torch.Tensor, dest: torch.Tensor,
+                gate: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        """Each token's output: its slots' expert outputs (rows ``dest`` of
+        ``expert_out``; zero for a dropped slot) times bf16(gate * keep),
+        summed over the K slots in fp32, in the compute dtype (N, D)."""
+        cfg = self.cfg
+        K, D = cfg.experts_per_token, expert_out.shape[1]
+        out_pad = torch.cat([expert_out, expert_out.new_zeros(1, D)])
+        picked = out_pad.index_select(0, dest).view(-1, K, D)
+        weight = (gate * keep).to(cfg.dtype).reshape(-1, K, 1)
+        return (picked.float() * weight.float()).sum(1).to(cfg.dtype)
+
     def forward(self, x):
+        if self.ep is not None:
+            return MoEMLP.forward_ranks([self], [x], self.ep)[0]
         cfg = self.cfg
         B, S, D = x.shape
-        N, E, K = B * S, cfg.n_experts, cfg.experts_per_token
+        N, E = B * S, cfg.n_experts
         g = self.group_size(N)
         G = N // g
         r = self.route(x.reshape(G, g, D))
@@ -372,27 +454,63 @@ class MoEMLP(nn.Module):
         group = torch.arange(G, device=x.device)[:, None, None]
         dest = r.expert * (G * C) + group * C + r.pos
         dest = torch.where(r.keep, dest, rows).reshape(-1)
-        # dispatch: each slot's copy of its token into its row of a zeroed
-        # buffer (rows no slot took stay zero); its backward gathers the
-        # rows back and sums each token's K slots, with no atomics
-        x_slots = x.reshape(N, 1, D).expand(N, K, D).reshape(N * K, D)
-        expert_in = x.new_zeros(rows + 1, D).index_copy(0, dest, x_slots)
-        expert_in = expert_in[:rows].view(E, G * C, D)
-        # the experts: batched products over the stacked weights
-        w_gate, w_up, w_down = (_param(self, name).to(cfg.dtype) for name in (
-            "gate_proj", "up_proj", "down_proj"))
-        h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
-        expert_out = torch.bmm(h, w_down).reshape(rows, D)
-        # combine: each slot's expert output (zero for a dropped slot) times
-        # bf16(gate * keep), summed over the K slots in fp32
-        out_pad = torch.cat([expert_out, expert_out.new_zeros(1, D)])
-        picked = out_pad.index_select(0, dest).view(N, K, D)
-        weight = (r.gate * r.keep).to(cfg.dtype).reshape(N, K, 1)
-        out = (picked.float() * weight.float()).sum(1).to(cfg.dtype)
+        expert_out = self.experts(x.reshape(N, D), dest, rows)
+        out = self.combine(expert_out, dest, r.gate, r.keep)
         # load balance: top-1 token share times mean router prob, per expert
         token_frac = F.one_hot(r.expert[..., 0], E).float().mean((0, 1))
         aux = E * (token_frac * r.probs.mean((0, 1))).sum()
         return out.reshape(B, S, D), aux
+
+    @staticmethod
+    def forward_ranks(layers, xs, axes) -> list:
+        """``forward`` on a mesh, for the ranks this process runs: rank i's
+        module ``layers[i]`` (its experts, E / ep of them, and its columns
+        of their mlp dim; the router whole) on its tokens ``xs[i]`` (B_l,
+        S_l, D), through the collectives of ``axes``
+        (``parallel.expert_parallel``). The JAX layer's semantics on the
+        global (B, S) token array: the groups, C and each slot's position
+        from the global choices, aux from the global statistics. Returns
+        each rank's ``(out, aux)``."""
+        cfg, lead = layers[0].cfg, layers[0]
+        E, K = cfg.n_experts, cfg.experts_per_token
+        D = xs[0].shape[-1]
+        chosen = [layer.choose(x) for layer, x in zip(layers, xs)]
+        with torch.no_grad():
+            experts = axes.gather_tokens([c[1] for c in chosen])
+        B, S = experts[0].shape[:2]
+        N = B * S
+        g = lead.group_size(N)
+        G, C = N // g, lead.capacity(g)
+        stats = axes.sum_tokens([torch.cat([
+            F.one_hot(expert[..., 0], E).float().sum((0, 1)),
+            probs.sum((0, 1))]) for probs, expert, _ in chosen])
+        x_in = axes.to_experts(xs)
+        partial, slots = [], []
+        for i, layer in enumerate(layers):
+            _, expert, gate = chosen[i]
+            with torch.no_grad():
+                pos = lead.slot_positions(experts[i].reshape(G, g, K))
+                pos = axes.local(i, pos.reshape(B, S, K))
+                token = torch.arange(N, device=pos.device).reshape(B, S)
+                group = axes.local(i, token)[..., None] // g
+            keep = pos < C
+            slot = expert * (G * C) + group * C + pos
+            n_here = layer.gate_proj.shape[0]
+            first = axes.expert_rank(i) * n_here * G * C
+            here = keep & (slot >= first) & (slot < first + n_here * G * C)
+            rows = n_here * G * C
+            local = torch.where(here, slot - first, rows).reshape(-1)
+            partial.append(layer.experts(x_in[i].reshape(-1, D), local, rows))
+            slots.append((torch.where(keep, slot, E * G * C).reshape(-1),
+                          gate, keep))
+        whole = axes.from_experts(partial)
+        out = []
+        for i, layer in enumerate(layers):
+            dest, gate, keep = slots[i]
+            y = layer.combine(whole[i].reshape(-1, D), dest, gate, keep)
+            frac, prob = (stats[i] / N).split(E)
+            out.append((y.reshape(xs[i].shape), E * (frac * prob).sum()))
+        return out
 
 
 class Block(nn.Module):
@@ -433,11 +551,14 @@ class Transformer(nn.Module):
     piece_shape``) makes each parameter at the shape of this rank's piece,
     uninitialised; the train step fills them and sets ``gather``,
     ``tensor`` and ``vocab_start`` (the first vocabulary row of this rank's
-    embedding and lm_head). With a ``tensor`` axis the logits are this
-    rank's columns of the vocabulary."""
+    embedding and lm_head), and ``seq``. With a ``tensor`` axis the logits
+    are this rank's columns of the vocabulary; with ``seq`` the tokens are
+    this rank's chunk of each row, at positions offset by the rank's
+    place on the seq axis."""
 
     gather = None
     tensor = None
+    seq = None
     vocab_start = 0
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
@@ -475,7 +596,9 @@ class Transformer(nn.Module):
                 return_aux: bool = False):
         cfg = self.cfg
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            S = tokens.shape[1]
+            start = 0 if self.seq is None else self.seq.rank * S
+            positions = torch.arange(start, start + S, device=tokens.device)
             positions = positions[None].expand(tokens.shape)
         embed = _param(self, "embed").to(cfg.dtype)
         x = (embed[tokens] if self.tensor is None

@@ -11,6 +11,12 @@ the whole weight's gradient back onto the pieces, summed over the ranks
 ``torch.utils.checkpoint`` region, so a block's whole weights are not kept
 from the forward to the backward: the recompute gathers them again, as
 the JAX model's remat materialises them again.
+
+The MoE router's kernel is split over ``expert`` too (its columns,
+``("embed", "expert")``), and every expert rank routes the same tokens with
+the whole of it: its gather also runs over the expert axis, whose backward
+keeps this rank's columns of the gradient (the expert ranks compute the
+same one), where the fsdp gather's sums over ranks that saw other tokens.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from ray_tpu_torch.collective.collective_group import TorchGroup
+from ray_tpu_torch.parallel.expert_parallel import gather_from_region
 
 
 class _GatherParam(torch.autograd.Function):
@@ -48,25 +55,36 @@ def gather_param(piece: torch.Tensor, dim: int, group: TorchGroup,
 
 class FsdpGather:
     """A module's ``gather``: its parameter ``name`` whole, gathered over
-    ``group`` along the dim that ``dims`` (name -> dim) gives; a parameter
-    without a dim there is not split and is returned as it is."""
+    ``group`` along the dim that ``dims`` (name -> dim) gives, then over
+    ``expert`` (a ``TorchGroup``) along the dim that ``expert_dims`` gives;
+    a parameter in neither is not split and is returned as it is."""
 
-    def __init__(self, dims: Mapping[str, int], group: TorchGroup,
-                 grad_dtype: Optional[torch.dtype] = None):
+    def __init__(self, dims: Mapping[str, int], group: Optional[TorchGroup],
+                 grad_dtype: Optional[torch.dtype] = None,
+                 expert_dims: Optional[Mapping[str, int]] = None,
+                 expert: Optional[TorchGroup] = None):
         self.dims, self.group, self.grad_dtype = dict(dims), group, grad_dtype
+        self.expert_dims, self.expert = dict(expert_dims or {}), expert
 
     def __call__(self, name: str, piece: torch.Tensor) -> torch.Tensor:
-        if name not in self.dims:
-            return piece
-        return gather_param(piece, self.dims[name], self.group,
-                            self.grad_dtype)
+        x = piece
+        if name in self.dims:
+            x = gather_param(x, self.dims[name], self.group, self.grad_dtype)
+        if name in self.expert_dims:
+            x = gather_from_region(x, self.expert, self.expert_dims[name])
+        return x
 
 
-def bind_fsdp(model: nn.Module, dims: Mapping[str, int], group: TorchGroup,
-              grad_dtype: Optional[torch.dtype] = None) -> None:
+def bind_fsdp(model: nn.Module, dims: Mapping[str, int],
+              group: Optional[TorchGroup],
+              grad_dtype: Optional[torch.dtype] = None,
+              expert_dims: Optional[Mapping[str, int]] = None,
+              expert: Optional[TorchGroup] = None) -> None:
     """Set ``gather`` on every module of ``model`` that holds parameters:
     ``dims`` maps a parameter's path in ``model`` to the dim that the fsdp
-    axis splits."""
+    axis splits, ``expert_dims`` to the dim that the expert axis splits
+    where the module uses it whole (the router)."""
+    expert_dims = expert_dims or {}
     for prefix, module in model.named_modules():
         own = [name for name, _ in module.named_parameters(recurse=False)]
         if not own:
@@ -74,7 +92,9 @@ def bind_fsdp(model: nn.Module, dims: Mapping[str, int], group: TorchGroup,
         base = f"{prefix}." if prefix else ""
         module.gather = FsdpGather(
             {name: dims[base + name] for name in own if base + name in dims},
-            group, grad_dtype)
+            group, grad_dtype,
+            {name: expert_dims[base + name] for name in own
+             if base + name in expert_dims}, expert)
 
 
 __all__ = ["FsdpGather", "bind_fsdp", "gather_param"]

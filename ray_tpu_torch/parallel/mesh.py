@@ -13,8 +13,9 @@ with flax's priority rule (``logical_to_mesh_axes``), and from there onto
 DTensor placements (``mesh_placements``).
 
 The train step holds each leaf as this rank's piece: ``param_layout`` gives,
-for each flax path, the dim that each of the ``fsdp`` and ``tensor`` axes
-splits (what the JAX bundle's ``param_shardings`` put on them);
+for each flax path, the dim that each of the ``fsdp``, ``tensor`` and
+``expert`` axes splits (what the JAX bundle's ``param_shardings`` put on
+them: the MoE stacks' experts and the router's columns on ``expert``);
 ``cut_leaf`` takes a rank's piece of a whole leaf and ``gather_leaf`` puts
 the pieces back together.
 """
@@ -156,9 +157,10 @@ def mesh_placements(mesh, names: Sequence[Optional[str]]) -> tuple:
                  for a in mesh.mesh_dim_names)
 
 
-# the axes whose pieces of a leaf a rank holds (ZeRO-3 and Megatron); data
-# and seq keep whole leaves, expert splits MoE stacks (not ported yet)
-SHARDED_AXES = ("fsdp", "tensor")
+# the axes whose pieces of a leaf a rank holds (ZeRO-3, Megatron, and the
+# MoE stacks' experts and the router's columns); data and seq keep whole
+# leaves
+SHARDED_AXES = ("fsdp", "tensor", "expert")
 # a leaf's pieces: mesh axis -> the dim it splits
 LeafDims = Dict[str, int]
 

@@ -1,5 +1,5 @@
 """The training step of the flagship LM in PyTorch, on one device or on a
-mesh of data x fsdp x tensor.
+mesh of data x fsdp x seq x tensor x expert.
 
 Counterpart of ``ray_tpu/parallel/train.py``:
 
@@ -18,24 +18,25 @@ Counterpart of ``ray_tpu/parallel/train.py``:
   (``layer_0.attn.q_proj.kernel``), so a JAX run's state converts by
   copying (``models/convert.py``).
 - On a mesh (``parallel/mesh.py``) every rank passes the same global
-  batch. ``data`` and ``fsdp`` split its rows, and the loss is the global
-  masked mean, each rank backpropagating its share. ``fsdp`` and
-  ``tensor`` split the parameters as the JAX bundle's shardings do: each
-  rank holds a piece of every leaf and the optimizer's moments on it
-  (ZeRO-3, ``parallel/fsdp.py``), and runs on its heads, MLP columns and
-  vocabulary rows (Megatron, ``parallel/tensor_parallel.py``). Gradients
-  are reduce-scattered over ``fsdp``, then all-reduced over ``data``, or
+  batch, laid out as the JAX bundle's ``P(("data", "fsdp"), "seq")``:
+  ``data`` and ``fsdp`` split its rows, ``seq`` cuts each row into
+  contiguous chunks, and the loss is the global masked mean, each rank
+  backpropagating its share. ``fsdp``, ``tensor`` and ``expert`` split the
+  parameters as the JAX bundle's shardings do: each rank holds a piece of
+  every leaf and the optimizer's moments on it (ZeRO-3,
+  ``parallel/fsdp.py``), runs on its heads, MLP columns and vocabulary rows
+  (Megatron, ``parallel/tensor_parallel.py``), attends over its seq group's
+  ring (``ops/ring_attention.py``) and runs its experts
+  (``parallel/expert_parallel.py``). Gradients are reduce-scattered over
+  ``fsdp``, all-reduced over ``seq``, then all-reduced over ``data``, or
   with ``shard_update=True`` reduce-scattered, each rank updating a part of
   its pieces (the moments live on that part only) before the parts are
   all-gathered. ``grad_dtype="bf16"`` rounds the gradients to bf16 before
-  the reductions over ``fsdp`` and ``data``, which then carry bf16.
+  the reductions over ``fsdp``, ``seq`` and ``data``, which then carry bf16.
 
-Not ported yet (``ROADMAP.md`` queue 1): the ``seq`` and ``expert`` axes
-above size 1; MoE configs on ``data`` x ``fsdp`` > 1 or ``tensor`` > 1 (the
-router's aux from all-reduced statistics, capacity groups that match the
-global grouping); the bucketed reduce of ``collective/bucketed.py``; the
-traced step with its ``compression`` wire; and the goodput and tracing
-hooks of ``step``.
+Not ported yet (``ROADMAP.md`` queue 1): the bucketed reduce of
+``collective/bucketed.py``; the traced step with its ``compression`` wire;
+and the goodput and tracing hooks of ``step``.
 """
 
 from __future__ import annotations
@@ -52,11 +53,12 @@ from ray_tpu_torch.collective.quant import resolve_codec
 from ray_tpu_torch.models.convert import check_params, iter_init_params
 from ray_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                               lm_loss, state_dict_shapes)
+from ray_tpu_torch.parallel.expert_parallel import GroupAxes, bind_experts
 from ray_tpu_torch.parallel.fsdp import bind_fsdp
-from ray_tpu_torch.parallel.mesh import (LeafDims, cut_leaf, gather_leaf,
-                                         mesh_axis_sizes, mesh_placements,
-                                         param_layout, param_logical_axes,
-                                         piece_shape)
+from ray_tpu_torch.parallel.mesh import (AXES, LeafDims, cut_leaf,
+                                         gather_leaf, mesh_axis_sizes,
+                                         mesh_placements, param_layout,
+                                         param_logical_axes, piece_shape)
 from ray_tpu_torch.parallel.tensor_parallel import (GroupAxis, bind_tensor,
                                                     vocab_parallel_lm_loss)
 from ray_tpu_torch.utils import DeviceLike, resolve_device
@@ -221,7 +223,8 @@ def sharded_clip_by_global_norm(max_norm: float,
 
 class TrainStepBundle:
     """The model, its optimizer and the step, on one device or on a mesh of
-    ``data`` x ``fsdp`` x ``tensor``.
+    ``data`` x ``fsdp`` x ``seq`` x ``tensor`` x ``expert``, for a dense or
+    a MoE config.
 
     ``init(seed)`` gives ``(params, opt_state)``; ``step(params, opt_state,
     batch)`` gives ``(params, opt_state, loss)``, updating both in place (the
@@ -239,26 +242,39 @@ class TrainStepBundle:
     rank):
 
     - ``data`` and ``fsdp`` split the batch's rows jointly (their size must
-      divide it); the loss is the global masked mean;
-    - ``fsdp`` and ``tensor`` split the parameters as the JAX bundle's
-      ``param_shardings`` do (``mesh.param_layout``): each rank holds its
-      piece of every leaf and the optimizer's moments on that piece alone
-      (ZeRO-3); modules gather their weights over ``fsdp`` where they use
-      them (``parallel/fsdp.py``) and run on this rank's heads, MLP columns
-      and vocabulary rows (``parallel/tensor_parallel.py``);
+      divide it), ``seq`` each row's tokens into contiguous chunks (its
+      size must divide the length); tokens are the same on the ``tensor``
+      and ``expert`` ranks; the loss is the global masked mean;
+    - ``fsdp``, ``tensor`` and ``expert`` split the parameters as the JAX
+      bundle's ``param_shardings`` do (``mesh.param_layout``): each rank
+      holds its piece of every leaf and the optimizer's moments on that
+      piece alone (ZeRO-3); modules gather their weights over ``fsdp``
+      where they use them (``parallel/fsdp.py``; the router over
+      ``expert`` too) and run on this rank's heads, MLP columns and
+      vocabulary rows (``parallel/tensor_parallel.py``) and on its experts
+      (``parallel/expert_parallel.py``); attention is the ring over the
+      seq group, with RoPE at each token's global position;
+    - a MoE layer routes the global token array: its groups, capacity and
+      slot positions are the single device's, and aux comes from global
+      statistics; each token rank adds aux / R (R = data x fsdp x seq) to
+      its share, so the loss and every gradient count it once;
     - gradients leave the backward reduce-scattered over ``fsdp`` and are
-      all-reduced over ``data``, or with ``shard_update=True`` (``data`` >
-      1) reduce-scattered over it: each rank then updates a part of its
+      all-reduced over ``seq`` (every leaf is replicated there) and over
+      ``data``, or with ``shard_update=True`` (``data`` > 1)
+      reduce-scattered over it: each rank then updates a part of its
       piece, along the piece's first dim that divides by the data axis's
       size (JAX's ``_update_sharding``), and the optimizer state is on that
-      layout (``init_sharded``, ``shard_opt_state``);
+      layout (``init_sharded``, ``shard_opt_state``). The tensor and expert
+      ranks compute the same gradient of a leaf they do not split, and
+      each its own piece's of one they split;
     - ``grad_dtype="bf16"`` rounds the gradients through bf16 before they
-      cross ``fsdp`` and ``data``, whose reductions carry bf16; moments and
-      parameters stay fp32.
+      cross ``fsdp``, ``seq`` and ``data``, whose reductions carry bf16;
+      moments and parameters stay fp32.
 
-    ``seq`` and ``expert`` above 1, and a MoE config on ``data`` x ``fsdp``
-    > 1 or ``tensor`` > 1, raise: later slices. ``compression`` has no step
-    here yet and raises."""
+    What does not divide raises ``ValueError``: rows by data x fsdp, the
+    length by seq, a split dim by its axis (``param_layout``: heads and KV
+    heads by tensor, experts by expert). ``compression`` has no step here
+    yet and raises."""
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  optimizer: Optional[AdamW] = None,
@@ -289,15 +305,17 @@ class TrainStepBundle:
                 raise ValueError(f"a {mesh.device_type} mesh runs on "
                                  f"{mesh.device_type}, not {self.device}")
             self.sizes = mesh_axis_sizes(mesh)
-            _refuse(cfg, self.sizes)
             self.coords = dict(zip(mesh.mesh_dim_names,
                                    mesh.get_coordinate()))
             self.groups = {axis: TorchGroup.from_process_group(
                 axis, mesh.get_group(axis), self.device)
-                for axis in ("data", "fsdp", "tensor") if axis in self.sizes}
+                for axis in AXES if axis in self.sizes}
             if "tensor" in self.groups:
                 self.tensor = GroupAxis(self.groups["tensor"])
         self.dp_size = self.sizes.get("data", 1)
+        # the ranks that hold distinct tokens
+        self.token_ranks = math.prod(self.sizes.get(a, 1)
+                                     for a in ("data", "fsdp", "seq"))
         self.shard_update = bool(shard_update) and self.dp_size > 1
         spec_fn = self._layout if self.shard_update else None
         if optimizer is None:
@@ -334,13 +352,27 @@ class TrainStepBundle:
                 for k, names in param_logical_axes(self.cfg).items()}
 
     def _bind_mesh(self) -> None:
-        """The model's collectives: the fsdp gathers and the tensor axis."""
-        if "fsdp" in self.groups:
+        """The model's collectives: the fsdp gathers (and the router's over
+        expert), the tensor axis, the seq group's ring and the MoE layers'
+        axes (``_moe_axes``)."""
+        groups = self.groups
+        if "fsdp" in groups or "expert" in groups:
             bind_fsdp(self.model, {k: d["fsdp"] for k, d in self._dims.items()
                                    if "fsdp" in d},
-                      self.groups["fsdp"], self._wire_dtype())
+                      groups.get("fsdp"), self._wire_dtype(),
+                      {k: d["expert"] for k, d in self._dims.items()
+                       if "expert" in d and k.endswith(".router.kernel")},
+                      groups.get("expert"))
         if self.tensor is not None:
             bind_tensor(self.model, self.tensor, self.coords["tensor"])
+        for module in self.model.modules():
+            if hasattr(type(module), "seq"):
+                module.seq = groups.get("seq")
+        self._moe_axes = {split: GroupAxes(
+            [groups[a] for a in ("fsdp", "data") if split and a in groups],
+            groups.get("seq"), self.tensor, groups.get("expert"))
+            for split in (True, False)}
+        bind_experts(self.model, self._moe_axes[True])
 
     def _wire_dtype(self) -> Optional[torch.dtype]:
         return torch.bfloat16 if self.grad_dtype == "bf16" else None
@@ -398,9 +430,14 @@ class TrainStepBundle:
         (the model's own by default); every rank of the mesh calls it and
         gets the same leaves."""
         params = self._params if params is None else self._bind(params)
+        return self.gather_leaves(params)
+
+    def gather_leaves(self, pieces: Mapping[str, torch.Tensor]) -> Params:
+        """Whole leaves from every rank's ``pieces`` (of the parameters'
+        layout: a gradient, a moment)."""
         with torch.no_grad():
             return {k: gather_leaf(p.detach(), self._dims[k], self.groups)
-                    for k, p in params.items()}
+                    for k, p in pieces.items()}
 
     def _part(self, x: torch.Tensor, layout: Layout) -> torch.Tensor:
         """This rank's part of a piece along the data axis."""
@@ -476,33 +513,62 @@ class TrainStepBundle:
         """``lm_loss`` (divided by ``count`` where given) plus
         ``moe_aux_coef`` times the sum of the MoE layers' load-balancing
         losses (none for a dense config), as the JAX bundle's
-        ``loss_fn``."""
+        ``loss_fn``; on a mesh, this rank's share: aux / token_ranks."""
         logits, aux = self.model(batch["tokens"], return_aux=True)
         loss = self._lm_loss(logits, batch, count)
         if aux:
-            loss = loss + self.cfg.moe_aux_coef * sum(aux.values())
+            loss = loss + self.cfg.moe_aux_coef * sum(aux.values()) \
+                / self.token_ranks
         return loss
 
     def _batch_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the ranks that split the batch (fsdp, then
-        data)."""
-        for axis in ("fsdp", "data"):
+        """``x`` summed over the ranks that split the batch (seq, fsdp,
+        then data)."""
+        for axis in ("seq", "fsdp", "data"):
             if axis in self.groups:
                 x = self.groups[axis].allreduce(x)
         return x
+
+    def _local(self, batch: Mapping[str, torch.Tensor], split_rows: bool
+               ) -> Dict[str, torch.Tensor]:
+        """This rank's part of a global batch: its rows (over data x fsdp,
+        where ``split_rows``) and its chunk of each row (over seq); the MoE
+        layers' token axes set to match."""
+        rows, length = batch["tokens"].shape
+        fsdp, seq = self.sizes.get("fsdp", 1), self.sizes.get("seq", 1)
+        ranks = self.dp_size * fsdp if split_rows else 1
+        if rows % ranks:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"the data and fsdp axes' {ranks} ranks")
+        if length % seq:
+            raise ValueError(f"rows of {length} tokens do not split over "
+                             f"the seq axis's {seq} ranks")
+        n, m = rows // ranks, length // seq
+        i = (self.coords.get("data", 0) * fsdp + self.coords.get("fsdp", 0)
+             if split_rows else 0)
+        j = self.coords.get("seq", 0)
+        bind_experts(self.model, self._moe_axes[split_rows])
+        return {k: x[i * n:(i + 1) * n, j * m:(j + 1) * m]
+                for k, x in batch.items()}
+
+    def _count(self, local: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The number of this rank's tokens that count (its mask's sum)."""
+        mask = local.get("mask")
+        return (mask.float().sum() if mask is not None else torch.tensor(
+            float(local["targets"].numel()), device=self.device))
 
     def _global_norm(self, keys: Sequence[str],
                      grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """The global norm of the gradients that the ranks hold (pieces, or
         their parts on the data axis), each distinct piece or part counted
         once, in a pinned association: every rank's sums of squares are
-        gathered over tensor, then fsdp, then data, a leaf's summed in rank
-        order over the axes that split it (taken from the axis's first rank
-        over the others, which hold the same values); the leaves' sums fold
-        in tree order. With a pinned clip (``clip_spec_fn``) and no sharded
-        update, each piece counts as the parts the sharded update would cut
-        it into, so that both steps sum the same values in the same
-        order."""
+        gathered over tensor, expert, fsdp, then data, a leaf's summed in
+        rank order over the axes that split it (taken from the axis's first
+        rank over the others, which hold the same values); the leaves' sums
+        fold in tree order. With a pinned clip (``clip_spec_fn``) and no
+        sharded update, each piece counts as the parts the sharded update
+        would cut it into, so that both steps sum the same values in the
+        same order."""
         spec_fn = None if self.shard_update else self.optimizer.clip_spec_fn
         owners, sums = [], []
         for k, g in zip(keys, grads):
@@ -511,7 +577,7 @@ class TrainStepBundle:
             owners += [k] * len(parts)
             sums += parts
         vec = torch.stack(sums)
-        for axis in ("tensor", "fsdp", "data"):
+        for axis in ("tensor", "expert", "fsdp", "data"):
             if axis not in self.groups or (axis == "data"
                                            and not self.shard_update):
                 continue
@@ -537,34 +603,8 @@ class TrainStepBundle:
             grads = torch.autograd.grad(loss, list(params.values()))
             self.optimizer.update(params, grads, opt_state)
             return params, opt_state, loss.detach()
-        rows = batch["tokens"].shape[0]
-        fsdp = self.sizes.get("fsdp", 1)
-        ranks = self.dp_size * fsdp
-        if rows % ranks:
-            raise ValueError(f"a batch of {rows} rows does not split over "
-                             f"the data and fsdp axes' {ranks} ranks")
-        n = rows // ranks
-        i = self.coords.get("data", 0) * fsdp + self.coords.get("fsdp", 0)
-        local = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
-        # the global masked mean: each rank's masked sum over the mask's
-        # count on all ranks, so that the summed gradients are the global
-        # gradient (a mean of the ranks' means would weigh uneven masks
-        # wrongly)
-        mask = local.get("mask")
-        count = (mask.float().sum() if mask is not None else torch.tensor(
-            float(local["targets"].numel()), device=self.device))
-        share = self._loss(local, self._batch_sum(count))
+        loss, grads = self._mesh_backward(params, batch)
         keys = list(params)
-        grads = list(torch.autograd.grad(share, list(params.values())))
-        loss = self._batch_sum(share.detach())
-        wire = self._wire_dtype()
-        if wire is not None:
-            grads = [g.to(wire) for g in grads]
-        if "fsdp" in self.groups:
-            # the gathers' backward summed the split leaves over fsdp
-            grads = [g if "fsdp" in self._dims[k]
-                     else self.groups["fsdp"].allreduce(g)
-                     for k, g in zip(keys, grads)]
         lay = self._layouts
         parts = params
         if "data" not in self.groups:
@@ -586,15 +626,65 @@ class TrainStepBundle:
                         p.copy_(self._gather(parts[k], lay[k]))
         return params, opt_state, loss
 
+    def _mesh_backward(self, params: Params, batch):
+        """The global loss and this rank's gradients (pieces, in the wire
+        dtype) summed over fsdp and seq, not yet over data."""
+        local = self._local(batch, split_rows=True)
+        # the global masked mean: each rank's masked sum over the mask's
+        # count on all ranks, so that the summed gradients are the global
+        # gradient (a mean of the ranks' means would weigh uneven masks
+        # wrongly)
+        share = self._loss(local, self._batch_sum(self._count(local)))
+        keys = list(params)
+        grads = list(torch.autograd.grad(share, list(params.values())))
+        loss = self._batch_sum(share.detach())
+        wire = self._wire_dtype()
+        if wire is not None:
+            grads = [g.to(wire) for g in grads]
+        if "fsdp" in self.groups:
+            # the gathers' backward summed the split leaves over fsdp
+            grads = [g if "fsdp" in self._dims[k]
+                     else self.groups["fsdp"].allreduce(g)
+                     for k, g in zip(keys, grads)]
+        if "seq" in self.groups:
+            grads = [self.groups["seq"].allreduce(g) for g in grads]
+        return loss, grads
+
+    def gradients(self, params: Mapping[str, torch.Tensor],
+                  batch: Mapping[str, torch.Tensor]):
+        """``(loss, grads)``: the step's loss and the gradient of each leaf
+        before the clip (on a mesh, this rank's piece of it, summed over
+        every axis), keyed by flax path; the parameters are not updated."""
+        params = self._bind(params)
+        if self.mesh is None:
+            loss = self._loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        else:
+            loss, grads = self._mesh_backward(params, batch)
+            if "data" in self.groups:
+                grads = [self.groups["data"].allreduce(g) for g in grads]
+        return loss.detach(), {k: g.float() for k, g in zip(params, grads)}
+
     @torch.no_grad()
     def eval_step(self, params: Mapping[str, torch.Tensor],
                   batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """``lm_loss`` of ``batch`` alone: the MoE aux is left out, as in the
         JAX bundle's ``eval_step``. On a mesh every rank calls it (the
         weights are gathered and the tensor axis reduces), each on its own
-        batch; the ranks of one tensor group pass the same one."""
+        batch, whose rows it keeps whole; the ranks of one seq group pass
+        the same one (each takes its chunk of every row, as ``step`` does,
+        and the loss is their global masked mean), and so do the ranks of
+        one tensor or expert group."""
         self._bind(params)
-        return self._lm_loss(self.model(batch["tokens"]), batch)
+        if self.mesh is None:
+            return self._lm_loss(self.model(batch["tokens"]), batch)
+        local = self._local(batch, split_rows=False)
+        count = self._count(local)
+        if "seq" in self.groups:
+            count = self.groups["seq"].allreduce(count)
+        share = self._lm_loss(self.model(local["tokens"]), local, count)
+        return (share if "seq" not in self.groups
+                else self.groups["seq"].allreduce(share))
 
     def make_batch(self, rng: np.random.Generator, batch_size: int,
                    seq_len: int) -> Dict[str, torch.Tensor]:
@@ -608,20 +698,3 @@ class TrainStepBundle:
                  "mask": torch.ones(batch_size, seq_len, dtype=torch.float32)}
         return {k: v.to(self.device) for k, v in batch.items()}
 
-
-def _refuse(cfg: TransformerConfig, sizes: Mapping[str, int]) -> None:
-    """Raise for what the port's step does not run yet."""
-    wider = {a: n for a, n in sizes.items() if a in ("seq", "expert")
-             and n > 1}
-    if wider:
-        raise NotImplementedError(
-            f"mesh axes {wider}: the seq axis (ring or Ulysses attention "
-            "inside the model) and the expert axis come with later slices "
-            "(ROADMAP.md queue 1)")
-    if cfg.n_experts and (sizes.get("data", 1) * sizes.get("fsdp", 1) > 1
-                          or sizes.get("tensor", 1) > 1):
-        raise NotImplementedError(
-            "a MoE config on data x fsdp > 1 or tensor > 1 needs the "
-            "router's aux from all-reduced statistics and capacity groups "
-            "that match the global grouping: the expert-parallel slice "
-            "(ROADMAP.md queue 1)")

@@ -40,39 +40,54 @@ def run_world(module_file: str, fn: str, world: int, tmp_path,
     ``store`` is a path for a ``file://`` rendezvous. Returns each rank's
     return value (saved with ``torch.save``), in rank order; raises with
     the ranks' stderr if any failed or ``timeout`` passed."""
-    store = str(tmp_path / "store")
-    outs = [str(tmp_path / f"rank{r}.pt") for r in range(world)]
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = []
-    for rank in range(world):
-        code = (
-            "import importlib.util, sys, torch\n"
-            "torch.set_num_threads(1)\n"
-            f"sys.path[:0] = [{REPO!r}, {os.path.dirname(module_file)!r}]\n"
-            "spec = importlib.util.spec_from_file_location('_rank', "
-            f"{module_file!r})\n"
-            "mod = importlib.util.module_from_spec(spec)\n"
-            "spec.loader.exec_module(mod)\n"
-            f"out = mod.{fn}({rank}, {world}, {store!r}, **{kwargs!r})\n"
-            f"torch.save(out, {outs[rank]!r})\n")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", code], env=env, cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    try:
-        for rank, proc in enumerate(procs):
-            _, err = proc.communicate(timeout=timeout)
-            if proc.returncode != 0:
-                errors.append(f"rank {rank} exited {proc.returncode}:\n"
-                              f"{err[-3000:]}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    if errors:
-        raise AssertionError("\n".join(errors))
-    return [torch.load(path) for path in outs]
+    return RankWorld(module_file, fn, world, tmp_path, **kwargs).wait(
+        timeout)
+
+
+class RankWorld:
+    """``run_world``'s ranks, started and not waited for: they run while the
+    caller does other work; ``wait(timeout)`` gives what ``run_world``
+    gives. (Their output is read only then, so a rank that writes more
+    than a pipe holds waits until it is.)"""
+
+    def __init__(self, module_file: str, fn: str, world: int, tmp_path,
+                 **kwargs):
+        store = str(tmp_path / "store")
+        self.outs = [str(tmp_path / f"rank{r}.pt") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=REPO)
+        self.procs = []
+        for rank in range(world):
+            code = (
+                "import importlib.util, sys, torch\n"
+                "torch.set_num_threads(1)\n"
+                f"sys.path[:0] = [{REPO!r}, "
+                f"{os.path.dirname(module_file)!r}]\n"
+                "spec = importlib.util.spec_from_file_location('_rank', "
+                f"{module_file!r})\n"
+                "mod = importlib.util.module_from_spec(spec)\n"
+                "spec.loader.exec_module(mod)\n"
+                f"out = mod.{fn}({rank}, {world}, {store!r}, **{kwargs!r})\n"
+                f"torch.save(out, {self.outs[rank]!r})\n")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], env=env, cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def wait(self, timeout: float = 120.0):
+        errors = []
+        try:
+            for rank, proc in enumerate(self.procs):
+                _, err = proc.communicate(timeout=timeout)
+                if proc.returncode != 0:
+                    errors.append(f"rank {rank} exited {proc.returncode}:\n"
+                                  f"{err[-3000:]}")
+        finally:
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        if errors:
+            raise AssertionError("\n".join(errors))
+        return [torch.load(path) for path in self.outs]
 
 
 def _np_quant():

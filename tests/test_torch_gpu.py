@@ -63,12 +63,15 @@ def cuda_device():
 # (77, 1000, 1), one tile (256 = 2 tiles), both head dims, GQA and MHA, and
 # q, k, v as non-contiguous slices of one fused (B, S, H + 2 KVH, D) tensor
 # and a tensor rank's heads: 2 query and 1 KV head (the 1b at tensor 8 at
-# D=128; the block of test_block_on_two_tensor_ranks_on_the_card at D=64)
+# D=128; the block of test_block_on_two_tensor_ranks_on_the_card at D=64);
+# and a seq rank's ring blocks of the 1b at 4 x 2048 over 2 and 4 ranks
+# (4 x 1024 and 4 x 512, K/V repeated to 16 heads)
 FLASH_CASES = [(2, 77, 4, 2, 64, False), (2, 256, 4, 4, 128, False),
                (1, 1000, 16, 8, 128, False), (3, 1, 4, 1, 64, False),
                (2, 1000, 4, 4, 64, False), (2, 77, 8, 2, 128, False),
                (2, 1000, 16, 8, 128, True), (1, 77, 4, 4, 64, True),
-               (2, 256, 2, 1, 64, False), (1, 1000, 2, 1, 128, False)]
+               (2, 256, 2, 1, 64, False), (1, 1000, 2, 1, 128, False),
+               (4, 1024, 16, 16, 128, False), (4, 512, 16, 16, 128, False)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
@@ -168,10 +171,12 @@ def test_engine_prefill_runs_the_kernel(cuda_device):
 
 
 # (B, S, H, KVH, D): the 1b head dims (D=128, GQA) and 350m's (D=64, MHA),
-# ragged S, one row, and a tensor rank's 2 query and 1 KV head (FLASH_CASES)
+# ragged S, one row, a tensor rank's 2 query and 1 KV head and a seq rank's
+# ring blocks (FLASH_CASES)
 BWD_CASES = [(2, 77, 4, 2, 64), (1, 256, 4, 4, 128), (1, 1000, 16, 8, 128),
              (3, 1, 4, 1, 64), (2, 200, 16, 16, 64), (2, 256, 2, 1, 64),
-             (1, 1000, 2, 1, 128)]
+             (1, 1000, 2, 1, 128), (4, 1024, 16, 16, 128),
+             (4, 512, 16, 16, 128)]
 
 
 def _bwd_inputs(device, dtype, case, seed=1):
@@ -654,3 +659,41 @@ def test_block_on_two_tensor_ranks_on_the_card(cuda_device):
     for k, w in want.items():
         err = ((got[k].float() - w.float()).norm() / w.float().norm()).item()
         assert err <= tol, f"{k} parts by {err:.3e} > {tol:.3e}"
+
+
+def test_moe_layer_on_virtual_ranks_on_the_card(cuda_device, monkeypatch):
+    """One fp32 ``MoEMLP`` (moe-tiny width, 4 x 32 tokens in two groups of
+    64 at a capacity that drops slots) on 4 virtual ranks on the card:
+    tokens over 2 row ranks, experts over 2 expert ranks
+    (``expert_parallel.VirtualRanks``), against the whole layer on the
+    card: each rank's output and input gradient, aux, and each weight's
+    gradient summed over the token ranks, at 1e-5 (fp32 sums in other
+    orders; TF32 off, so no routing choice flips)."""
+    from ray_tpu_torch.parallel.expert_parallel import VirtualRanks
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(MoEMLP, "GROUP_SIZE", 64)
+    cfg = dataclasses.replace(CONFIGS["moe-tiny"], dtype=torch.float32,
+                              capacity_factor=1.0)
+    layer = MoEMLP(cfg, device=cuda_device, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, dout = (torch.randn(4, 32, cfg.d_model, generator=gen, device="cuda")
+               for _ in range(2))
+    xw = x.clone().requires_grad_()
+    out, aux = layer(xw)
+    names = [k for k, _ in layer.named_parameters()]
+    want = dict(zip(["x"] + names, torch.autograd.grad(
+        (out * dout).sum() + aux, [xw] + list(layer.parameters()))))
+    axes = VirtualRanks(rows=2, experts=2)
+    got = axes.layer_grads(layer, x, dout)
+    for i in range(axes.size):
+        torch.testing.assert_close(got["out"][i], axes.local(i, out),
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got["aux"][i], aux, rtol=1e-5, atol=0)
+        torch.testing.assert_close(got["dx"][i], axes.local(i, want["x"]),
+                                   rtol=1e-5, atol=1e-6)
+    for (_, e, name), g in got["dw"].items():
+        w = want[name] if name == "router.kernel" else \
+            want[name].chunk(2, 0)[e]
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-6 * w.abs().max().item())

@@ -115,14 +115,16 @@ def _run(bundle, params, batch, sharded=False):
 def _refusals(world: int) -> dict:
     """What the step refuses on a world of 4, by message."""
     errors = {}
+    seq = TrainStepBundle(_cfg(), mesh=_mesh({"seq": world}))
+    batch = seq.make_batch(np.random.default_rng(0), BATCH, SEQ + 2)
+    segments = torch.zeros(BATCH, SEQ // world, dtype=torch.long)
     cases = (
-        ("seq", lambda: TrainStepBundle(_cfg(), mesh=_mesh({"seq": world}))),
-        ("expert", lambda: TrainStepBundle(_cfg(),
-                                           mesh=_mesh({"expert": world}))),
-        ("moe_fsdp", lambda: TrainStepBundle(_cfg("moe-tiny"),
-                                             mesh=_mesh({"fsdp": world}))),
-        ("moe_tensor", lambda: TrainStepBundle(
-            _cfg("moe-tiny"), mesh=_mesh({"tensor": world}))),
+        ("seq", lambda: seq.step(seq.init(0)[0], seq.init(0)[1], batch)),
+        ("segments", lambda: seq.model(batch["tokens"][:, :SEQ // world],
+                                       segment_ids=segments)),
+        ("experts", lambda: TrainStepBundle(
+            dataclasses.replace(_cfg("moe-tiny"), n_experts=6),
+            mesh=_mesh({"expert": world}))),
         ("kv_heads", lambda: TrainStepBundle(_cfg(),
                                              mesh=_mesh({"tensor": world}))))
     for what, call in cases:
@@ -432,18 +434,25 @@ def test_ranks_take_the_batch_by_data_and_fsdp(runs):
 
 
 def test_refusals(runs):
-    """seq and expert axes above 1 and a MoE config on a sharded batch or a
-    tensor axis raise, naming the slice to come; a KV-head count that the
-    tensor axis does not divide raises ValueError naming the leaf and the
-    axis (tiny's 2 KV heads at tensor 4, and the 1b's 8 at 16)."""
+    """What the step cannot split raises ValueError, naming why: rows whose
+    length the seq axis does not divide (34 tokens over 4 ranks);
+    ``segment_ids`` on a seq axis of 4 ranks (the ring takes none);
+    experts that the expert axis does not divide (6 over 4), naming the
+    MoE leaf and its expert dim; a KV-head count that the tensor axis does
+    not divide, naming the leaf and the axis (tiny's 2 KV heads at tensor
+    4, and the 1b's 8 at 16)."""
     _, ranks = runs["fsdp4"]
     for r in ranks:
         errors = r["errors"]
-        assert errors["seq"].startswith("NotImplementedError")
-        assert "seq axis" in errors["seq"] and "ROADMAP" in errors["seq"]
-        assert "expert axis" in errors["expert"]
-        for what in ("moe_fsdp", "moe_tensor"):
-            assert "expert-parallel" in errors[what]
+        assert errors["seq"].startswith("ValueError")
+        assert "34 tokens" in errors["seq"]
+        assert "seq axis's 4" in errors["seq"]
+        assert errors["segments"].startswith("ValueError")
+        assert "ring attention takes no segments" in errors["segments"]
+        assert errors["experts"].startswith("ValueError")
+        assert "layer_0.moe." in errors["experts"]
+        assert "(expert, 6)" in errors["experts"]
+        assert "expert axis's 4" in errors["experts"]
         assert errors["kv_heads"].startswith("ValueError")
         assert "k_proj.kernel" in errors["kv_heads"]
         assert "tensor" in errors["kv_heads"]

@@ -184,9 +184,9 @@ def train_rank(rank: int, world: int, store: str, params_path: str) -> dict:
     errors = {}
     for what, call, exc in (
             ("moe", lambda: TrainStepBundle(
-                dataclasses.replace(CONFIGS["moe-tiny"],
-                                    dtype=torch.float32), mesh=mesh),
-             NotImplementedError),
+                dataclasses.replace(CONFIGS["moe-tiny"], n_experts=3,
+                                    dtype=torch.float32),
+                mesh=_mesh({"expert": world}, world)), ValueError),
             ("rows", lambda: dp.step(init, dp.init(0)[1], dp.make_batch(
                 np.random.default_rng(0), 3, SEQ)), ValueError),
             ("mesh_size", lambda: _mesh({"data": 2 * world}, world),
@@ -195,9 +195,11 @@ def train_rank(rank: int, world: int, store: str, params_path: str) -> dict:
             call()
         except exc as e:
             errors[what] = str(e)
+    seq = TrainStepBundle(cfg, mesh=_mesh({"seq": world}, world))
     try:
-        TrainStepBundle(cfg, mesh=_mesh({"seq": world}, world))
-    except NotImplementedError as e:
+        seq.step(init, seq.init(0)[1], seq.make_batch(
+            np.random.default_rng(0), BATCH, SEQ + 1))
+    except ValueError as e:
         errors["seq"] = str(e)
     out["errors"] = errors
     for flavour in ("dp", "sharded", "pinned", "bf16", "uneven"):
@@ -380,13 +382,16 @@ def test_uneven_masks_take_the_global_mean(runs):
 
 
 def test_refusals(runs):
-    """MoE on data > 1, a seq axis, a batch the data axis does not split
-    and a mesh that does not match the world raise, naming why."""
+    """Experts the expert axis does not split, rows the seq axis does not
+    split, a batch the data axis does not split and a mesh that does not
+    match the world raise, naming why."""
     _, ranks = runs
     for r in ranks:
         errors = r["errors"]
-        assert "expert-parallel" in errors["moe"]
-        assert "seq" in errors["seq"]
+        assert "layer_0.moe." in errors["moe"]
+        assert "(expert, 3)" in errors["moe"]
+        assert "expert axis's 2" in errors["moe"]
+        assert "seq axis's 2" in errors["seq"]
         assert "does not split" in errors["rows"]
         assert "need" in errors["mesh_size"]
         # an (embed, mlp) kernel: embed on fsdp, mlp on tensor
