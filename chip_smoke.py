@@ -99,7 +99,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ranks and 2 and 4 token ranks (``MoEMLP.forward_ranks`` over
    ``expert_parallel.VirtualRanks``) against the whole layer: the same
    routing, and out, aux and gradients within fp32's sums; ``seq parallel
-   metrics:`` and ``expert parallel metrics:`` lines.
+   metrics:`` and ``expert parallel metrics:`` lines;
+13. traced training: the 1b at full width and depth on one batch of 4 x
+   2048, untraced then traced (``util.tracing`` on: ``train.step`` >
+   ``train.fwd_bwd``, ``train.optimizer``) from the same parameters, the
+   traced run's launches counted (the ``traced_training`` path): losses
+   equal to a stated rounding, the span tree, each phase's span beside a
+   profiled traced step's device ms, the ``ray_tpu.train.*`` histograms and
+   the goodput ledger's shares; the explicit bucketed tier over NCCL at
+   world 1 on the 1b's gradients (``AsyncBucketReducer`` with each codec
+   against its rounding, with wire bytes and rates;
+   ``ShardedBucketOptimizer`` against ``make_optimizer``'s AdamW); and the
+   traced sharded step's per-bucket math on 2 and 4 virtual data ranks in
+   one process (the ranks' backwards on their rows, every bucket's
+   reduce-scatters as list operations on fp32, the bf16 wire, int8 and
+   fp8, the sharded update) against the single-device step within derived
+   bounds; a ``traced training metrics:`` line.
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -3008,6 +3023,472 @@ def phase_expert_parallel(card: str) -> dict:
     return report
 
 
+# The traced training phase. Tolerances, each derived where it is used:
+# traced against untraced on one device, the same kernels in the same
+# order: they part only where flash_bwd adds dQ's key-tile shares by TMA
+# reduce-add in the order the CTAs arrive (fp32, 2^-24 of a partial sum an
+# addition), which moves a gradient by about 1e-6 of its size. Adam's early
+# steps move a parameter by about lr whatever its gradient's size, so where
+# a gradient is near 0 that noise can flip its step's sign (2 lr apart);
+# the loss moves by those parameters' |g| x 2 lr, small because their |g|
+# is: over MESH_STEPS steps, well under 1e-4 of the loss. The first step's
+# loss precedes any update: equal.
+TRACED_LOSS_RTOL = 1e-4
+# ShardedBucketOptimizer at world 1 (AdamW without its clip, the global clip
+# folded from per-leaf sums) against make_optimizer's AdamW on the same
+# parameters and gradients: one Adam step from zero moments is
+# lr (c g / (|c g| + eps) + wd p) on both sides, with clip factors c that
+# part only by the squares' summation order (within 2^-20 of each other),
+# which moves the step by far less than 2^-10 of lr; the parameter's
+# subtraction rounds within 2^-23 of it.
+SBO_TOL = (2.0 ** -10, 2.0 ** -22)  # (x lr, x |p|)
+SBO_LR = 1e-4  # the phase's learning rate, from its first step (warmup 0)
+TRACED_RANKS = (2, 4)  # virtual data ranks of the sharded tier's math
+TRACED_WIRES = {"fp32": {}, "bf16_wire": {"grad_dtype": "bf16"},
+                "int8": {"codec": "int8"}, "fp8": {"codec": "fp8"}}
+
+
+class VirtualAxis:
+    """``n`` ranks of a data axis in one process, for the sharded tier's
+    per-bucket math: ``rank(r)`` is rank r's group, whose ``allreduce``,
+    ``reducescatter`` and ``alltoall`` with ``async_op=True`` post its
+    tensor and return a wait; a wait gives the collective's result for its
+    rank once every rank has posted that call (so every rank starts its
+    calls before any waits), summing in rank order. ``reset()`` drops what
+    was posted."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.posts = [[] for _ in range(n)]
+
+    def reset(self) -> None:
+        self.posts = [[] for _ in range(self.n)]
+
+    def rank(self, r: int):
+        axis = self
+
+        class Rank:
+            world_size = axis.n
+
+            def _post(self, x, combine):
+                seq = len(axis.posts[r])
+                axis.posts[r].append(x)
+                return lambda: combine([axis.posts[q][seq]
+                                        for q in range(axis.n)])
+
+            def allreduce(self, x, async_op=False):
+                wait = self._post(x, _fold_ranks)
+                return wait if async_op else wait()
+
+            def reducescatter(self, x, async_op=False):
+                wait = self._post(x, lambda xs: _fold_ranks(
+                    [t.chunk(axis.n, 0)[r] for t in xs]))
+                return wait if async_op else wait()
+
+            def alltoall(self, x, async_op=False):
+                import torch
+
+                wait = self._post(x, lambda xs: torch.cat(
+                    [t.chunk(axis.n, 0)[r] for t in xs]))
+                return wait if async_op else wait()
+
+        return Rank()
+
+
+def _fold_ranks(xs):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return acc
+
+
+def phase_traced_training(card: str):
+    """The traced step and the bucketed collectives at the 1b's full width
+    and depth, on one card:
+
+    - the 1b at TRAIN_BATCH x TRAIN_SEQ for MESH_STEPS untraced steps, then
+      MESH_STEPS traced steps (``util.tracing`` on: the phase-split step
+      under ``train.step`` > ``train.fwd_bwd``, ``train.optimizer``) from
+      the same parameters, their launches counted (the ``traced_training``
+      path); losses within TRACED_LOSS_RTOL (the first equal), the span
+      tree, each phase's span beside a profiled traced step's device ms,
+      the ``ray_tpu.train.*`` histograms and the goodput ledger's shares;
+    - the explicit tier over NCCL at world 1 on the 1b's gradients
+      (``explicit_tier``);
+    - the sharded tier's per-bucket math on TRACED_RANKS virtual data ranks
+      (``virtual_sharded``).
+
+    Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+    from ray_tpu_torch.util import goodput, metrics, tracing
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    t0 = time.perf_counter()
+    # warmup 0: the first step already moves the parameters
+    bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
+        learning_rate=SBO_LR, warmup_steps=0))
+    params, opt_state = bundle.init(seed=0)
+    batch = bundle.make_batch(np.random.default_rng(0), TRAIN_BATCH,
+                              TRAIN_SEQ)
+    init = {k: p.detach().clone() for k, p in params.items()}
+    _, ref_grads = bundle.gradients(params, batch)
+    tracing.disable()
+    untraced, untraced_s, after_one = [], [], None
+    for step in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = bundle.step(params, opt_state, batch)[2]
+        torch.cuda.synchronize()
+        untraced_s.append(time.perf_counter() - t)
+        untraced.append(loss.item())
+        if step == 0:
+            after_one = {k: p.detach().clone() for k, p in params.items()}
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(init[k])
+    opt_state = bundle.optimizer.init(params)
+    tracing.enable()
+    tracing.clear()
+    goodput.reset()
+    goodput.set_job("traced training")
+    try:
+        launches, run = run_steps(
+            lambda: {"loss": bundle.step(params, opt_state, batch)[2]},
+            MESH_STEPS, {
+                "flash_attention_fwd": (2 if cfg.remat else 1)
+                * cfg.n_layers,
+                "attention_delta": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+            "traced training")
+        ledger = goodput.snapshot()
+        spans = tracing.get_spans()
+        parts = profile_step(bundle, params, opt_state, batch,
+                             "traced training")
+    finally:
+        tracing.disable()
+    traced = run["loss"]
+    report = {"card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "losses_untraced": untraced,
+              "losses_traced": traced,
+              "step_s_untraced": untraced_s, "step_s_traced": run["step_s"],
+              "bundle_up_s": time.perf_counter() - t0}
+    if traced[0] != untraced[0] or not all(
+            abs(a - b) <= TRACED_LOSS_RTOL * abs(b)
+            for a, b in zip(traced, untraced)):
+        raise AssertionError(f"traced losses {traced} part from the "
+                             f"untraced {untraced}")
+    report["spans"] = check_step_spans(spans, MESH_STEPS)
+    report["device_ms_by_part"] = {k: parts[k] for k in (
+        "total", "optimizer", "host_ms_profiled", "kernels_launched")}
+    # what the spans bound beside what the profiler books on the device:
+    # fwd_bwd holds every kernel but the optimizer's foreach ops
+    report["device_ms_fwd_bwd"] = parts["total"] - parts["optimizer"]
+    scraped = metrics.scrape_metrics()
+    report["histograms"] = {name: scraped[name]["data"] for name in (
+        "ray_tpu.train.step_seconds", "ray_tpu.train.fwd_bwd_seconds",
+        "ray_tpu.train.optimizer_seconds")}
+    report["goodput"] = {
+        "wall_s": ledger["wall_s"], "counters": ledger["counters"],
+        "shares": {b: v / ledger["wall_s"] for b, v in
+                   ledger["buckets"].items() if v}}
+    log(f"traced training: losses {traced} against untraced {untraced}; "
+        f"spans {report['spans']}; device ms {report['device_ms_by_part']} "
+        f"[{card}]")
+    del opt_state
+    torch.cuda.empty_cache()
+    report["explicit"] = explicit_tier(card, init, ref_grads)
+    report["virtual"] = virtual_sharded(card, bundle, init, batch, ref_grads,
+                                        after_one, untraced[0])
+    log("traced training metrics: " + json.dumps(report))
+    del bundle, params, init, ref_grads, after_one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_step_spans(spans, steps: int) -> dict:
+    """``steps`` phase-split span trees: each ``train.step`` the parent of
+    one ``train.fwd_bwd`` then one ``train.optimizer``, inside it. Returns
+    each phase's span ms by step."""
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s for s in spans if s["name"] == "train.step"]
+    if len(roots) != steps or len(spans) != 3 * steps:
+        raise AssertionError(f"{len(spans)} spans, {len(roots)} steps: "
+                             f"{[s['name'] for s in spans]}")
+    out = {"step": [], "fwd_bwd": [], "optimizer": []}
+    for root in roots:
+        kids = sorted((s for s in spans if s.get("parent_id")
+                       == root["span_id"]), key=lambda s: s["ts"])
+        if [k["name"] for k in kids] != ["train.fwd_bwd",
+                                         "train.optimizer"]:
+            raise AssertionError(f"step children {kids}")
+        end = root["ts"] + root["dur"]
+        if not all(root["ts"] <= k["ts"] and k["ts"] + k["dur"] <= end
+                   for k in kids):
+            raise AssertionError("a phase span outside its step's")
+        out["step"].append(root["dur"] * 1e3)
+        out["fwd_bwd"].append(kids[0]["dur"] * 1e3)
+        out["optimizer"].append(kids[1]["dur"] * 1e3)
+    if any(s["parent_id"] is not None and s["parent_id"] not in by_id
+           for s in spans):
+        raise AssertionError("a span's parent is missing")
+    return out
+
+
+def _codec_bound(name: str, x):
+    """How far the quantized allreduce of ``x`` at world 1 may land from it:
+    two roundings, the contribution's and the sum's (the sum's blocks have
+    the same amax to fp32's rounding, so the same scale): int8 half a step
+    each, scale = amax / 127 of the block of 256; fp8 e4m3 2^-4 of the
+    value or half a subnormal step (2^-10 of amax / 448) each; bf16 2^-8 of
+    the value once (the second rounding is exact). Plus fp32's roundings of
+    the decoded products."""
+    import torch
+
+    if name == "bf16":
+        return 2.0 ** -8 * x.abs() * (1 + 2.0 ** -20)
+    n = x.numel()
+    nb = -(-n // 256)
+    amax = torch.nn.functional.pad(x.abs(), (0, nb * 256 - n)) \
+        .reshape(nb, 256).amax(dim=1)
+    scale = (amax / (127.0 if name == "int8" else 448.0)) \
+        .repeat_interleave(256)[:n]
+    bound = (scale if name == "int8" else
+             2 * torch.maximum(2.0 ** -4 * x.abs(), 2.0 ** -10 * scale))
+    return bound * (1 + 2.0 ** -10) + 2.0 ** -22 * x.abs()
+
+
+def explicit_tier(card: str, init, grads) -> dict:
+    """``collective.bucketed`` over NCCL at world 1 on the 1b's gradients
+    (``init_sharded_optimizer_groups``, a TCP store on 127.0.0.1):
+    ``AsyncBucketReducer.reduce_tree`` in 32 MiB buckets with each codec,
+    fp32 equal to the gradients and the codecs within ``_codec_bound`` on
+    each bucket's packed vector, with wire bytes, the reduce's wall time
+    and the encode's rate; ``ShardedBucketOptimizer`` (AdamW without its
+    clip, the global clip at 1.0) against make_optimizer's AdamW on the
+    same parameters and gradients within SBO_TOL."""
+    import socket
+
+    import torch
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.collective.bucketed import (AsyncBucketReducer,
+                                                   ShardedBucketOptimizer,
+                                                   init_sharded_optimizer_groups,
+                                                   leaf_meta, plan_buckets)
+    from ray_tpu_torch.parallel import make_optimizer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = init_sharded_optimizer_groups(
+        1, 0, device="cuda", init_method=f"tcp://127.0.0.1:{port}")
+    out = {}
+    try:
+        plan = plan_buckets(leaf_meta(grads), world_size=1)
+        out["plan"] = plan.stats()
+        values = sum(g.numel() for g in grads.values())
+        for comp in (None, "int8", "fp8", "bf16"):
+            red = AsyncBucketReducer(base, plan, compression=comp)
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = red.reduce_tree(grads)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                stats = red.wire_stats()
+            finally:
+                red.shutdown()
+            worst = 0.0
+            for b in plan.buckets:
+                x = torch.cat([grads[p].reshape(-1) for p in b.paths])
+                y = torch.cat([got[p].reshape(-1) for p in b.paths])
+                if comp is None:
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"bucket {b.index}: the fp32 "
+                                             "reduce at world 1 moved it")
+                    continue
+                ratio = ((y - x).abs() / _codec_bound(comp, x)
+                         .clamp_min(1e-30)).max().item()
+                worst = max(worst, ratio)
+            if worst > 1.0:
+                raise AssertionError(f"{comp}: beyond the codec's rounding "
+                                     f"({worst:.3f} of the bound)")
+            entry = {"reduce_s": wall, "values": values,
+                     "max_err_over_bound": worst, **stats}
+            if comp is not None:
+                # encode_s: the error-fed encode (fp32 in, the wire out) and
+                # the sum's decode (the wire in, fp32 out)
+                entry["encode_decode_gb_s"] = (
+                    (8 * values + stats["bytes_wire"])
+                    / stats["encode_s"] / 1e9)
+            out[str(comp)] = entry
+            del got
+        opt = ShardedBucketOptimizer(base, plan, 0, make_optimizer(
+            learning_rate=SBO_LR, warmup_steps=0, clip=None), init,
+            clip_global_norm=1.0)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            new, stats = opt.step(grads)
+            torch.cuda.synchronize()
+            stats["step_s"] = time.perf_counter() - t
+        finally:
+            opt.shutdown()
+        ref = {k: p.clone() for k, p in init.items()}
+        adamw = make_optimizer(learning_rate=SBO_LR, warmup_steps=0)
+        adamw.update(ref, [grads[k].clone() for k in ref], adamw.init(ref))
+        atol, rtol = SBO_TOL
+        worst = max(((new[k] - w).abs() / (atol * SBO_LR + rtol * w.abs()))
+                    .max().item() for k, w in ref.items())
+        del ref
+        if worst > 1.0:
+            raise AssertionError(f"ShardedBucketOptimizer parts from the "
+                                 f"step by {worst:.3f} of SBO_TOL")
+        out["sharded_optimizer"] = {"max_err_over_bound": worst, **stats}
+        del new, opt
+    finally:
+        col.destroy_collective_group(f"{base}.norm")
+        col.destroy_collective_group(base)
+    torch.cuda.empty_cache()
+    log(f"traced training: explicit tier at world 1 over NCCL: "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def _wire_norm_bound(name: str, local, layout, n: int) -> float:
+    """||B|| of the per-element bound on one leaf's reduced gradient from
+    ``n`` virtual ranks' ``local`` gradients, against their exact fp32 sum
+    over n: each rank's part rounds once on the wire (int8 half a step of
+    amax / 127 of its block of 256; fp8 2^-4 of the value or 2^-10 of amax
+    / 448; bf16 2^-8 of the value), and the bf16 wire's sums round n - 1
+    times within 2^-8 of a partial sum at most sum |x_r|."""
+    import torch
+
+    if name == "fp32":
+        return 0.0
+    d, _ = layout
+    xs = torch.stack([x.movedim(d, 0).reshape(n, -1) for x in local])
+    ax = xs.abs()
+    if name == "bf16_wire":
+        bound = (2.0 ** -8 + (n - 1) * 2.0 ** -8) * ax.sum(dim=0)
+        return (bound / n).norm().item()
+    m = xs.shape[-1]
+    nb = -(-m // 256)
+    amax = torch.nn.functional.pad(ax, (0, nb * 256 - m)).reshape(
+        n, n, nb, 256).amax(dim=-1)
+    scale = (amax / (127.0 if name == "int8" else 448.0)) \
+        .repeat_interleave(256, dim=-1)[..., :m]
+    step = (0.5 * scale if name == "int8" else
+            torch.maximum(2.0 ** -4 * ax, 2.0 ** -10 * scale))
+    return (step.sum(dim=0) / n).norm().item()
+
+
+def virtual_sharded(card: str, bundle, init, batch, ref_grads, after_one,
+                    loss0: float) -> dict:
+    """The traced sharded step's math for n = TRACED_RANKS virtual data
+    ranks in one process, through the functions the process-group path
+    calls: each rank's ``rank_backward`` on its rows of the batch (its
+    loss, its count and its gradients weighted by m_local n / m_global),
+    then bucket by bucket of ``plan_buckets`` at world n every rank's
+    ``start_leaf_reduce`` on a ``VirtualAxis`` rank (each bucket's
+    reduce-scatters as list operations), the waits, and the sharded update:
+    the parts laid side by side, AdamW with the pinned clip over the
+    update's layout (the same sums in the same order as the ranks'
+    gathered norm). For each wire (TRACED_WIRES), against the single-device
+    step from the same parameters: the count-weighted loss within
+    TRAIN_LOSS_TOL, each leaf's reduced gradient within TRAIN_GRAD_TOL of
+    its norm plus the wire's ``_wire_norm_bound``, and the parameters after
+    the update within Adam's bound 2 x 1.2 x lr."""
+    import torch
+
+    from ray_tpu_torch.collective.bucketed import leaf_meta, plan_buckets
+    from ray_tpu_torch.collective.quant import resolve_codec
+    from ray_tpu_torch.parallel import make_optimizer
+    from ray_tpu_torch.parallel.train import start_leaf_reduce
+
+    params = bundle._bind(init)
+    lr = SBO_LR
+    keys = list(params)
+    out = {}
+    for n in TRACED_RANKS:
+        rows = TRAIN_BATCH // n
+        local = [{k: x[r * rows:(r + 1) * rows] for k, x in batch.items()}
+                 for r in range(n)]
+        m_global = sum(loc["mask"].sum() for loc in local)
+        t = time.perf_counter()
+        ranks = [bundle.rank_backward(params, loc, m_global, n)
+                 for loc in local]
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t
+        losses = torch.stack([r[0] for r in ranks])
+        counts = torch.stack([r[1] for r in ranks])
+        loss = ((losses * counts).sum() / counts.sum().clamp(min=1.0)).item()
+        if not abs(loss - loss0) <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"{n} ranks: loss {loss} against {loss0}")
+        plan = plan_buckets(leaf_meta(params), world_size=n)
+
+        def layout(shape):
+            return next(((d, n) for d, s in enumerate(shape) if s % n == 0),
+                        None)
+
+        entry = {"loss": loss, "backward_s": backward_s,
+                 "buckets": plan.num_buckets}
+        for wire, kw in TRACED_WIRES.items():
+            axis = VirtualAxis(n)
+            codec = resolve_codec(kw.get("codec"))
+            grad_dtype = kw.get("grad_dtype", "fp32")
+            reduced = {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for bucket in plan.buckets:
+                waits = [[start_leaf_reduce(axis.rank(r), ranks[r][2][k],
+                                            layout(tuple(params[k].shape)),
+                                            codec, grad_dtype)
+                          for k in bucket.paths] for r in range(n)]
+                parts = [[wait() for wait in row] for row in waits]
+                for j, k in enumerate(bucket.paths):
+                    lay = layout(tuple(params[k].shape))
+                    reduced[k] = (parts[0][j] if lay is None else torch.cat(
+                        [parts[r][j] for r in range(n)], lay[0]))
+                axis.reset()
+            torch.cuda.synchronize()
+            reduce_s = time.perf_counter() - t
+            worst = 0.0
+            for k in keys:
+                lay = layout(tuple(params[k].shape))
+                bound = (TRAIN_GRAD_TOL * ref_grads[k].norm().item()
+                         + (0.0 if lay is None else _wire_norm_bound(
+                             wire, [r[2][k] for r in ranks], lay, n)))
+                err = (reduced[k] - ref_grads[k]).norm().item()
+                worst = max(worst, err / bound)
+            if worst > 1.0:
+                raise AssertionError(f"{n} ranks, {wire}: a reduced "
+                                     f"gradient beyond its bound ({worst})")
+            opt = make_optimizer(learning_rate=lr, warmup_steps=0,
+                                 clip_spec_fn=layout)
+            new = {k: init[k].clone() for k in keys}
+            opt.update(new, [reduced[k] for k in keys], opt.init(new))
+            param_err = max((new[k] - after_one[k]).abs().max().item()
+                            for k in keys)
+            if param_err > 2 * 1.2 * lr:
+                raise AssertionError(f"{n} ranks, {wire}: parameters part "
+                                     f"by {param_err}")
+            entry[wire] = {"grad_err_over_bound": worst,
+                           "param_max_err": param_err, "reduce_s": reduce_s}
+            del reduced, new
+        out[str(n)] = entry
+        del ranks, local
+        torch.cuda.empty_cache()
+    log(f"traced training: sharded tier on virtual ranks: {json.dumps(out)} "
+        f"[{card}]")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3028,6 +3509,9 @@ def main() -> int:
     paths["seq_parallel"], sp = phase_seq_parallel(dev["card"])
     phase_expert_parallel(dev["card"])
     log(f"seq and expert parallel: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["traced_training"] = phase_traced_training(dev["card"])
+    log(f"traced training: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -3,8 +3,9 @@
 A package of its own beside ``ray_tpu`` (the JAX reference), importing none
 of it. Ported so far: the paged-KV LLM serving path (``llm``), the decoder
 LMs and the ViT (``models``), their training step on one device or on a
-mesh's data axis (``parallel``), the collective group on
-``torch.distributed`` with its codecs (``collective``), and the
+mesh of five axes, traced or not (``parallel``), the collective group on
+``torch.distributed`` with its codecs and bucketed tier (``collective``),
+metrics, spans and the goodput ledger (``util``), and the
 flash-attention forward and backward as CUDA kernels with ring and Ulysses
 attention on them (``ops``). Entry points run on the card unless given
 ``device="cpu"``.
@@ -15,7 +16,8 @@ code nor the kernels, and kernels are built only when first launched.
 
 import importlib
 
-_SUBMODULES = ("collective", "llm", "models", "ops", "parallel", "utils")
+_SUBMODULES = ("collective", "llm", "models", "ops", "parallel", "util",
+               "utils")
 
 
 def __getattr__(name):

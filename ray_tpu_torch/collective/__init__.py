@@ -11,7 +11,9 @@ the group's name::
 
 The backend follows the device: NCCL on the card (the default device), gloo
 on the CPU; asking for the card without one raises. The ops are
-``TorchGroup``'s (``collective_group.py``). Not ported yet:
+``TorchGroup``'s (``collective_group.py``). The bucketed tier
+(``bucketed.py``: the bucket plan, ``AsyncBucketReducer`` and
+``ShardedBucketOptimizer``) runs on these groups. Not ported yet:
 ``create_collective_group`` and ``CollectiveActorMixin``, which declare a
 group for a set of actors and wait for the runtime's port (``ROADMAP.md``).
 """
@@ -20,6 +22,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ray_tpu_torch.collective.bucketed import (AsyncBucketReducer, Bucket,
+                                               BucketPlan,
+                                               ShardedBucketOptimizer,
+                                               init_sharded_optimizer_groups,
+                                               leaf_meta, plan_buckets)
 from ray_tpu_torch.collective.collective_group import TorchGroup
 from ray_tpu_torch.collective.quant import (ErrorFeedback, QuantCodec,
                                             QuantizedTensor, dequantize,
@@ -45,6 +52,13 @@ __all__ = [
     "recv",
     "barrier",
     "allreduce_quantized",
+    "plan_buckets",
+    "leaf_meta",
+    "BucketPlan",
+    "Bucket",
+    "AsyncBucketReducer",
+    "ShardedBucketOptimizer",
+    "init_sharded_optimizer_groups",
     "ReduceOp",
     "Backend",
     "GroupInfo",

@@ -19,7 +19,9 @@ of axis 0:
   reduction on ``dst_rank`` (the input unchanged elsewhere), and
   point-to-point transfers that need no shape on the receiving side.
 
-Every ``ReduceOp`` is taken by every reducing op. ``AVERAGE`` is the sum
+``allreduce``, ``reducescatter`` and ``alltoall`` take ``async_op=True``:
+they then return at once a function that waits for the collective and
+returns its result. Every ``ReduceOp`` is taken by every reducing op. ``AVERAGE`` is the sum
 divided by the world size, as ``XlaGroup`` computes it (gloo has no
 average). ``CpuStoreGroup`` and ``CollectiveStore`` sit on the runtime's
 actors and are not ported here.
@@ -142,11 +144,26 @@ class TorchGroup:
 
     # -- collectives ------------------------------------------------------
 
-    def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    def _issue(self, out: torch.Tensor, work, op: ReduceOp, async_op: bool):
+        """The result, or with ``async_op`` a function that waits for the
+        collective and returns it (on the card, ordering the caller's
+        stream after it)."""
+        if not async_op:
+            return self._finish(out, op)
+
+        def wait() -> torch.Tensor:
+            work.wait()
+            return self._finish(out, op)
+
+        return wait
+
+    def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM,
+                  async_op: bool = False):
         out = self._tensor(tensor).clone(
             memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=_TORCH_OPS[op], group=self.process_group)
-        return self._finish(out, op)
+        work = dist.all_reduce(out, op=_TORCH_OPS[op],
+                               group=self.process_group, async_op=async_op)
+        return self._issue(out, work, op, async_op)
 
     def reduce(self, tensor, dst_rank: int = 0,
                op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
@@ -164,21 +181,23 @@ class TorchGroup:
         dist.all_gather_into_tensor(out, x, group=self.process_group)
         return out
 
-    def reducescatter(self, tensor,
-                      op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+    def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM,
+                      async_op: bool = False):
         x = self._tensor(tensor).contiguous()
         tile = self._tiles(x, "reducescatter")
         out = x.new_empty((tile,) + x.shape[1:])
-        dist.reduce_scatter_tensor(out, x, op=_TORCH_OPS[op],
-                                   group=self.process_group)
-        return self._finish(out, op)
+        work = dist.reduce_scatter_tensor(out, x, op=_TORCH_OPS[op],
+                                          group=self.process_group,
+                                          async_op=async_op)
+        return self._issue(out, work, op, async_op)
 
-    def alltoall(self, tensor) -> torch.Tensor:
+    def alltoall(self, tensor, async_op: bool = False):
         x = self._tensor(tensor).contiguous()
         self._tiles(x, "alltoall")
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.process_group)
-        return out
+        work = dist.all_to_all_single(out, x, group=self.process_group,
+                                      async_op=async_op)
+        return self._issue(out, work, ReduceOp.SUM, async_op)
 
     def broadcast(self, tensor, src_rank: int = 0) -> torch.Tensor:
         out = self._tensor(tensor).clone(

@@ -282,26 +282,37 @@ def quantized_reduce_scatter_1d(group, codec: QuantCodec):
     block), exchanges codes and scales with one all-to-all each, and sums
     the decoded segments it receives in fp32 in rank order: the JAX
     package's ``quantized_psum_scatter_1d``. The vector's length must be a
-    multiple of the world size."""
+    multiple of the world size. ``fn(local_vec, async_op=True)`` encodes and
+    starts the exchange, and returns a function that waits for it and
+    gives the segment."""
     n = group.world_size
     block = codec.block
 
-    def fn(x: torch.Tensor) -> torch.Tensor:
+    def start(x: torch.Tensor):
         if x.dim() != 1 or x.numel() % n:
             raise ValueError(f"a flat vector whose length divides by {n} "
                              f"ranks, got {tuple(x.shape)}")
         seg_len = x.numel() // n
         seg = x.to(torch.float32).reshape(n, seg_len)
         if codec.name == "bf16":
-            mine = group.alltoall(seg.to(torch.bfloat16))
-            return _fold(list(mine.to(torch.float32)))
+            mine = group.alltoall(seg.to(torch.bfloat16), async_op=True)
+            return lambda: _fold(list(mine().to(torch.float32)))
         nb = -(-seg_len // block)
         seg = torch.nn.functional.pad(seg, (0, nb * block - seg_len))
         q, scales = block_encode(seg.reshape(n, nb, block), codec.name)
-        q = group.alltoall(q.view(torch.uint8)).view(_CODE_DTYPES[codec.name])
-        scales = group.alltoall(scales)
-        vals = q.to(torch.float32) * scales[..., None]
-        return _fold(list(vals)).reshape(-1)[:seg_len]
+        q = group.alltoall(q.view(torch.uint8), async_op=True)
+        scales = group.alltoall(scales, async_op=True)
+
+        def finish() -> torch.Tensor:
+            codes = q().view(_CODE_DTYPES[codec.name])
+            vals = codes.to(torch.float32) * scales()[..., None]
+            return _fold(list(vals)).reshape(-1)[:seg_len]
+
+        return finish
+
+    def fn(x: torch.Tensor, async_op: bool = False):
+        finish = start(x)
+        return finish if async_op else finish()
 
     return fn
 

@@ -34,22 +34,66 @@ Counterpart of ``ray_tpu/parallel/train.py``:
   all-gathered. ``grad_dtype="bf16"`` rounds the gradients to bf16 before
   the reductions over ``fsdp``, ``seq`` and ``data``, which then carry bf16.
 
-Not ported yet (``ROADMAP.md`` queue 1): the bucketed reduce of
-``collective/bucketed.py``; the traced step with its ``compression`` wire;
-and the goodput and tracing hooks of ``step``.
+Every step carries the JAX bundle's observability: the
+``ray_tpu.train.*`` histograms (``step_seconds`` on every step; the phase
+and bucket ones on the traced step), and the goodput ledger's
+``step_compute`` region, with a ``util.goodput.CompileWatch`` keyed on the
+batch's shapes and dtypes sending the first call for a key into
+``compile`` (in the port, the kernels' build at first use and cuBLAS's
+first plans). With tracing off the step runs as before, issuing its work
+without one host sync (but for the first call of a key, which is
+synchronised so that ``compile`` bounds it). With tracing on
+(``util.tracing``) it runs in phases under a span tree, the device
+synchronised before each phase's span closes so that the spans bound
+completion:
+
+- the traced sharded step, on a mesh whose every axis but ``data`` has size
+  1, with ``shard_update`` and a mask in the batch (the JAX bundle's
+  explicit bucketed tier, ``ray_tpu/parallel/OVERLAP.md``): each data rank
+  runs the backward of its own rows as a model of its own (its MoE layers
+  route its rows alone), its gradients weighted by ``m_local * dp /
+  m_global`` (its mask's count over the mean count), then one
+  reduce-scatter per bucket of ``bucket_plan``, all issued at once as the
+  backward ends and each waited on under a ``train.bucket_allreduce`` span
+  inside ``train.fwd_bwd`` (``start_leaf_reduce``, leaf by leaf): fp32, a
+  bf16 wire (``grad_dtype="bf16"``), or with ``compression`` the codec's
+  (JAX's ``_q_rs_leaf``: each owner's part block-encoded, exchanged by
+  all-to-all, decoded and summed in fp32 in rank order) for the leaves the
+  update splits; a replicated leaf is all-reduced in fp32; every result is
+  scaled by 1 / dp. The sharded
+  update follows under ``train.optimizer``, and the loss is the
+  count-weighted mean of the ranks' losses. This matches the untraced step
+  to fp32 rounding, not bit for bit (each rank's loss holds its own rows'
+  MoE aux, and the sums run in other orders);
+- any other traced step: ``train.step`` > ``train.fwd_bwd`` (the loss and
+  the reduced gradients) then ``train.optimizer`` (the clip, the update
+  and, with ``shard_update``, the gather), the untraced step's own math.
+
+``compression`` exists only on the traced sharded step: it needs
+``shard_update`` with ``data`` > 1 (``ValueError`` otherwise, as the JAX
+bundle raises), and an untraced step with it logs the JAX bundle's warning
+once and runs the fp32 step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import threading
+import time
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ray_tpu_torch.collective.bucketed import (DEFAULT_BUCKET_BYTES,
+                                               BucketPlan, leaf_meta,
+                                               plan_buckets)
 from ray_tpu_torch.collective.collective_group import TorchGroup
-from ray_tpu_torch.collective.quant import resolve_codec
+from ray_tpu_torch.collective.quant import (quantized_reduce_scatter_1d,
+                                            resolve_codec)
 from ray_tpu_torch.models.convert import check_params, iter_init_params
 from ray_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                               lm_loss, state_dict_shapes)
@@ -61,11 +105,46 @@ from ray_tpu_torch.parallel.mesh import (AXES, LeafDims, cut_leaf,
                                          param_logical_axes, piece_shape)
 from ray_tpu_torch.parallel.tensor_parallel import (GroupAxis, bind_tensor,
                                                     vocab_parallel_lm_loss)
+from ray_tpu_torch.util import goodput, tracing
 from ray_tpu_torch.utils import DeviceLike, resolve_device
 
 Params = Dict[str, torch.Tensor]
 # a leaf's split over the data axis: (the dim, the number of equal parts)
 Layout = Optional[Tuple[int, int]]
+
+_metrics_lock = threading.Lock()
+_metrics: Optional[dict] = None
+
+
+def _obs() -> dict:
+    """The train step's histograms on the shared metrics registry (the JAX
+    bundle's names and boundaries)."""
+    global _metrics
+    with _metrics_lock:
+        if _metrics is None:
+            from ray_tpu_torch.util.metrics import Histogram
+
+            bounds = [0.001, 0.01, 0.1, 1, 10]
+            _metrics = {
+                "step": Histogram(
+                    "ray_tpu.train.step_seconds",
+                    "full train step wall time (fwd+bwd+optimizer; "
+                    "device-synchronized when tracing is enabled)",
+                    boundaries=bounds),
+                "fwd_bwd": Histogram(
+                    "ray_tpu.train.fwd_bwd_seconds",
+                    "forward+backward (value_and_grad) phase of the "
+                    "traced train step", boundaries=bounds),
+                "optimizer": Histogram(
+                    "ray_tpu.train.optimizer_seconds",
+                    "optimizer update+apply phase of the traced train "
+                    "step", boundaries=bounds),
+                "bucket_rs": Histogram(
+                    "ray_tpu.train.bucket_reduce_seconds",
+                    "per-bucket grad reduce-scatter program wall time on "
+                    "the traced sharded step", boundaries=bounds),
+            }
+        return _metrics
 
 
 @dataclasses.dataclass
@@ -93,7 +172,9 @@ class AdamW:
     warmup_cosine_decay_schedule(0, learning_rate, warmup_steps,
     max(total_steps, warmup_steps + 1))``, as the JAX package's
     ``make_optimizer`` builds it; ``make_optimizer`` here builds this with
-    the same defaults."""
+    the same defaults. ``clip=None`` leaves the clip out (the per-leaf
+    optimizer of ``collective.bucketed.ShardedBucketOptimizer``, which
+    clips by the global norm itself)."""
 
     learning_rate: float
     weight_decay: float
@@ -101,7 +182,7 @@ class AdamW:
     total_steps: int
     b1: float
     b2: float
-    clip: float
+    clip: Optional[float]
     eps: float = 1e-8  # optax.adamw's default, which make_optimizer keeps
     # the sharded clip's layout (shape -> Layout), or None for optax's clip
     clip_spec_fn: Optional[Callable[[Tuple[int, ...]], Layout]] = None
@@ -137,7 +218,9 @@ class AdamW:
         m = [state.mu[k] for k in keys]
         v = [state.nu[k] for k in keys]
         g = list(grads)
-        if norm is not None:
+        if self.clip is None:
+            pass  # the caller clips by the global norm itself
+        elif norm is not None:
             torch._foreach_mul_(g, self.clip / torch.clamp(norm,
                                                            min=self.clip))
         elif self.clip_spec_fn is not None:
@@ -221,6 +304,38 @@ def sharded_clip_by_global_norm(max_norm: float,
     return norm
 
 
+def start_leaf_reduce(group, g: torch.Tensor, layout: Layout, codec=None,
+                      grad_dtype: str = "fp32"):
+    """Start the data axis's reduction of one leaf's local gradient ``g`` over
+    ``group`` (a ``TorchGroup``, or anything with its ``world_size`` and
+    asynchronous ``allreduce``, ``reducescatter`` and ``alltoall``), and
+    return a function that waits for it and gives this rank's part of the
+    sum (the whole sum where ``layout`` is None), scaled by 1 / dp: the
+    JAX bundle's per-bucket program for one leaf. A leaf the update splits
+    along ``layout``'s dim is reduce-scattered along it: in fp32, on a bf16
+    wire (``grad_dtype="bf16"``), or with ``codec`` (a ``QuantCodec``)
+    each owner's part block-encoded, exchanged by all-to-all, decoded and
+    summed in fp32 in rank order; a replicated leaf is all-reduced in
+    fp32."""
+    inv = 1.0 / group.world_size
+    if layout is None:
+        wait = group.allreduce(g, async_op=True)
+        return lambda: wait() * inv
+    d, n = layout
+    x = g.movedim(d, 0).contiguous()
+    if codec is not None:
+        part = (x.shape[0] // n,) + tuple(x.shape[1:])
+        wait = quantized_reduce_scatter_1d(group, codec)(x.reshape(-1),
+                                                         async_op=True)
+        return lambda: (wait().reshape(part) * inv).movedim(0, d) \
+            .contiguous()
+    if grad_dtype == "bf16":
+        wait = group.reducescatter(x.to(torch.bfloat16), async_op=True)
+        return lambda: (wait().float() * inv).movedim(0, d).contiguous()
+    wait = group.reducescatter(x, async_op=True)
+    return lambda: (wait() * inv).movedim(0, d).contiguous()
+
+
 class TrainStepBundle:
     """The model, its optimizer and the step, on one device or on a mesh of
     ``data`` x ``fsdp`` x ``seq`` x ``tensor`` x ``expert``, for a dense or
@@ -273,25 +388,33 @@ class TrainStepBundle:
 
     What does not divide raises ``ValueError``: rows by data x fsdp, the
     length by seq, a split dim by its axis (``param_layout``: heads and KV
-    heads by tensor, experts by expert). ``compression`` has no step here
-    yet and raises."""
+    heads by tensor, experts by expert).
+
+    With tracing on (``util.tracing``) the step runs as the JAX bundle's
+    traced step (see the module's docstring): on a mesh of data alone with
+    ``shard_update`` and a mask, the traced sharded step, whose gradients
+    go one reduce-scatter per bucket of ``bucket_plan`` (``bucket_bytes``
+    bounds a bucket), in fp32, bf16 (``grad_dtype``) or the
+    ``compression`` codec's bytes; otherwise the phase-split step.
+    ``compression`` ("int8", "fp8", "bf16", or a "name:block" spec) needs
+    ``shard_update`` on a data axis of more than one rank and raises
+    ``ValueError`` without it."""
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
                  optimizer: Optional[AdamW] = None,
                  optimizer_factory: Optional[Callable] = None,
                  mesh=None, shard_update: bool = False,
-                 grad_dtype: str = "fp32", compression: Optional[str] = None):
+                 grad_dtype: str = "fp32", compression: Optional[str] = None,
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES):
         if grad_dtype not in ("fp32", "bf16"):
             raise ValueError(f"grad_dtype must be fp32 or bf16, got "
                              f"{grad_dtype!r}")
-        if resolve_codec(compression) is not None:
-            raise ValueError(
-                f"compression={compression!r}: the quantized wire runs on "
-                "the JAX package's traced bucketed step, which is not ported "
-                "yet (ROADMAP.md queue 1)")
         self.cfg = cfg
         self.mesh = mesh
         self.grad_dtype = grad_dtype
+        self.bucket_bytes = bucket_bytes
+        self._codec = resolve_codec(compression)
+        self._warned_untraced = False
         self.sizes: Dict[str, int] = {}
         self.coords: Dict[str, int] = {}
         self.groups: Dict[str, TorchGroup] = {}
@@ -317,6 +440,18 @@ class TrainStepBundle:
         self.token_ranks = math.prod(self.sizes.get(a, 1)
                                      for a in ("data", "fsdp", "seq"))
         self.shard_update = bool(shard_update) and self.dp_size > 1
+        if self._codec is not None and not self.shard_update:
+            raise ValueError(
+                f"compression={compression!r} requires shard_update=True "
+                f"on a mesh with data>1 (data={self.dp_size}): the "
+                "quantized wire exists only in the traced sharded step's "
+                "bucket reduce-scatters, and would be ignored here")
+        # the traced sharded step needs a mesh of data alone: each rank then
+        # runs the whole model on its rows
+        self._explicit_ok = self.shard_update and all(
+            self.sizes.get(a, 1) == 1 for a in AXES if a != "data")
+        self._bucket_plan: Optional[BucketPlan] = None
+        self._compile_watch = goodput.CompileWatch()
         spec_fn = self._layout if self.shard_update else None
         if optimizer is None:
             optimizer = (optimizer_factory(spec_fn) if optimizer_factory
@@ -340,6 +475,20 @@ class TrainStepBundle:
         self._layouts: Dict[str, Layout] = {
             k: self._layout(tuple(p.shape)) if self.shard_update else None
             for k, p in self._params.items()}
+
+    @property
+    def bucket_plan(self) -> BucketPlan:
+        """The size-bounded bucket plan over the gradient leaves, in the JAX
+        package's leaf order, owners over the data axis: the JAX bundle's
+        ``plan_buckets(leaf_meta(abstract params), bucket_bytes, dp)``."""
+        if self._bucket_plan is None:
+            whole = {k: torch.empty(self._shapes[k], dtype=p.dtype,
+                                    device="meta")
+                     for k, p in self._params.items()}
+            self._bucket_plan = plan_buckets(
+                leaf_meta(whole), bucket_bytes=self.bucket_bytes,
+                world_size=self.dp_size)
+        return self._bucket_plan
 
     @property
     def param_placements(self) -> Dict[str, tuple]:
@@ -595,28 +744,127 @@ class TrainStepBundle:
     def step(self, params: Mapping[str, torch.Tensor], opt_state: OptState,
              batch: Mapping[str, torch.Tensor]):
         """One optimization step: the loss with the MoE aux, one backward,
-        the optimizer; on a mesh, with its axes' collectives."""
+        the optimizer; on a mesh, with its axes' collectives. Observed in
+        ``ray_tpu.train.step_seconds`` and the goodput ledger; with tracing
+        on, the traced step (the class's docstring)."""
+        t0 = time.perf_counter()
         params = self._bind(params)
         opt_state.to(self.device)
+        if not tracing.enabled():
+            if self._codec is not None and not self._warned_untraced:
+                # the quantized wire exists only on the traced path: say so
+                # rather than let a run report compression that never ran
+                self._warned_untraced = True
+                logging.getLogger(__name__).warning(
+                    "TrainStepBundle(compression=%s): tracing is "
+                    "disabled, so this step runs the fp32 step — the "
+                    "quantized wire needs tracing ON "
+                    "(RAY_TPU_ENABLE_TRACING=1)", self._codec.spec())
+            out = self._dispatch_attributed(
+                "fused_sharded" if self.shard_update else "fused",
+                self._step_untraced, params, opt_state, batch)
+        elif self._explicit_ok and batch.get("mask") is not None:
+            out = self._dispatch_attributed(
+                "traced_sharded", self._step_traced_sharded, params,
+                opt_state, batch)
+        else:
+            out = self._step_phases(params, opt_state, batch)
+        _obs()["step"].observe(time.perf_counter() - t0)
+        return out
+
+    def _sync(self) -> None:
+        """Wait for the card's work so far (nothing to wait for on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _dispatch_attributed(self, program: str, fn, params, opt_state,
+                             batch):
+        """``fn(params, opt_state, batch)`` under the goodput ledger:
+        ``step_compute``, and for the first call of a batch key (the kernels'
+        build, cuBLAS's first plans) ``compile`` inside it, synchronised so
+        that it bounds the work."""
+        kind = self._compile_watch.observe(program, goodput.batch_key(batch))
+        with goodput.region("step_compute"):
+            if kind is None:
+                out = fn(params, opt_state, batch)
+            else:
+                with goodput.region("compile"):
+                    out = fn(params, opt_state, batch)
+                    self._sync()
+        self._count_step(kind)
+        return out
+
+    @staticmethod
+    def _count_step(kind: Optional[str]) -> None:
+        goodput.count("steps")
+        if kind:
+            goodput.count("compiles")
+            if kind == "recompile":
+                goodput.count("recompiles")
+
+    def _step_untraced(self, params: Params, opt_state: OptState, batch):
+        loss, grads = self._fwd_bwd(params, batch)
+        self._apply(params, opt_state, grads)
+        return params, opt_state, loss
+
+    def _step_phases(self, params: Params, opt_state: OptState, batch):
+        """The traced step in two phases, each synchronised inside its
+        span: ``train.fwd_bwd`` (the loss and the gradients, reduced as the
+        optimizer takes them) and ``train.optimizer``."""
+        obs = _obs()
+        kind = self._compile_watch.observe(
+            "phases_rs" if self.shard_update else "phases",
+            goodput.batch_key(batch))
+        with goodput.region("step_compute"), \
+                goodput.region("compile") if kind else nullcontext():
+            with tracing.profile("train.step", category="train"):
+                with tracing.profile("train.fwd_bwd", category="train"):
+                    t1 = time.perf_counter()
+                    loss, grads = self._fwd_bwd(params, batch)
+                    self._sync()
+                    obs["fwd_bwd"].observe(time.perf_counter() - t1)
+                with tracing.profile("train.optimizer", category="train"):
+                    t2 = time.perf_counter()
+                    self._apply(params, opt_state, grads)
+                    self._sync()
+                    obs["optimizer"].observe(time.perf_counter() - t2)
+        self._count_step(kind)
+        return params, opt_state, loss
+
+    def _fwd_bwd(self, params: Params, batch):
+        """The loss and the gradients as the optimizer takes them: fp32, on
+        a mesh summed over every axis (with ``shard_update``, this rank's
+        parts of the split leaves)."""
         if self.mesh is None:
             loss = self._loss(batch)
             grads = torch.autograd.grad(loss, list(params.values()))
-            self.optimizer.update(params, grads, opt_state)
-            return params, opt_state, loss.detach()
+            return loss.detach(), list(grads)
         loss, grads = self._mesh_backward(params, batch)
-        keys = list(params)
         lay = self._layouts
-        parts = params
         if "data" not in self.groups:
             grads = [g.float() for g in grads]
         elif not self.shard_update:
             grads = [self.groups["data"].allreduce(g).float() for g in grads]
         else:
-            parts = {k: p if lay[k] is None else self._part(p, lay[k])
-                     for k, p in params.items()}
             grads = [(self.groups["data"].allreduce(g) if lay[k] is None
                       else self._reduce_scatter(g, lay[k])).float()
-                     for k, g in zip(keys, grads)]
+                     for k, g in zip(params, grads)]
+        return loss, grads
+
+    def _apply(self, params: Params, opt_state: OptState,
+               grads: Sequence[torch.Tensor]) -> None:
+        """The optimizer on ``params`` in place: on a mesh with the global
+        norm of the ranks' gradients, and with ``shard_update`` on this
+        rank's parts, which are then gathered."""
+        if self.mesh is None:
+            self.optimizer.update(params, grads, opt_state)
+            return
+        keys = list(params)
+        lay = self._layouts
+        parts = params
+        if self.shard_update:
+            parts = {k: p if lay[k] is None else self._part(p, lay[k])
+                     for k, p in params.items()}
         self.optimizer.update(parts, grads, opt_state,
                               norm=self._global_norm(keys, grads))
         if self.shard_update:
@@ -624,7 +872,83 @@ class TrainStepBundle:
                 for k, p in params.items():
                     if lay[k] is not None:
                         p.copy_(self._gather(parts[k], lay[k]))
+
+    # -- the traced sharded step ------------------------------------------------
+
+    def _step_traced_sharded(self, params: Params, opt_state: OptState,
+                             batch):
+        """The JAX bundle's traced sharded step: the local backward, one
+        reduce-scatter per bucket issued at once and waited on per bucket
+        under ``train.bucket_allreduce`` spans, then the sharded update."""
+        obs = _obs()
+        plan = self.bucket_plan
+        with tracing.profile("train.step", category="train"):
+            with tracing.profile("train.fwd_bwd", category="train",
+                                 buckets=plan.num_buckets):
+                t1 = time.perf_counter()
+                loss, count, grads = self._local_backward(params, batch)
+                # every bucket's reduce-scatter in flight as soon as the
+                # backward ends; the waits come per bucket, so that each
+                # span bounds its bucket's completion
+                pending = [(bucket, [self._start_leaf_reduce(k, grads[k])
+                                     for k in bucket.paths])
+                           for bucket in plan.buckets]
+                reduced: Params = {}
+                for bucket, waits in pending:
+                    tb = time.perf_counter()
+                    with tracing.profile("train.bucket_allreduce",
+                                         category="train",
+                                         bucket=bucket.index,
+                                         nbytes=bucket.nbytes,
+                                         leaves=len(bucket.paths)):
+                        outs = [wait() for wait in waits]
+                        self._sync()
+                    obs["bucket_rs"].observe(time.perf_counter() - tb)
+                    reduced.update(zip(bucket.paths, outs))
+                obs["fwd_bwd"].observe(time.perf_counter() - t1)
+            with tracing.profile("train.optimizer", category="train"):
+                t2 = time.perf_counter()
+                self._apply(params, opt_state, [reduced[k] for k in params])
+                self._sync()
+                obs["optimizer"].observe(time.perf_counter() - t2)
+        # the mask-count-weighted mean of the ranks' losses
+        rows = self.groups["data"].allgather(torch.stack([loss, count]))
+        rows = rows.reshape(self.dp_size, 2)
+        loss = (rows[:, 0] * rows[:, 1]).sum() / torch.clamp(
+            rows[:, 1].sum(), min=1.0)
         return params, opt_state, loss
+
+    def _local_backward(self, params: Params, batch):
+        """This data rank's loss on its rows (the model run on them alone:
+        its MoE layers route them and take their aux), the mask's count on
+        them, and its weighted gradients (``rank_backward``)."""
+        local = self._local(batch, split_rows=True)
+        bind_experts(self.model, self._moe_axes[False])
+        m_local = self._count(local)
+        m_global = self.groups["data"].allreduce(m_local)
+        return self.rank_backward(params, local, m_global, self.dp_size)
+
+    def rank_backward(self, params: Params, local, m_global: torch.Tensor,
+                      dp: int):
+        """The loss of one data rank's rows ``local`` (the masked mean over
+        them plus ``moe_aux_coef`` times their MoE aux), their mask's count,
+        and the gradients of that loss weighted by ``m_local * dp /
+        m_global``: the global mean's weighting once the ranks' gradients
+        are summed and scaled by 1 / dp, as in the JAX bundle's
+        ``_fwd_bwd_local``."""
+        logits, aux = self.model(local["tokens"], return_aux=True)
+        loss = self._lm_loss(logits, local)
+        if aux:
+            loss = loss + self.cfg.moe_aux_coef * sum(aux.values())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        m_local = self._count(local)
+        w = m_local * float(dp) / m_global
+        return (loss.detach(), m_local,
+                {k: g * w.to(g.dtype) for k, g in zip(params, grads)})
+
+    def _start_leaf_reduce(self, key: str, g: torch.Tensor):
+        return start_leaf_reduce(self.groups["data"], g, self._layouts[key],
+                                 self._codec, self.grad_dtype)
 
     def _mesh_backward(self, params: Params, batch):
         """The global loss and this rank's gradients (pieces, in the wire

@@ -47,7 +47,9 @@ def test_import_builds_and_loads_no_kernel():
         "from ray_tpu_torch.models import convert, transformer, vit\n"
         "from ray_tpu_torch.parallel import fsdp, mesh, tensor_parallel, "
         "train\n"
-        "from ray_tpu_torch.collective import collective_group, quant\n"
+        "from ray_tpu_torch.collective import bucketed, collective_group, "
+        "quant\n"
+        "from ray_tpu_torch.util import goodput, metrics, tracing\n"
         "from ray_tpu_torch.ops import ring_attention\n"
         "from ray_tpu_torch.ops import _build\n"
         "assert not _build.is_loaded('flash_fwd')\n"

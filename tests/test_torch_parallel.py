@@ -401,7 +401,7 @@ def test_refusals(runs):
 
 
 def test_compression_raises():
-    with pytest.raises(ValueError, match="queue 1"):
+    with pytest.raises(ValueError, match="requires shard_update=True"):
         TrainStepBundle(_cfg(), device="cpu", compression="int8")
     with pytest.raises(ValueError, match="grad_dtype"):
         TrainStepBundle(_cfg(), device="cpu", grad_dtype="fp16")
