@@ -114,7 +114,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    one process (the ranks' backwards on their rows, every bucket's
    reduce-scatters as list operations on fp32, the bf16 wire, int8 and
    fp8, the sharded update) against the single-device step within derived
-   bounds; a ``traced training metrics:`` line.
+   bounds; a ``traced training metrics:`` line;
+14. checkpointed training: the 1b at full width and depth fed by the
+   native ``TokenFileLoader`` from a synthetic 2^26-token uint16 file
+   (its first batches equal to the numpy route's), 6 steps uninterrupted,
+   then 6 steps with ``CheckpointSaver.save`` after step 3 committing in
+   the background, then ``restore_tree`` into a fresh bundle (every tensor
+   equal to the state at the save, bit for bit) resuming steps 4-6 on a
+   fresh loader, each run's losses held against the uninterrupted one's
+   (the ``checkpointed_training`` path); the pause, the host copy's rate,
+   the commit, the bytes written, the restore and the step times with the
+   save in flight on a ``checkpoint metrics:`` line.
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -325,7 +335,12 @@ def phase_device() -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    from ray_tpu_torch.utils import device_report
+    try:
+        from ray_tpu_torch.utils import device_report
+    except ModuleNotFoundError as e:
+        # the script alone, outside a checkout: there is no port to drive
+        raise SystemExit(f"chip_smoke: {e}; run it from the root of a "
+                         "checkout of the repository") from None
 
     report = device_report()
     smi = subprocess.run(
@@ -3489,6 +3504,261 @@ def virtual_sharded(card: str, bundle, init, batch, ref_grads, after_one,
     return out
 
 
+# -- checkpointed training (phase 14) ---------------------------------------
+
+# The token corpus of the checkpointed run: 2^26 uint16 tokens (128 MB)
+# drawn from seed 0 below the 1b's vocabulary; batches of TRAIN_BATCH x
+# TRAIN_SEQ from the native loader (seed 0), whose first CKPT_LOADER_CHECK
+# batches must equal the numpy route's.
+CKPT_CORPUS_TOKENS = 1 << 26
+CKPT_LOADER_CHECK = 8
+CKPT_STEPS, CKPT_SAVE_AT = 6, 3  # steps of each run; the save after step 3
+# Run B (a save in flight) and the resumed steps against run A: the same
+# steps on the same batches from the same weights, which part only by
+# flash_bwd's reduce-add order (TRACED_LOSS_RTOL's reasoning, over
+# CKPT_STEPS steps); the first loss precedes any update: equal.
+CKPT_LOSS_RTOL = TRACED_LOSS_RTOL
+
+
+def phase_checkpointed_training(card: str):
+    """The 1b at full width and depth trained from a token file with an
+    asynchronous checkpoint, then resumed from it:
+
+    1. a corpus of CKPT_CORPUS_TOKENS uint16 tokens from seed 0 in a
+       temporary directory (raises unless its disk holds the corpus and
+       the checkpoint);
+    2. the native ``TokenFileLoader`` (seed 0): its first CKPT_LOADER_CHECK
+       batches equal the numpy route's;
+    3. run A: a fresh bundle (``init(seed=0)``) takes CKPT_STEPS steps on
+       the loader's batches 1-6;
+    4. run B: the same, with ``CheckpointSaver.save({"params", "opt"})``
+       after step CKPT_SAVE_AT: the pause, the host copy's GB/s, the steps
+       taken while the save is in flight, then ``wait()``'s commit
+       seconds, bytes written and the manifest's stats; B's losses equal
+       A's (the first exactly, the rest within CKPT_LOSS_RTOL);
+    5. ``restore_tree`` into a fresh bundle on the card: every tensor equal
+       to run B's state at the save (a copy on the card) bit for bit, the
+       count equal to CKPT_SAVE_AT; steps 4-6 on a fresh loader after 3
+       batches drawn and dropped: the first loss equal to run B's step 4,
+       the rest within CKPT_LOSS_RTOL of run B's, and all within
+       CKPT_LOSS_RTOL of run A's.
+
+    Every step of the three runs is on the ``checkpointed_training`` path.
+    Prints a ``checkpoint metrics:`` line and returns the path's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch.data import (TokenFileLoader, to_device,
+                                    write_token_file)
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    dev = torch.device("cuda")
+    n_params = cfg.num_params()
+    state_bytes = 3 * 4 * n_params  # fp32 params and Adam's two moments
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(root).free
+    need = int(1.05 * (2 * CKPT_CORPUS_TOKENS + state_bytes))
+    log(f"checkpointed training: {root} has {free} bytes free, the phase "
+        f"needs {need}")
+    report = {"card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "params": n_params,
+              "state_bytes": state_bytes, "disk_free_bytes": free}
+    try:
+        if free < need:
+            raise RuntimeError(f"{root}: {free} bytes free, the corpus and "
+                               f"the checkpoint need {need}")
+        t = time.perf_counter()
+        corpus = os.path.join(root, "corpus.bin")
+        write_token_file(corpus, np.random.default_rng(0).integers(
+            0, cfg.vocab_size, CKPT_CORPUS_TOKENS, dtype=np.uint16),
+            token_bytes=2)
+        report["corpus_write_s"] = time.perf_counter() - t
+
+        def loader(**kw):
+            return TokenFileLoader(corpus, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                   token_bytes=2, **kw)
+
+        with loader() as native:
+            if not native.native:
+                raise AssertionError("the token loader is not native")
+            ref = loader(force_python=True)
+            for k in range(CKPT_LOADER_CHECK):
+                got, want = native.next_batch(), ref.next_batch()
+                for key in got:
+                    if not np.array_equal(got[key], want[key]):
+                        raise AssertionError(f"native batch {k} {key} "
+                                             "differs from the numpy route")
+        log(f"checkpointed training: the native loader's first "
+            f"{CKPT_LOADER_CHECK} batches equal the numpy route's")
+
+        def fresh_bundle():
+            return TrainStepBundle(cfg, device="cuda",
+                                   optimizer=make_optimizer(
+                                       learning_rate=SBO_LR, warmup_steps=0))
+
+        def steps(bundle, params, opt_state, batches, n, saver=None):
+            losses, times, in_flight = [], [], []
+            for _ in range(n):
+                batch = to_device(batches.next_batch(), dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt_state, loss = bundle.step(params, opt_state,
+                                                      batch)
+                losses.append(loss.item())
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                if saver is not None:
+                    in_flight.append(saver.in_flight())
+            return params, opt_state, losses, times, in_flight
+
+        counters = kernel_counters()
+        for c in counters:
+            c.launches = 0
+        # run A, uninterrupted
+        bundle = fresh_bundle()
+        params, opt_state = bundle.init(seed=0)
+        with loader() as batches:
+            _, _, losses_a, times_a, _ = steps(bundle, params, opt_state,
+                                               batches, CKPT_STEPS)
+        del bundle, params, opt_state
+        torch.cuda.empty_cache()
+        # run B: a save after step CKPT_SAVE_AT, then the rest in its shadow
+        store = ckpt.CheckpointStore(os.path.join(root, "ckpt"))
+        saver = ckpt.CheckpointSaver(store)
+        bundle = fresh_bundle()
+        params, opt_state = bundle.init(seed=0)
+        with loader() as batches:
+            params, opt_state, losses_b, times_b, _ = steps(
+                bundle, params, opt_state, batches, CKPT_SAVE_AT)
+            at_save = {"params": {k: p.detach().clone()
+                                  for k, p in params.items()},
+                       "mu": {k: x.clone() for k, x in opt_state.mu.items()},
+                       "nu": {k: x.clone() for k, x in opt_state.nu.items()}}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            saver.save({"params": params, "opt": opt_state},
+                       step=CKPT_SAVE_AT)
+            pause = time.perf_counter() - t
+            returned_at = time.time()
+            in_flight_at_return = saver.in_flight()
+            params, opt_state, more, times_shadow, in_flight = steps(
+                bundle, params, opt_state, batches,
+                CKPT_STEPS - CKPT_SAVE_AT, saver)
+        t = time.perf_counter()
+        manifest = saver.wait()
+        report["save"] = {
+            "pause_s": pause, "host_copy_gb_s": state_bytes / pause / 1e9,
+            "in_flight_at_return": in_flight_at_return,
+            "in_flight_after_each_step": in_flight,
+            "wait_s": time.perf_counter() - t,
+            "commit_s": manifest.ts - returned_at,
+            "bytes_written": manifest.stats["bytes_written"],
+            "manifest_stats": manifest.stats,
+            "leaves": len(manifest.leaves)}
+        losses_b += more
+        del bundle, params, opt_state
+        torch.cuda.empty_cache()
+        check_losses("run B", losses_b, losses_a)
+        # restore into a fresh bundle, then resume on a fresh loader
+        bundle = fresh_bundle()
+        t = time.perf_counter()
+        tree = ckpt.restore_tree(store)
+        restore_s = time.perf_counter() - t
+        t = time.perf_counter()
+        state = ckpt.to_torch(tree, dev)
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t
+        del tree
+        opt_state = state["opt"]
+        if opt_state.count != CKPT_SAVE_AT:
+            raise AssertionError(f"restored count {opt_state.count}")
+        for name, want, got in (("params", at_save["params"],
+                                 state["params"]),
+                                ("mu", at_save["mu"], opt_state.mu),
+                                ("nu", at_save["nu"], opt_state.nu)):
+            unequal = [k for k in want if not torch.equal(got[k], want[k])]
+            if set(got) != set(want) or unequal:
+                raise AssertionError(f"restored {name} differ from the "
+                                     f"state at the save: {unequal[:4]}")
+        del at_save
+        torch.cuda.empty_cache()
+        report["restore"] = {"restore_s": restore_s, "h2d_s": h2d_s,
+                             "read_gb_s": state_bytes / restore_s / 1e9,
+                             "bit_equal": True}
+        with loader() as batches:
+            for _ in range(CKPT_SAVE_AT):
+                batches.next_batch()
+            _, _, losses_r, times_r, _ = steps(
+                bundle, state["params"], opt_state, batches,
+                CKPT_STEPS - CKPT_SAVE_AT)
+        launches = {c.__name__: c.launches for c in counters}
+        # against run B, which held the same state at the save: the first
+        # resumed step is B's step 4 on the same state and batch through a
+        # deterministic forward, so equal; the rest part only by flash_bwd
+        # from step 4 on
+        check_losses("resumed run", losses_r, losses_b[CKPT_SAVE_AT:],
+                     ref="run B")
+        check_losses("resumed run", losses_r, losses_a[CKPT_SAVE_AT:],
+                     first_equal=False)
+        n_steps = 2 * CKPT_STEPS + CKPT_STEPS - CKPT_SAVE_AT
+        want = {"flash_attention_fwd": (2 if cfg.remat else 1)
+                * cfg.n_layers * n_steps,
+                "attention_delta": cfg.n_layers * n_steps,
+                "flash_attention_bwd": cfg.n_layers * n_steps,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        if launches != want:
+            raise AssertionError(f"checkpointed training launched "
+                                 f"{launches}, want {want}")
+        report.update({
+            "losses_a": losses_a, "losses_b": losses_b,
+            "losses_resumed": losses_r,
+            # the largest relative distance of each comparison, beside
+            # CKPT_LOSS_RTOL (``loss_rtol``)
+            "loss_rtol": CKPT_LOSS_RTOL,
+            "rel_b_vs_a": rel_distance(losses_b, losses_a),
+            "rel_resumed_vs_a": rel_distance(losses_r,
+                                             losses_a[CKPT_SAVE_AT:]),
+            "rel_resumed_vs_b": rel_distance(losses_r,
+                                             losses_b[CKPT_SAVE_AT:]),
+            "step_s_a": times_a, "step_s_b_before_save": times_b,
+            "step_s_save_in_flight": times_shadow,
+            "step_s_resumed": times_r, "launches": launches})
+        del bundle, state, opt_state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"checkpointed training: pause {report['save']['pause_s']:.3f} s "
+        f"({report['save']['host_copy_gb_s']:.2f} GB/s), commit "
+        f"{report['save']['commit_s']:.2f} s, restore "
+        f"{report['restore']['restore_s']:.2f} s + H2D "
+        f"{report['restore']['h2d_s']:.2f} s; losses A {losses_a}, B "
+        f"{losses_b}, resumed {losses_r} [{card}]")
+    log("checkpoint metrics: " + json.dumps(report))
+    return launches
+
+
+def rel_distance(got, want) -> float:
+    """The largest ``|got - want| / |want|`` over the steps."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def check_losses(label: str, got, want, first_equal: bool = True,
+                 ref: str = "run A") -> None:
+    """``got`` within CKPT_LOSS_RTOL of ``want`` (``ref``'s losses) step by
+    step, and the first equal where ``first_equal``."""
+    if len(got) != len(want) or (first_equal and got[0] != want[0]) or not all(
+            abs(a - b) <= CKPT_LOSS_RTOL * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: losses {got} part from {ref}'s "
+                             f"{want}")
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -3512,6 +3782,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["traced_training"] = phase_traced_training(dev["card"])
     log(f"traced training: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["checkpointed_training"] = phase_checkpointed_training(dev["card"])
+    log(f"checkpointed training: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -5,9 +5,11 @@ of it. Ported so far: the paged-KV LLM serving path (``llm``), the decoder
 LMs and the ViT (``models``), their training step on one device or on a
 mesh of five axes, traced or not (``parallel``), the collective group on
 ``torch.distributed`` with its codecs and bucketed tier (``collective``),
-metrics, spans and the goodput ledger (``util``), and the
-flash-attention forward and backward as CUDA kernels with ring and Ulysses
-attention on them (``ops``). Entry points run on the card unless given
+metrics, spans and the goodput ledger (``util``), the token-file loader
+(``data``), the checkpoint plane with its storage tiers (``ckpt``, over
+the mesh geometry of ``weights``), and the flash-attention forward and
+backward as CUDA kernels with ring and Ulysses attention on them
+(``ops``). Entry points run on the card unless given
 ``device="cpu"``.
 
 Submodules load lazily: importing this package imports neither the model
@@ -16,8 +18,8 @@ code nor the kernels, and kernels are built only when first launched.
 
 import importlib
 
-_SUBMODULES = ("collective", "llm", "models", "ops", "parallel", "util",
-               "utils")
+_SUBMODULES = ("ckpt", "collective", "data", "llm", "models", "ops",
+               "parallel", "train", "util", "utils", "weights")
 
 
 def __getattr__(name):

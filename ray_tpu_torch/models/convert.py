@@ -12,7 +12,8 @@ truncated at two deviations, std sqrt(1 / fan_in) / 0.8796) for the patch
 embedding, the attention projections and the head, xavier_uniform for the
 MLP, normal(0.02) for the position embedding, zeros for the biases and the
 class token, ones for the norm scales. ``from_jax_opt_state`` carries the
-optimizer's state across, so a JAX run resumes in the port.
+optimizer's state across, so a JAX run resumes in the port, also from a
+checkpoint the JAX package wrote (``ckpt.restore_tree``).
 """
 
 from __future__ import annotations
@@ -125,7 +126,10 @@ def from_jax_opt_state(opt_state):
     clip's empty state, then ``ScaleByAdamState(count, mu, nu)``, the weight
     decay's empty state and the schedule's ``ScaleByScheduleState(count)``),
     with numpy leaves, as the port's ``OptState``: the moments keyed by the
-    same flax paths, on the CPU, and the step count."""
+    same flax paths, on the CPU, and the step count. The state may be
+    optax's own, or as ``ckpt.restore_tree`` gives it back from a checkpoint
+    the JAX package wrote: the same tuples, with the optax states rebuilt
+    as the named tuples of ``weights.spec.OPTAX_STATES``."""
     from ray_tpu_torch.parallel.train import OptState
 
     found = {}

@@ -697,3 +697,85 @@ def test_moe_layer_on_virtual_ranks_on_the_card(cuda_device, monkeypatch):
             want[name].chunk(2, 0)[e]
         torch.testing.assert_close(g, w, rtol=1e-5,
                                    atol=1e-6 * w.abs().max().item())
+
+
+def test_snapshot_copies_card_tensors_to_host(cuda_device, tmp_path):
+    """``CheckpointSaver.save`` copies card tensors (and an ``OptState`` of
+    them, field by field) to host memory before it returns: in-place
+    updates on the card right after do not reach the checkpoint, and
+    ``to_torch`` puts the restored tree back on the card bit for bit."""
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch.parallel import OptState
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=gen, device=cuda_device)}
+    opt = OptState(5, {"w": torch.randn(64, 32, generator=gen,
+                                        device=cuda_device)},
+                   {"w": torch.rand(64, 32, generator=gen,
+                                    device=cuda_device)})
+    at_save = (params["w"].clone(), opt.mu["w"].clone(), opt.nu["w"].clone())
+    store = ckpt.CheckpointStore(str(tmp_path))
+    saver = ckpt.CheckpointSaver(store)
+    saver.save({"params": params, "opt": opt}, step=5)
+    for x in (params["w"], opt.mu["w"], opt.nu["w"]):
+        x.add_(1.0)  # the next step's in-place update
+    saver.wait()
+    tree = ckpt.to_torch(ckpt.restore_tree(store), cuda_device)
+    got = (tree["params"]["w"], tree["opt"].mu["w"], tree["opt"].nu["w"])
+    for g, want in zip(got, at_save):
+        assert g.device.type == "cuda" and torch.equal(g, want)
+    assert isinstance(tree["opt"], OptState) and tree["opt"].count == 5
+    with pytest.raises(TypeError, match="'w'"):
+        ckpt.save_checkpoint(store, {"w": params["w"].bfloat16()})
+
+
+def test_loader_feeds_steps_and_a_checkpoint_on_the_card(cuda_device,
+                                                        tmp_path):
+    """The native loader's batches, copied to the card, drive a bf16
+    head_dim-64 model through the flash kernels; its state saved after 2
+    steps restores onto the card bit for bit, and a fresh bundle resumes
+    from it within TRACED_LOSS_RTOL of the uninterrupted run (the two part
+    only by flash_bwd's reduce-add order)."""
+    from chip_smoke import TRACED_LOSS_RTOL
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch.data import TokenFileLoader, to_device, write_token_file
+
+    cfg = dataclasses.replace(CONFIGS["tiny"], d_model=128, n_heads=2,
+                              n_kv_heads=1)
+    corpus = str(tmp_path / "corpus.bin")
+    write_token_file(corpus, np.random.default_rng(0).integers(
+        0, cfg.vocab_size, 20_000), token_bytes=2)
+
+    def run(bundle, params, opt, loader, n):
+        losses = []
+        for _ in range(n):
+            batch = to_device(loader.next_batch(), cuda_device)
+            params, opt, loss = bundle.step(params, opt, batch)
+            losses.append(loss.item())
+        return params, opt, losses
+
+    opt_kw = dict(learning_rate=1e-3, warmup_steps=0)
+    bundle = TrainStepBundle(cfg, device=cuda_device,
+                             optimizer=make_optimizer(**opt_kw))
+    params, opt = bundle.init(seed=0)
+    before = flash_attention_bwd.launches
+    store = ckpt.CheckpointStore(str(tmp_path / "ckpt"))
+    with TokenFileLoader(corpus, 4, 64, seed=0, token_bytes=2) as loader:
+        assert loader.native
+        params, opt, losses = run(bundle, params, opt, loader, 2)
+        at_save = {k: p.detach().clone() for k, p in params.items()}
+        ckpt.save_checkpoint(store, {"params": params, "opt": opt}, step=2)
+        params, opt, more = run(bundle, params, opt, loader, 2)
+    assert flash_attention_bwd.launches - before == 4 * cfg.n_layers
+    tree = ckpt.to_torch(ckpt.restore_tree(store), cuda_device)
+    for k, want in at_save.items():
+        assert torch.equal(tree["params"][k], want), k
+    resumed = TrainStepBundle(cfg, device=cuda_device,
+                              optimizer=make_optimizer(**opt_kw))
+    with TokenFileLoader(corpus, 4, 64, seed=0, token_bytes=2) as loader:
+        for _ in range(2):
+            loader.next_batch()
+        _, r_opt, got = run(resumed, tree["params"], tree["opt"], loader, 2)
+    assert r_opt.count == 4
+    np.testing.assert_allclose(got, more, rtol=TRACED_LOSS_RTOL)
+    assert np.all(np.isfinite(losses + more))
