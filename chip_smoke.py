@@ -124,7 +124,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fresh loader, each run's losses held against the uninterrupted one's
    (the ``checkpointed_training`` path); the pause, the host copy's rate,
    the commit, the bytes written, the restore and the step times with the
-   save in flight on a ``checkpoint metrics:`` line.
+   save in flight on a ``checkpoint metrics:`` line;
+15. runtime serving: the port's runtime on this machine
+   (``ray_tpu_torch.init(num_cpus=4)``, no GPU count given), whose raylet
+   must advertise as ``GPU`` the cards torch and ``nvidia-smi`` see; a
+   ``num_gpus=1`` task returns a 256 MiB bf16 tensor made on the card,
+   bit-equal to the driver's own; an actor with ``num_gpus=1`` builds
+   phase 9's 1b ``LLMServer`` (seed 0) and answers phase 9's 12 greedy
+   requests in one call, token for token as phase 9 did, its ``flash_fwd``
+   launches (counted in the actor, read back through it: the
+   ``runtime_serving`` path) equal to phase 9's; a second ``num_gpus=1``
+   actor pends until the first is killed; init time, empty-task round
+   trips, actor calls, put/get rates of a 256 MiB CPU tensor, the actor's
+   start-to-ready time and its decode rate beside phase 9's on a ``runtime
+   metrics:`` line.
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -1616,7 +1629,9 @@ def phase_serving(card: str) -> dict:
         "prefill_calls": metrics["prefill_calls"],
     }
     log("serving metrics: " + json.dumps(serving))
-    return {"launches": launches}
+    return {"launches": launches, "prompts": prompts,
+            "token_ids": [res["token_ids"] for res, _ in answered],
+            "decode_tokens_per_s": serving["decode_tokens_per_s"]}
 
 
 def check_prefill_logits(engine, prompts) -> None:
@@ -3744,6 +3759,223 @@ def phase_checkpointed_training(card: str):
     return launches
 
 
+RUNTIME_TENSOR_ELEMS = 128 << 20  # bf16: the 256 MiB a task returns
+RUNTIME_PUT_ELEMS = 64 << 20  # fp32: the 256 MiB CPU tensor put and got
+RUNTIME_ROUND_TRIPS = 200  # empty tasks and actor calls, one at a time
+RUNTIME_PENDING_S = 5.0  # how long the second GPU actor must stay pending
+RUNTIME_TIMEOUT_S = 300.0  # each cluster call's
+
+
+def card_tensor(n: int, seed: int):
+    """``n`` bf16 values on the card from ``seed``: what phase 15's task
+    returns and the driver makes again to compare."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+
+
+class RuntimeServer:
+    """Phase 15's actor: the serving phase's 1b ``LLMServer`` (seed 0) in a
+    worker process of the port's runtime, answering phase 9's requests as
+    phase 9 does."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+        # the driver's settings (phase_device), so products round alike
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.server = LLMServer(LLMConfig(model_id="1b"), seed=0,
+                                device="cuda")
+        torch.cuda.synchronize()
+
+    def ready(self) -> int:
+        return os.getpid()
+
+    def cards(self):
+        """The cards the raylet bound this actor's lease to."""
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def serve(self, prompts) -> dict:
+        """Phase 9's two rounds: 2 tokens each to warm up, then 32 tokens
+        each with the launch counters set to 0 just before and read just
+        after."""
+        import torch
+
+        server = self.server
+
+        async def serve_all(max_tokens):
+            return await asyncio.gather(*(
+                server.completions(p, max_tokens=max_tokens)
+                for p in prompts))
+
+        asyncio.run(serve_all(2))
+        torch.cuda.synchronize()
+        counters = kernel_counters()
+        for c in counters:
+            c.launches = 0
+        server.engine.metrics = dict.fromkeys(server.engine.metrics, 0)
+        t0 = time.perf_counter()
+        answered = asyncio.run(serve_all(32))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        metrics = server.engine_metrics()
+        return {"token_ids": [res["token_ids"] for res in answered],
+                "launches": launches, "wall_s": wall, "metrics": metrics,
+                "decode_tokens_per_s":
+                    metrics["decode_tokens"] / metrics["decode_s"]}
+
+
+def percentile(values, q: float) -> float:
+    values = sorted(values)
+    return values[min(len(values) - 1, int(q * len(values)))]
+
+
+def phase_runtime_serving(card: str, serving: dict) -> dict:
+    """Phase 15: the port's runtime on this machine, its card as ``GPU``."""
+    import gc
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.accelerators import (detect_gpu_ids,
+                                                 num_gpus_on_host)
+
+    # the driver's cached device memory from the earlier phases goes back
+    # to the card before the actor builds its model
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics = {"card": card}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    metrics["init_s"] = time.perf_counter() - t0
+    try:
+        gpus = rt.cluster_resources().get("GPU")
+        if gpus != torch.cuda.device_count() or gpus != num_gpus_on_host():
+            raise AssertionError(
+                f"the cluster advertises GPU={gpus}, torch sees "
+                f"{torch.cuda.device_count()} and nvidia-smi "
+                f"{num_gpus_on_host()}")
+        metrics["gpu"] = gpus
+        log(f"runtime: cluster up in {metrics['init_s']:.2f} s, resources "
+            f"{rt.cluster_resources()}")
+
+        # a task on the card returns a bf16 CUDA tensor of 256 MiB
+        make = rt.remote(num_gpus=1)(card_tensor)
+        t0 = time.perf_counter()
+        got = rt.get(make.remote(RUNTIME_TENSOR_ELEMS, 0),
+                     timeout=RUNTIME_TIMEOUT_S)
+        metrics["gpu_task_s"] = time.perf_counter() - t0
+        want = card_tensor(RUNTIME_TENSOR_ELEMS, 0).cpu()
+        if (got.dtype, got.device.type, got.shape) != \
+                (torch.bfloat16, "cpu", want.shape) or not torch.equal(
+                    got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(
+                f"the GPU task's tensor came back as {got.dtype} "
+                f"{tuple(got.shape)} on {got.device}, not bit-equal")
+        del got, want
+        log(f"runtime: num_gpus=1 task returned {RUNTIME_TENSOR_ELEMS * 2} "
+            f"bytes of bf16 from the card, bit-equal, in "
+            f"{metrics['gpu_task_s']:.2f} s (worker start included)")
+
+        @rt.remote
+        def noop():
+            return None
+
+        rt.get([noop.remote() for _ in range(8)], timeout=RUNTIME_TIMEOUT_S)
+        trips = []
+        for _ in range(RUNTIME_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            rt.get(noop.remote(), timeout=RUNTIME_TIMEOUT_S)
+            trips.append(time.perf_counter() - t0)
+        metrics["task_rtt_p50_ms"] = percentile(trips, 0.5) * 1e3
+        metrics["task_rtt_p99_ms"] = percentile(trips, 0.99) * 1e3
+
+        x = torch.randn(RUNTIME_PUT_ELEMS)
+        puts, gets = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref = rt.put(x)
+            t1 = time.perf_counter()
+            y = rt.get(ref, timeout=RUNTIME_TIMEOUT_S)
+            t2 = time.perf_counter()
+            if not torch.equal(y, x):
+                raise AssertionError("put/get changed the tensor")
+            puts.append(x.numel() * 4 / (t1 - t0) / 1e9)
+            gets.append(x.numel() * 4 / (t2 - t1) / 1e9)
+            del y, ref
+        metrics["put_gb_s"] = puts
+        metrics["get_gb_s"] = gets
+        del x
+
+        # the serving actor on the card
+        server_cls = rt.remote(num_gpus=1)(RuntimeServer)
+        t0 = time.perf_counter()
+        server = server_cls.remote()
+        rt.get(server.ready.remote(), timeout=RUNTIME_TIMEOUT_S)
+        metrics["actor_ready_s"] = time.perf_counter() - t0
+        calls = []
+        for _ in range(RUNTIME_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            rt.get(server.ready.remote(), timeout=RUNTIME_TIMEOUT_S)
+            calls.append(time.perf_counter() - t0)
+        metrics["actor_call_p50_ms"] = percentile(calls, 0.5) * 1e3
+        bound = rt.get(server.cards.remote(), timeout=RUNTIME_TIMEOUT_S)
+        if bound not in detect_gpu_ids()[0]:
+            raise AssertionError(f"the actor's CUDA_VISIBLE_DEVICES is "
+                                 f"{bound!r}, not one detected card")
+        metrics["actor_cuda_visible_devices"] = bound
+        out = rt.get(server.serve.remote(serving["prompts"]),
+                     timeout=RUNTIME_TIMEOUT_S)
+        if out["token_ids"] != serving["token_ids"]:
+            differ = [i for i, (a, b) in enumerate(zip(
+                out["token_ids"], serving["token_ids"])) if a != b]
+            raise AssertionError(f"the actor's greedy answers {differ} part "
+                                 "from the in-process serving phase's")
+        want = serving["launches"]
+        if out["launches"]["flash_attention_fwd"] != want:
+            raise AssertionError(
+                f"flash_fwd launched {out['launches']['flash_attention_fwd']}"
+                f" times in the actor, {want} in the serving phase")
+        metrics["actor_decode_tokens_per_s"] = out["decode_tokens_per_s"]
+        metrics["in_process_decode_tokens_per_s"] = \
+            serving["decode_tokens_per_s"]
+        metrics["actor_serve_wall_s"] = out["wall_s"]
+        log(f"runtime: the actor's {len(out['token_ids'])} greedy answers "
+            f"equal the serving phase's token for token; flash_fwd launches "
+            f"{out['launches']['flash_attention_fwd']} (in-process {want})")
+
+        # one card: a second GPU actor pends until the first is killed
+        probe = rt.remote(num_gpus=1)(RuntimeProbe).remote()
+        pending = probe.ready.remote()
+        ready, _ = rt.wait([pending], timeout=RUNTIME_PENDING_S)
+        if ready:
+            raise AssertionError("a second num_gpus=1 actor started while "
+                                 "the first held the only card")
+        t0 = time.perf_counter()
+        rt.kill(server)
+        rt.get(pending, timeout=RUNTIME_TIMEOUT_S)
+        metrics["second_actor_after_kill_s"] = time.perf_counter() - t0
+        rt.kill(probe)
+        log(f"runtime: a second num_gpus=1 actor pended "
+            f"{RUNTIME_PENDING_S:.0f} s, then started "
+            f"{metrics['second_actor_after_kill_s']:.2f} s after the first "
+            f"was killed")
+    finally:
+        rt.shutdown()
+    log("runtime metrics: " + json.dumps(metrics))
+    return out["launches"]
+
+
+class RuntimeProbe:
+    def ready(self) -> int:
+        return os.getpid()
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -3770,7 +4002,8 @@ def main() -> int:
     paths["moe_training"] = phase_training(dev["card"], MOE_CONFIG,
                                            "moe training")
     paths["vit_training"] = phase_vit_training(dev["card"])
-    serve_launches = phase_serving(dev["card"])["launches"]
+    serving = phase_serving(dev["card"])
+    serve_launches = serving["launches"]
     paths.update(phase_parallel(dev["card"]))
     t0 = time.perf_counter()
     paths["tensor_parallel"], tp = phase_tensor_parallel(dev["card"])
@@ -3785,6 +4018,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["checkpointed_training"] = phase_checkpointed_training(dev["card"])
     log(f"checkpointed training: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["runtime_serving"] = phase_runtime_serving(dev["card"], serving)
+    log(f"runtime serving: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -1,25 +1,51 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
 
 A package of its own beside ``ray_tpu`` (the JAX reference), importing none
-of it. Ported so far: the paged-KV LLM serving path (``llm``), the decoder
-LMs and the ViT (``models``), their training step on one device or on a
-mesh of five axes, traced or not (``parallel``), the collective group on
-``torch.distributed`` with its codecs and bucketed tier (``collective``),
-metrics, spans and the goodput ledger (``util``), the token-file loader
-(``data``), the checkpoint plane with its storage tiers (``ckpt``, over
-the mesh geometry of ``weights``), and the flash-attention forward and
-backward as CUDA kernels with ring and Ulysses attention on them
-(``ops``). Entry points run on the card unless given
-``device="cpu"``.
+of it. Ported so far: the runtime's single-node core (``init``, ``@remote``
+tasks and actors, ``put``/``get``/``wait``, the GCS, the raylet, the core
+worker and the shared-memory object store, under ``_private``), the
+paged-KV LLM serving path (``llm``), the decoder LMs and the ViT
+(``models``), their training step on one device or on a mesh of five axes,
+traced or not (``parallel``), the collective group on ``torch.distributed``
+with its codecs and bucketed tier (``collective``), metrics, spans, the
+goodput ledger and GPU detection (``util``), the token-file loader
+(``data``), the checkpoint plane with its storage tiers (``ckpt``, over the
+mesh geometry of ``weights``), and the flash-attention forward and backward
+as CUDA kernels with ring and Ulysses attention on them (``ops``). Entry
+points run on the card unless given ``device="cpu"``; ``init`` starts a
+cluster whose raylet advertises the host's cards as the ``GPU`` resource.
 
-Submodules load lazily: importing this package imports neither the model
-code nor the kernels, and kernels are built only when first launched.
+Like the JAX package's ``__init__``, this module imports the runtime's API
+and nothing heavy: the other submodules load lazily, neither torch nor a
+kernel is loaded by importing the package, and kernels are built only when
+first launched.
 """
 
 import importlib
 
-_SUBMODULES = ("ckpt", "collective", "data", "llm", "models", "ops",
-               "parallel", "train", "util", "utils", "weights")
+from ray_tpu_torch._private.worker import (
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    get_actor,
+    init,
+    is_initialized,
+    kill,
+    nodes,
+    put,
+    remote,
+    shutdown,
+    wait,
+)
+from ray_tpu_torch.actor import method
+from ray_tpu_torch.object_ref import ObjectRef
+from ray_tpu_torch.runtime_context import get_runtime_context
+from ray_tpu_torch import exceptions
+
+_SUBMODULES = ("ckpt", "cluster_utils", "collective", "data", "llm",
+               "models", "ops", "parallel", "train", "util", "utils",
+               "weights")
 
 
 def __getattr__(name):
@@ -30,4 +56,23 @@ def __getattr__(name):
 
 __version__ = "0.1.0"
 
-__all__ = list(_SUBMODULES) + ["__version__"]
+__all__ = [
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "method",
+    "get",
+    "put",
+    "wait",
+    "kill",
+    "cancel",
+    "get_actor",
+    "get_runtime_context",
+    "cluster_resources",
+    "available_resources",
+    "nodes",
+    "ObjectRef",
+    "exceptions",
+    "__version__",
+] + list(_SUBMODULES)

@@ -1,4 +1,6 @@
 """Observability of the port: the metrics registry (``metrics``), causal
 spans with a chrome://tracing export (``tracing``) and the goodput ledger
 (``goodput``), the counterparts of ``ray_tpu/util``'s modules of those
-names. Without the runtime they keep what they record in the process."""
+names, and GPU detection for the raylet (``accelerators``, the port of
+the module that detects TPU chips). Metrics and the goodput ledger ship to
+the GCS inside the port's runtime; spans stay in the process."""

@@ -15,8 +15,8 @@ kernels are built at first use and cuBLAS makes its first plans.
 
 The ledger is on unless ``RAY_TPU_GOODPUT_ENABLED`` says otherwise (the
 JAX package's ``RAY_CONFIG.goodput_enabled``, of which the port keeps its
-own copy). :func:`flush_payload` builds the payload the runtime's
-observability flush would ship; shipping it waits for the runtime's port.
+own copy). Inside the port's runtime the core worker's observability flush
+ships :func:`flush_payload` into the GCS KV ``goodput`` namespace.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 __all__ = [
     "BUCKETS", "CompileWatch", "add", "batch_key", "count", "enabled",
-    "flush_payload", "note_mfu", "region", "reset", "set_job", "snapshot",
+    "flush_payload", "note_mfu", "region", "reset", "reset_after_fork",
+    "set_job", "snapshot",
 ]
 
 #: Exclusive attribution buckets; ``idle`` is derived (wall minus the sum of
@@ -265,3 +266,9 @@ def reset() -> None:
         _buckets.clear()
         _counters.clear()
     _tls.stack = []
+
+
+def reset_after_fork() -> None:
+    """Drop the ledger a worker forked from the zygote inherits: kept, the
+    child would report the zygote's seconds again under a new process key."""
+    reset()

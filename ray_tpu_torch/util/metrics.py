@@ -6,8 +6,10 @@ them in the JAX module's snapshot format (a value per tag set, a
 histogram's counts per bucket with their sums and boundaries). The names,
 boundaries and formats are the JAX package's, so one dashboard reads both.
 
-Not ported yet: ``publish_metrics``, which ships the registry to the
-runtime's GCS and waits for the runtime's port (``ROADMAP.md`` queue 1).
+Inside the port's runtime every worker and driver ships its registry to
+the GCS KV (``metrics`` namespace) every ``metrics_flush_interval_s``
+(``_private/core_worker.py``'s observability loop); :func:`publish_metrics`
+ships it at once.
 """
 
 from __future__ import annotations
@@ -108,6 +110,19 @@ class Histogram(_Metric):
                 "boundaries": list(self.boundaries)}
 
 
+def reset_after_fork():
+    """Zero every instrument's recorded values (instruments stay registered:
+    module-level holders keep their references). A worker forked from the
+    zygote inherits the zygote's registry; without this its first flush
+    would report the zygote's counts again under a new process key."""
+    with _lock:
+        for m in _registry.values():
+            for attr in ("_values", "_counts", "_sums"):
+                d = getattr(m, attr, None)
+                if isinstance(d, dict):
+                    d.clear()
+
+
 def scrape_metrics() -> Dict[str, dict]:
     """Every metric registered in this process: name -> kind, description
     and snapshot."""
@@ -117,3 +132,23 @@ def scrape_metrics() -> Dict[str, dict]:
                    "data": m.snapshot()}
             for name, m in _registry.items()
         }
+
+
+def publish_metrics():
+    """Push this process's metrics to the GCS KV (``metrics`` namespace) now,
+    under the key the periodic flush uses, so nothing is counted twice.
+    Needs ``ray_tpu_torch.init()``."""
+    import os
+    import time
+
+    from ray_tpu_torch._private import wire
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch._private.core_worker import _obs_proc_tag
+
+    core = worker_mod.global_worker()
+    payload = {"pid": os.getpid(), "time": time.time(),
+               "node": getattr(core, "node_hex", ""),
+               "metrics": scrape_metrics()}
+    core._run(core._gcs_call("KVPut", {
+        "ns": "metrics", "key": f"proc_{_obs_proc_tag()}",
+        "value": wire.dumps(payload)}))

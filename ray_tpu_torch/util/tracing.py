@@ -14,8 +14,8 @@ Enable with ``RAY_TPU_ENABLE_TRACING=1`` (the JAX package's switch) or
 :func:`enable`. Spans are kept in the process, as the JAX module keeps them
 in the runtime's local mode, and read back with :func:`get_spans`.
 
-Not ported yet: shipping spans to the runtime's GCS, and
-``reset_after_fork``; both wait for the runtime's port (``ROADMAP.md``).
+Not ported yet: shipping spans to the runtime's GCS, so a worker's spans
+stay in that worker (``ROADMAP.md`` queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -134,6 +134,14 @@ def profile(name: str, category: str = "user", **extra):
                     trace_id=trace_id, span_id=span_id,
                     parent_id=parent[1] if parent is not None else None,
                     **extra)
+
+
+def reset_after_fork():
+    """Drop the spans and the active context a worker forked from the zygote
+    inherits, so that it never reports the zygote's spans as its own."""
+    with _lock:
+        _spans.clear()
+    _ctx.set(None)
 
 
 def get_spans() -> List[dict]:

@@ -779,3 +779,31 @@ def test_loader_feeds_steps_and_a_checkpoint_on_the_card(cuda_device,
     assert r_opt.count == 4
     np.testing.assert_allclose(got, more, rtol=TRACED_LOSS_RTOL)
     assert np.all(np.isfinite(losses + more))
+
+
+
+def test_runtime_gpu_task_returns_a_card_tensor(cuda_device):
+    """The port's runtime on the card: the raylet advertises the cards as
+    ``GPU``, and a ``num_gpus=1`` task's bf16 CUDA tensor comes back to the
+    driver as a CPU tensor, bit for bit. (The task is a local function, so
+    it travels by value: the workers need not import this file.)"""
+    import ray_tpu_torch as rt
+
+    def card_bf16(n: int, seed: int):
+        import torch
+
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+
+    rt.shutdown()
+    rt.init(num_cpus=2)
+    try:
+        assert rt.cluster_resources().get("GPU") == torch.cuda.device_count()
+        n = 1 << 22
+        got = rt.get(rt.remote(num_gpus=1)(card_bf16).remote(n, 3),
+                     timeout=300)
+        want = card_bf16(n, 3).cpu()
+        assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    finally:
+        rt.shutdown()

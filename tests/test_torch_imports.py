@@ -10,11 +10,16 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu",
+             # the JAX runtime's third-party imports, which the card lacks
+             "cloudpickle", "msgpack", "psutil", "boto3")
 # what the card's machine installs besides the standard library
 ALLOWED = ("torch", "numpy", "scipy", "einops", "triton", "ray_tpu_torch")
 # optional adapters imported inside the function that needs them, by file
-LAZY_ADAPTERS = {"ray_tpu_torch/llm/tokenizer.py": {"transformers"}}
+LAZY_ADAPTERS = {"ray_tpu_torch/llm/tokenizer.py": {"transformers"},
+                 # a pip runtime env runs ``python -m pip install`` in the
+                 # env's venv, only for a task or actor that asks for one
+                 "ray_tpu_torch/_private/runtime_env.py": {"pip"}}
 
 
 def _port_files():
@@ -24,8 +29,36 @@ def _port_files():
     return sorted(files)
 
 
+def _named_module(node):
+    """The module a call imports by name (``importlib.import_module(...)``,
+    ``__import__(...)``) or a ``[..., "-m", "<module>", ...]`` command
+    spawns, where the name is a literal or an f-string's literal start."""
+    def literal(arg):
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            return arg.value
+        if isinstance(arg, ast.JoinedStr) and arg.values and isinstance(
+                arg.values[0], ast.Constant):
+            return arg.values[0].value
+        return None
+
+    if isinstance(node, ast.Call) and node.args:
+        fn = node.func
+        name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+            fn, "id", "")
+        if name in ("import_module", "__import__"):
+            return literal(node.args[0])
+    if isinstance(node, (ast.List, ast.Tuple)):
+        elts = node.elts
+        for i, e in enumerate(elts[:-1]):
+            if literal(e) == "-m":
+                return literal(elts[i + 1])
+    return None
+
+
 def _imports(path):
-    """(root module, line, at module level) of every absolute import."""
+    """(root module, line, at module level) of every absolute import, at
+    any depth: import statements, imports by name, and the modules of
+    ``python -m`` commands."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     top = set()
@@ -39,6 +72,10 @@ def _imports(path):
                 yield alias.name.split(".")[0], node.lineno, id(node) in top
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0], node.lineno, id(node) in top
+        else:
+            named = _named_module(node)
+            if named:
+                yield named.split(".")[0], node.lineno, id(node) in top
 
 
 def _imported_roots(path):
@@ -66,6 +103,58 @@ def test_port_imports_only_the_card_machines_installs(path):
            if mod not in sys.stdlib_module_names and mod not in ALLOWED
            and (top or mod not in lazy)]
     assert not bad, f"{rel} imports {bad}"
+
+
+def test_named_imports_are_seen(tmp_path):
+    """The walk finds imports inside functions, imports by name and spawned
+    ``-m`` modules, so the two tests above cover them."""
+    src = ("import os\n"
+           "def f():\n"
+           "    import msgpack\n"
+           "    importlib.import_module('boto3.session')\n"
+           "    __import__('cloudpickle')\n"
+           "    return [sys.executable, '-m', 'ray_tpu._private.gcs']\n"
+           "def g(name):\n"
+           "    return importlib.import_module(f'jax.{name}')\n")
+    path = tmp_path / "_imports_probe.py"
+    path.write_text(src)
+    got = [(mod, top) for mod, _, top in _imports(str(path))]
+    assert got == [("os", True), ("msgpack", False), ("boto3", False),
+                   ("cloudpickle", False), ("ray_tpu", False),
+                   ("jax", False)]
+
+
+def test_runtime_imports_load_no_torch_nor_third_party_codecs():
+    """The runtime's modules (what every worker, raylet and GCS imports)
+    load neither torch nor a package the card lacks; the zygote's
+    pre-import, torch included, leaves CUDA uninitialised."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import actor, cluster_utils, exceptions, "
+        "object_ref, remote_function, runtime_context\n"
+        "from ray_tpu_torch._private import (async_util, common, "
+        "core_worker, cpp_store, external_storage, gcs, ids, logs, "
+        "memory_monitor, msgpack, node, object_store, pull_manager, raylet, "
+        "reference_counter, rpc, runtime_env, serialization, store_client, "
+        "task_events, wire, worker, worker_main)\n"
+        "from ray_tpu_torch._private.provisioner import framing, pool, "
+        "zygote\n"
+        "from ray_tpu_torch.util import accelerators\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('torch',)!r}]\n"
+        "assert not bad, bad\n"
+        "loaded = zygote.preimport(preimport_torch=True)\n"
+        "assert 'torch' in loaded, loaded\n"
+        "assert not sys.modules['torch'].cuda.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_import_builds_and_loads_no_kernel():
