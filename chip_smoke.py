@@ -137,7 +137,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    actor pends until the first is killed; init time, empty-task round
    trips, actor calls, put/get rates of a 256 MiB CPU tensor, the actor's
    start-to-ready time and its decode rate beside phase 9's on a ``runtime
-   metrics:`` line.
+   metrics:`` line;
+16. runtime training: ``TorchTrainer.fit()`` on a new port cluster
+   (``ray_tpu_torch.init(num_cpus=4)``, the card as ``GPU``) with one
+   ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) and
+   ``FailureConfig(max_failures=1)``; the loop (``runtime_training_loop``,
+   sent by value) builds phase 4's 1b bundle (seed 0) on the worker's card
+   and trains on phase 4's batch for 6 steps, reporting each step's loss,
+   seconds and kernel launches (counted in the worker: the
+   ``runtime_training`` path); after step 3 a report carries a
+   ``Checkpoint`` directory of the whole 10.63 GB state; the first worker
+   ``os._exit``s after step 4 once that checkpoint is committed, the
+   controller re-forms the group in a fresh process that resumes from step
+   3. Checks: one re-form (the controller's goodput ``reforms``), two pids,
+   each worker's ``CUDA_VISIBLE_DEVICES`` a card, the card at least 90 %
+   free as the second worker starts, step 1's loss equal to phase 4's and
+   every step within CKPT_LOSS_RTOL of it, the kernels' launches a step as
+   phase 4's in each incarnation; a ``runtime training metrics:`` line
+   (time to the first report, each group's formation, the worker's median
+   step beside phase 4's, the report's round trip, the checkpointed
+   report's pause and the commit, the controller's ``reform_downtime``,
+   the restore and host-to-device seconds, the whole fit).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -1144,10 +1164,11 @@ def check_vit_fit(cfg, run, images, labels, model) -> dict:
 
 
 def phase_training(card: str, config: str = TRAIN_CONFIG,
-                   label: str = "training") -> dict:
+                   label: str = "training"):
     """An LM config (the dense 1b, or moe-1b) trained for TRAIN_STEPS steps
     on one batch through ``TrainStepBundle`` with the kernels, at full
-    width and depth. Returns each kernel's launches in that run."""
+    width and depth. Returns each kernel's launches in that run, and the
+    run's record (``run_steps``)."""
     import numpy as np
     import torch
 
@@ -1196,7 +1217,7 @@ def phase_training(card: str, config: str = TRAIN_CONFIG,
             "formula; the experts' capacity padding (capacity_factor "
             f"{cfg.capacity_factor}) and the router are not counted")
     log(f"{label} metrics: " + json.dumps(metrics))
-    return launches
+    return launches, run
 
 
 def run_steps(step, n_steps: int, per_step: dict, label: str):
@@ -3976,6 +3997,344 @@ class RuntimeProbe:
         return os.getpid()
 
 
+RT_TRAIN_STEPS, RT_TRAIN_CKPT_AFTER, RT_TRAIN_CRASH_AFTER = 6, 3, 4
+RT_TRAIN_FREE_SHARE = 0.9  # of the card's memory free as a worker starts
+RT_TRAIN_FLUSH_S = "1"  # the runtime's metrics and goodput flush, seconds
+
+
+def runtime_training_loop(config):
+    """Phase 16's train loop, run by ``TorchTrainer`` in a worker that
+    holds the card. It crosses to the worker by value, so it imports what it
+    uses and takes everything else from ``config``: phase 4's 1b bundle
+    (full width and depth, ``init(seed)``, phase 4's optimizer) on phase
+    4's batch; ``config["steps"]`` steps, each reported with its loss,
+    seconds and the kernels' launches in this process so far (counted from
+    0 at the loop's start) and logged to ``config["log"]``; after step
+    ``ckpt_after`` a report with a ``Checkpoint`` directory holding the
+    whole state (``torch.save`` of params, Adam's moments and count); on
+    the first incarnation, ``os._exit(1)`` after step ``crash_after`` once
+    that checkpoint's manifest is committed. A resumed incarnation loads
+    the state from ``get_checkpoint()`` and takes the remaining steps."""
+    import json
+    import os
+    import shutil
+    import tempfile
+    import time
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.attention import (attention_delta,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_fwd)
+    from ray_tpu_torch.parallel import (OptState, TrainStepBundle,
+                                        make_optimizer)
+    from ray_tpu_torch.train.checkpoint import checkpoint_store
+
+    started = time.time()
+    # the driver's settings (phase_device), so products round alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()  # makes this process's context
+    cuda_init_s = time.perf_counter() - t
+    ctx = train.get_context()
+    t = time.perf_counter()
+    built = _build.build_all(["flash_fwd", "flash_bwd"])
+    info = {"pid": os.getpid(), "started_at": started,
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "free_bytes_at_start": free, "total_bytes": total,
+            "cuda_init_s": cuda_init_s,
+            # the libraries the driver built, loaded (nvcc runs only where
+            # the checkout has none)
+            "kernel_libs_s": time.perf_counter() - t,
+            "kernel_nvcc_s": sum(b.seconds for b in built.values()),
+            "group_formation": dict(getattr(ctx, "group_formation", {}))}
+    cfg = CONFIGS[config["model"]]
+    t = time.perf_counter()
+    bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
+        learning_rate=config["learning_rate"],
+        warmup_steps=config["warmup_steps"]))
+    batch = bundle.make_batch(np.random.default_rng(config["batch_seed"]),
+                              config["batch"], config["seq"])
+    ckpt = train.get_checkpoint()
+    if ckpt is None:
+        params, opt_state = bundle.init(seed=config["seed"])
+        start = 0
+    else:
+        t_load = time.perf_counter()
+        state = torch.load(os.path.join(ckpt.as_directory(), "state.pt"),
+                           map_location="cpu", weights_only=True)
+        info["restore_s"] = time.perf_counter() - t_load
+        t_h2d = time.perf_counter()
+        params = {k: v.to("cuda") for k, v in state["params"].items()}
+        opt_state = OptState(
+            state["count"], {k: v.to("cuda") for k, v in state["mu"].items()},
+            {k: v.to("cuda") for k, v in state["nu"].items()})
+        torch.cuda.synchronize()
+        info["h2d_s"] = time.perf_counter() - t_h2d
+        start = state["step"]
+        del state
+    torch.cuda.synchronize()
+    info["setup_s"] = time.perf_counter() - t
+    info["start"] = start
+    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+                flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    for step in range(start, config["steps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, loss = bundle.step(params, opt_state, batch)
+        loss = loss.item()
+        torch.cuda.synchronize()
+        row = {"step": step + 1, "loss": loss,
+               "step_s": time.perf_counter() - t,
+               "launches": {c.__name__: c.launches for c in counters},
+               "pid": os.getpid(), "start": start}
+        metrics = {k: row[k] for k in ("step", "loss", "step_s", "launches")}
+        if step + 1 == config["ckpt_after"]:
+            d = tempfile.mkdtemp(dir=config["scratch"])
+            try:
+                t = time.perf_counter()
+                torch.save({"params": {k: p.detach()
+                                       for k, p in params.items()},
+                            "count": opt_state.count, "mu": opt_state.mu,
+                            "nu": opt_state.nu, "step": step + 1},
+                           os.path.join(d, "state.pt"))
+                row["ckpt_write_s"] = time.perf_counter() - t
+                row["ckpt_report_started_at"] = time.time()
+                t = time.perf_counter()
+                train.report(metrics, checkpoint=train.Checkpoint(d))
+                row["ckpt_report_s"] = time.perf_counter() - t
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+        else:
+            t = time.perf_counter()
+            train.report(metrics)
+            row["report_s"] = time.perf_counter() - t
+        row["reported_at"] = time.time()
+        if step == start:
+            row.update(info)
+        crash = (step + 1 == config["crash_after"]
+                 and not os.path.exists(config["marker"]))
+        if crash:
+            # the checkpoint commits on the saver's background thread: die
+            # only once its manifest is durable
+            store = checkpoint_store(ctx.run_dir)
+            while True:
+                manifest = store.latest()
+                if manifest is not None \
+                        and manifest.step == config["ckpt_after"]:
+                    break
+                time.sleep(0.05)
+            row["ckpt_committed_at"] = manifest.ts
+            row["ckpt_bytes_written"] = manifest.stats.get("bytes_written")
+            row["crashed_at"] = time.time()
+        with open(config["log"], "a") as f:
+            f.write(json.dumps(row) + "\n")
+        if crash:
+            with open(config["marker"], "w") as f:
+                f.write(str(row["crashed_at"]))
+            os._exit(1)
+    return {"start": start}
+
+
+def cluster_goodput(job: str) -> dict:
+    """The GCS's goodput ledger of ``job``: its processes' buckets and
+    counters, summed."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    core = worker_mod.global_worker()
+    jobs = core._run(core._gcs_call("GetGoodput", {"job": job}))["jobs"]
+    return jobs.get(job, {})
+
+
+def phase_runtime_training(card: str, training: dict) -> dict:
+    """Phase 16: ``TorchTrainer.fit()`` on the port's runtime trains the 1b
+    at full width and depth in one ``num_gpus=1`` worker (the
+    ``runtime_training`` path): the worker dies after step 4, the controller
+    re-forms the group in a fresh process, which resumes from the checkpoint
+    of step 3. Held against phase 4's uninterrupted steps (``training``:
+    its losses and median step)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchTrainer)
+    from ray_tpu_torch.util.accelerators import detect_gpu_ids
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    state_bytes = 3 * 4 * cfg.num_params()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free = shutil.disk_usage(root).free
+    # the checkpoint's directory, the store's chunks and the directory the
+    # controller materializes at the restart
+    need = int(3.1 * state_bytes)
+    metrics = {"card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "state_bytes": state_bytes,
+               "disk_free_bytes": free,
+               "driver_allocated_bytes": torch.cuda.memory_allocated()}
+    saved_env = os.environ.get("RAY_TPU_METRICS_FLUSH_INTERVAL_S")
+    os.environ["RAY_TPU_METRICS_FLUSH_INTERVAL_S"] = RT_TRAIN_FLUSH_S
+    try:
+        if free < need:
+            raise RuntimeError(f"{root}: {free} bytes free, the phase needs "
+                               f"{need}")
+        rt.init(num_cpus=4)
+        try:
+            name = "runtime_training"
+            log_path = os.path.join(root, "steps.jsonl")
+            marker = os.path.join(root, "died_once")
+            trainer = TorchTrainer(
+                runtime_training_loop,
+                train_loop_config={
+                    "model": TRAIN_CONFIG, "seed": 0, "batch_seed": 0,
+                    "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                    "learning_rate": 1e-4, "warmup_steps": 1,
+                    "steps": RT_TRAIN_STEPS,
+                    "ckpt_after": RT_TRAIN_CKPT_AFTER,
+                    "crash_after": RT_TRAIN_CRASH_AFTER,
+                    "marker": marker, "log": log_path, "scratch": root},
+                scaling_config=ScalingConfig(
+                    num_workers=1, use_gpu=True,
+                    resources_per_worker={"CPU": 1, "GPU": 1}),
+                run_config=RunConfig(
+                    storage_path=root, name=name,
+                    failure_config=FailureConfig(max_failures=1)))
+            fit_at = time.time()
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            metrics["fit_s"] = time.perf_counter() - t0
+            time.sleep(2 * float(RT_TRAIN_FLUSH_S))  # the last flushes land
+            ledger = cluster_goodput(name)
+        finally:
+            rt.shutdown()
+        rows = [json.loads(line) for line in open(log_path)]
+    finally:
+        if saved_env is None:
+            os.environ.pop("RAY_TPU_METRICS_FLUSH_INTERVAL_S", None)
+        else:
+            os.environ["RAY_TPU_METRICS_FLUSH_INTERVAL_S"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+
+    if result.metrics.get("step") != RT_TRAIN_STEPS:
+        raise AssertionError(f"fit ended at {result.metrics}")
+    first = [r for r in rows if r["start"] == 0]
+    second = [r for r in rows if r["start"] != 0]
+    steps = [r["step"] for r in rows]
+    if steps != list(range(1, RT_TRAIN_CRASH_AFTER + 1)) + list(
+            range(RT_TRAIN_CKPT_AFTER + 1, RT_TRAIN_STEPS + 1)):
+        raise AssertionError(f"steps taken {steps}")
+    if {r["start"] for r in second} != {RT_TRAIN_CKPT_AFTER}:
+        raise AssertionError(f"the second incarnation started from "
+                             f"{[r['start'] for r in second]}")
+    pids = [first[0]["pid"], second[0]["pid"]]
+    if len({r["pid"] for r in rows}) != 2 or pids[0] == pids[1]:
+        raise AssertionError(f"worker pids {[r['pid'] for r in rows]}")
+    reforms = ledger.get("counters", {}).get("reforms")
+    if reforms != 1:
+        raise AssertionError(f"the controller counted {reforms} re-forms")
+    cards = detect_gpu_ids()[0]
+    for inc in (first[0], second[0]):
+        if inc["cuda_visible_devices"] not in cards:
+            raise AssertionError(f"a worker's CUDA_VISIBLE_DEVICES is "
+                                 f"{inc['cuda_visible_devices']!r}, not one "
+                                 f"of the cards {cards}")
+    share = second[0]["free_bytes_at_start"] / second[0]["total_bytes"]
+    if share < RT_TRAIN_FREE_SHARE:
+        raise AssertionError(f"the second worker found {share:.3f} of the "
+                             "card free: the first one's memory was held")
+    want = training["loss"][:RT_TRAIN_STEPS]
+    losses = {r["step"]: [] for r in rows}
+    for r in rows:
+        losses[r["step"]].append(r["loss"])
+    if first[0]["loss"] != want[0]:
+        raise AssertionError(f"step 1's loss {first[0]['loss']} is not phase "
+                             f"4's {want[0]}")
+    worst = max(abs(r["loss"] - want[r["step"] - 1]) / abs(want[r["step"] - 1])
+                for r in rows)
+    if not worst <= CKPT_LOSS_RTOL:
+        raise AssertionError(f"losses {losses} part from phase 4's {want} by "
+                             f"{worst} (relative), beyond {CKPT_LOSS_RTOL}")
+    per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+                "attention_delta": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    launches = dict.fromkeys(per_step, 0)
+    for inc in (first, second):
+        got = inc[-1]["launches"]
+        n = len(inc)
+        if got != {k: v * n for k, v in per_step.items()}:
+            raise AssertionError(f"a worker launched {got} in {n} steps, "
+                                 f"want {per_step} a step")
+        for k in launches:
+            launches[k] += got[k]
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    ckpt_row = next(r for r in first if "ckpt_report_s" in r)
+    crash_row = first[-1]
+    metrics.update({
+        "losses": losses, "phase4_losses": want, "max_rel_loss_err": worst,
+        "loss_rtol": CKPT_LOSS_RTOL,
+        "fit_to_first_report_s": first[0]["reported_at"] - fit_at,
+        "fit_to_loop_start_s": first[0]["started_at"] - fit_at,
+        "cuda_init_s": [inc[0]["cuda_init_s"] for inc in (first, second)],
+        "kernel_libs_s": [inc[0]["kernel_libs_s"] for inc in (first, second)],
+        "kernel_nvcc_s": [inc[0]["kernel_nvcc_s"]
+                          for inc in (first, second)],
+        # each incarnation's first step: its first launches in a fresh
+        # process
+        "first_step_s": [inc[0]["step_s"] for inc in (first, second)],
+        "formation": [inc[0]["group_formation"] for inc in (first, second)],
+        "setup_s": [inc[0]["setup_s"] for inc in (first, second)],
+        # each incarnation's first step is its warm-up
+        "step_s_median": median([r["step_s"] for inc in (first, second)
+                                 for r in inc[1:]]),
+        "step_s": [r["step_s"] for r in rows],
+        "phase4_step_s_median": training["step_s_median"],
+        "report_rtt_s_median": median([r["report_s"] for r in rows
+                                       if "report_s" in r]),
+        "ckpt_write_s": ckpt_row["ckpt_write_s"],
+        "ckpt_report_pause_s": ckpt_row["ckpt_report_s"],
+        # from the checkpointed report's start to its manifest's commit
+        "ckpt_commit_s": crash_row["ckpt_committed_at"]
+        - ckpt_row["ckpt_report_started_at"],
+        "ckpt_bytes_written": crash_row["ckpt_bytes_written"],
+        "reform_downtime_s": ledger["buckets"].get("reform_downtime"),
+        "reforms": reforms,
+        "crash_to_resumed_loop_s": second[0]["started_at"]
+        - crash_row["crashed_at"],
+        "restore_s": second[0]["restore_s"], "h2d_s": second[0]["h2d_s"],
+        "free_share_at_start": [inc[0]["free_bytes_at_start"]
+                                / inc[0]["total_bytes"]
+                                for inc in (first, second)],
+        "cuda_visible_devices": [inc[0]["cuda_visible_devices"]
+                                 for inc in (first, second)],
+        "pids": pids, "launches": launches,
+        "goodput_buckets": ledger.get("buckets")})
+    log(f"runtime training: fit {metrics['fit_s']:.2f} s, one re-form "
+        f"(pids {pids}), resumed from step {RT_TRAIN_CKPT_AFTER}; losses "
+        f"within {worst:.3g} of phase 4's; launches {launches} [{card}]")
+    log("runtime training metrics: " + json.dumps(metrics))
+    return launches
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -3997,10 +4356,11 @@ def main() -> int:
     fwd = phase_kernels(dev["card"])
     bwd = phase_bwd_kernels(dev["card"])
     d64 = phase_d64_kernels(dev["card"])
-    paths = {"training": phase_training(dev["card"])}
+    paths = {}
+    paths["training"], training = phase_training(dev["card"])
     phase_moe_layer(dev["card"])
-    paths["moe_training"] = phase_training(dev["card"], MOE_CONFIG,
-                                           "moe training")
+    paths["moe_training"], _ = phase_training(dev["card"], MOE_CONFIG,
+                                              "moe training")
     paths["vit_training"] = phase_vit_training(dev["card"])
     serving = phase_serving(dev["card"])
     serve_launches = serving["launches"]
@@ -4021,6 +4381,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["runtime_serving"] = phase_runtime_serving(dev["card"], serving)
     log(f"runtime serving: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["runtime_training"] = phase_runtime_training(dev["card"], training)
+    log(f"runtime training: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -10,7 +10,9 @@ traced or not (``parallel``), the collective group on ``torch.distributed``
 with its codecs and bucketed tier (``collective``), metrics, spans, the
 goodput ledger and GPU detection (``util``), the token-file loader
 (``data``), the checkpoint plane with its storage tiers (``ckpt``, over the
-mesh geometry of ``weights``), and the flash-attention forward and backward
+mesh geometry of ``weights``), the train plane on the runtime (``train``:
+``TorchTrainer``, its controller and worker groups on placement groups,
+``util.placement_group``), and the flash-attention forward and backward
 as CUDA kernels with ring and Ulysses attention on them (``ops``). Entry
 points run on the card unless given ``device="cpu"``; ``init`` starts a
 cluster whose raylet advertises the host's cards as the ``GPU`` resource.

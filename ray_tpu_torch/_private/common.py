@@ -190,10 +190,8 @@ _NOT_PORTED = {
     "device objects": "queue 1 item 3, weights and device channels "
                       "(ray_tpu/experimental/device_objects.py)",
     "client mode": "queue 1 item 6, utilities (ray_tpu/util/client/)",
-    "placement groups": "queue 1 item 6, utilities "
-                        "(ray_tpu/util/placement_group.py)",
-    "scheduling strategies": "queue 1 item 6, utilities "
-                             "(ray_tpu/util/scheduling_strategies.py)",
+    "the weight store": "queue 1 item 3, weights and device channels "
+                        "(ray_tpu/weights/store.py)",
 }
 
 

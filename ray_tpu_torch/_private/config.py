@@ -218,6 +218,9 @@ _d("ckpt_sweep_interval_s", 30.0)
 # chunks younger than this are never reaped on any tier (in-flight saves
 # and mirrors write chunks before the manifest that names them)
 _d("ckpt_sweep_grace_s", 300.0)
+# when set, train-run checkpoint stores become TieredStores mirroring to
+# a bucket rooted here (one prefix per run); "" keeps them local-only
+_d("ckpt_tier_root", "")
 
 # --- session ---
 _d("torch_session_root",

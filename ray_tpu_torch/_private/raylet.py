@@ -697,6 +697,12 @@ class Raylet:
                     self.idle_workers.remove(w)
                 for lease_id in list(w.leases):
                     self._release_lease(lease_id)
+                if w.cards:
+                    # a GPU lease's worker is gone, and with it whatever it
+                    # held on its cards: only now may another lease get them
+                    self._give_cards(w.cards)
+                    w.cards = {}
+                    self._wake_lease_waiters()
                 if w.address:
                     reason = f"exit code {code}"
                     if w.retired:
@@ -963,10 +969,9 @@ class Raylet:
             resources_add(pool, resources)
         w.leases.discard(lease_id)
         if w.cards:
-            # the lease's cards go back, and so does its worker: it may
-            # hold their memory (reference: max_calls=1 for GPU tasks)
-            self._give_cards(w.cards)
-            w.cards = {}
+            # the lease's worker goes with it, as it may hold the cards'
+            # memory (reference: max_calls=1 for GPU tasks); the cards go
+            # back once it has exited (_monitor_workers_loop)
             w.retired = True
             try:
                 w.proc.terminate()
@@ -976,6 +981,9 @@ class Raylet:
             w.idle_since = time.monotonic()
             if w not in self.idle_workers:
                 self.idle_workers.append(w)
+        self._wake_lease_waiters()
+
+    def _wake_lease_waiters(self):
         for fut in self._lease_waiters:
             if not fut.done():
                 fut.set_result(True)

@@ -91,8 +91,16 @@ def _register_builtin_types():
               common.TaskSpec, common.Bundle, common.PlacementGroupSpec,
               common.WorkerLease):
         register_struct(c)
-    # the scheduling strategies and PlacementGroup of ray_tpu/util are not
-    # ported yet (common.not_ported): the API refuses them before the wire
+    from ray_tpu_torch.util import scheduling_strategies as ss
+
+    for c in (ss.PlacementGroupSchedulingStrategy, ss.NodeAffinitySchedulingStrategy,
+              ss.NodeLabelSchedulingStrategy, ss.SpreadSchedulingStrategy):
+        register_struct(c)
+    from ray_tpu_torch.util.placement_group import PlacementGroup
+
+    register_struct(
+        PlacementGroup, fields=("id", "bundle_specs"),
+        decode=lambda f: PlacementGroup(f["id"], f["bundle_specs"]))
 
     # weight plane (weights/): mesh geometry + transfer-plan edges
     # cross the control plane (store manifests, dashboard stats)

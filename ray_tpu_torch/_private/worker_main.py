@@ -112,7 +112,7 @@ def run_worker(raylet_address: str, gcs_address: str, node_id_hex: str,
                     "orphaned (zygote gone) and raylet unreachable (%s); "
                     "exiting", e)
                 break
-        time.sleep(1.0)
+        stop.wait(1.0)
 
 
 def main():

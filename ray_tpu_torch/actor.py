@@ -2,9 +2,8 @@
 the port of ``ray_tpu/actor.py``.
 
 Reference: python/ray/actor.py (ActorClass._remote, ActorHandle,
-concurrency groups, max_restarts semantics). Placement groups, scheduling
-strategies, DAG authoring (``bind``) and device-object transports raise
-until the port has them.
+concurrency groups, max_restarts semantics). DAG authoring (``bind``) and
+device-object transports raise until the port has them.
 """
 
 from __future__ import annotations
@@ -21,14 +20,14 @@ _OPTION_FIELDS = set(ActorOptions.__dataclass_fields__)
 def build_actor_options(defaults: ActorOptions, overrides: Dict[str, Any]) -> ActorOptions:
     opts = copy.copy(defaults)
     for key, value in overrides.items():
-        if key == "scheduling_strategy" and value not in (None, "DEFAULT", "SPREAD"):
-            raise not_ported("scheduling strategies")
-        if key == "placement_group" and value is not None:
-            raise not_ported("placement groups")
         if key in _OPTION_FIELDS:
             setattr(opts, key, value)
         else:
             raise ValueError(f"unknown actor option {key!r}")
+    strat = opts.scheduling_strategy
+    if strat is not None and hasattr(strat, "placement_group"):
+        opts.placement_group = strat.placement_group
+        opts.placement_group_bundle_index = getattr(strat, "placement_group_bundle_index", -1)
     return opts
 
 

@@ -13,14 +13,20 @@ The backend follows the device: NCCL on the card (the default device), gloo
 on the CPU; asking for the card without one raises. The ops are
 ``TorchGroup``'s (``collective_group.py``). The bucketed tier
 (``bucketed.py``: the bucket plan, ``AsyncBucketReducer`` and
-``ShardedBucketOptimizer``) runs on these groups. Not ported yet:
-``create_collective_group`` and ``CollectiveActorMixin``, which declare a
-group for a set of actors and wait for the runtime's port (``ROADMAP.md``).
+``ShardedBucketOptimizer``) runs on these groups.
+
+A driver declares a group for a set of actors of the port's runtime with
+``create_collective_group``; each actor mixes in ``CollectiveActorMixin``.
+The rendezvous is explicit: the driver asks rank 0's actor for a free port
+on its host and hands every rank ``init_method="tcp://<host>:<port>"``.
+The JAX package's ``backend="cpu"`` is gloo here (its ``CpuStoreGroup``
+over a store actor is not ported), ``"xla"`` NCCL.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import socket
+from typing import Any, List, Optional
 
 from ray_tpu_torch.collective.bucketed import (AsyncBucketReducer, Bucket,
                                                BucketPlan,
@@ -38,6 +44,8 @@ from ray_tpu_torch.utils import DeviceLike
 
 __all__ = [
     "init_collective_group",
+    "create_collective_group",
+    "CollectiveActorMixin",
     "destroy_collective_group",
     "get_rank",
     "get_collective_group_size",
@@ -121,6 +129,36 @@ def init_collective_group(world_size: int, rank: int,
                            init_method)
 
 
+def _device_for(backend: str) -> str:
+    """The device a backend's tensors live on: the card for NCCL, the CPU
+    for gloo."""
+    return "cuda" if Backend.validate(backend) == Backend.NCCL else "cpu"
+
+
+def create_collective_group(actors: List[Any], world_size: int,
+                            ranks: List[int], backend: str = Backend.CPU,
+                            group_name: str = "default") -> None:
+    """Driver-side declaration for a set of actors (reference:
+    collective.py:222): rank 0's actor names a free port on its host, and
+    each actor inits its side of the group through that rendezvous. The
+    actors mix in ``CollectiveActorMixin``."""
+    import ray_tpu_torch
+
+    if len(actors) != len(ranks):
+        raise ValueError("actors and ranks must have equal length")
+    if 0 not in ranks:
+        raise ValueError("no actor is rank 0 of the group")
+    backend = Backend.validate(backend)
+    init_method = ray_tpu_torch.get(
+        actors[ranks.index(0)]._collective_rendezvous.remote(), timeout=300)
+    refs = [
+        actor._init_collective.remote(world_size, rank, backend, group_name,
+                                      init_method)
+        for actor, rank in zip(actors, ranks)
+    ]
+    ray_tpu_torch.get(refs, timeout=300)
+
+
 def destroy_collective_group(group_name: str = "default") -> None:
     _manager.destroy(group_name)
 
@@ -183,3 +221,34 @@ def recv(src_rank: int, group_name: str = "default", tag: int = 0):
 
 def barrier(group_name: str = "default"):
     return _manager.get(group_name).barrier()
+
+
+def rendezvous_address() -> str:
+    """``tcp://<host>:<port>`` for a free port on this process's host: the
+    host of its runtime worker's address (``127.0.0.1`` outside a
+    cluster)."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    host = "127.0.0.1"
+    if worker_mod.is_initialized():
+        address = getattr(worker_mod.global_worker(), "address", "")
+        host = address.rsplit(":", 1)[0] or host
+    with socket.socket() as s:
+        s.bind((host, 0))
+        port = s.getsockname()[1]
+    return f"tcp://{host}:{port}"
+
+
+class CollectiveActorMixin:
+    """Mixin giving actors the hooks ``create_collective_group`` calls."""
+
+    def _collective_rendezvous(self) -> str:
+        return rendezvous_address()
+
+    def _init_collective(self, world_size: int, rank: int, backend: str,
+                         group_name: str,
+                         init_method: Optional[str] = None) -> bool:
+        init_collective_group(world_size, rank, backend, group_name,
+                              device=_device_for(backend),
+                              init_method=init_method)
+        return True

@@ -1,7 +1,6 @@
 """@ray_tpu_torch.remote on functions: the port of
 ``ray_tpu/remote_function.py`` (reference: python/ray/remote_function.py).
-Placement groups, scheduling strategies and DAG authoring (``bind``) raise
-until the port has them."""
+DAG authoring (``bind``) raises until the port has it."""
 
 from __future__ import annotations
 
@@ -17,14 +16,17 @@ _OPTION_FIELDS = set(TaskOptions.__dataclass_fields__)
 def build_task_options(defaults: TaskOptions, overrides: Dict[str, Any]) -> TaskOptions:
     opts = copy.copy(defaults)
     for key, value in overrides.items():
-        if key == "scheduling_strategy" and value not in (None, "DEFAULT", "SPREAD"):
-            raise not_ported("scheduling strategies")
-        if key == "placement_group" and value is not None:
-            raise not_ported("placement groups")
         if key in _OPTION_FIELDS:
             setattr(opts, key, value)
         else:
             raise ValueError(f"unknown option {key!r}")
+    # a PlacementGroupSchedulingStrategy implies the pg fields
+    strat = opts.scheduling_strategy
+    if strat is not None and hasattr(strat, "placement_group"):
+        opts.placement_group = strat.placement_group
+        opts.placement_group_bundle_index = getattr(
+            strat, "placement_group_bundle_index", -1
+        )
     if opts.runtime_env:
         # validate HERE (decoration / .options() time), once — not per
         # .remote() in the submit hot loop; invalid envs raise to the user

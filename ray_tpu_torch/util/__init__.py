@@ -1,6 +1,8 @@
 """Observability of the port: the metrics registry (``metrics``), causal
 spans with a chrome://tracing export (``tracing``) and the goodput ledger
 (``goodput``), the counterparts of ``ray_tpu/util``'s modules of those
-names, and GPU detection for the raylet (``accelerators``, the port of
-the module that detects TPU chips). Metrics and the goodput ledger ship to
-the GCS inside the port's runtime; spans stay in the process."""
+names, GPU detection for the raylet (``accelerators``, the port of
+the module that detects TPU chips), and placement groups and scheduling
+strategies (``placement_group``, ``scheduling_strategies``). Metrics and
+the goodput ledger ship to the GCS inside the port's runtime; spans stay
+in the process."""

@@ -264,6 +264,40 @@ def test_gpu_task_runs_on_the_declared_card(cluster):
     assert ray_tpu_torch.get(on_card.remote(), timeout=T) == "0"
 
 
+def test_gpu_lease_gives_its_card_back_once_its_worker_exited(cluster):
+    """A GPU task's worker is retired with its lease, and may still hold the
+    card's memory while it exits: the next ``num_gpus=1`` task gets the
+    card only once that process is gone. The first task makes its worker
+    take 2 s to act on the raylet's SIGTERM (its handler's stop event sets
+    late), so a card handed back at the lease's return would start the
+    second task while the first process still lives."""
+    @ray_tpu_torch.remote(num_gpus=1)
+    def slow_to_exit():
+        import signal
+        import threading
+
+        handler = signal.getsignal(signal.SIGTERM)
+        stop = next(c.cell_contents for c in handler.__closure__
+                    if isinstance(c.cell_contents, threading.Event))
+        stop.set = lambda: threading.Timer(
+            2.0, threading.Event.set, (stop,)).start()
+        return os.getpid()
+
+    # another shape, so the owner asks for a lease of its own rather than
+    # run it on the first task's cached one
+    @ray_tpu_torch.remote(num_gpus=1, num_cpus=0.5)
+    def alive(pid):
+        try:
+            os.kill(pid, 0)  # a zombie not yet reaped counts as alive
+        except ProcessLookupError:
+            return os.getpid(), False
+        return os.getpid(), True
+
+    pid = ray_tpu_torch.get(slow_to_exit.remote(), timeout=T)
+    other, first_alive = ray_tpu_torch.get(alive.remote(pid), timeout=T)
+    assert other != pid and first_alive is False
+
+
 # ---------------------------------------------------------------------------
 # a cluster in which cloudpickle, msgpack and the JAX package cannot load
 # ---------------------------------------------------------------------------

@@ -196,6 +196,32 @@ def test_wire_weight_structs_byte_equal_both_ways():
     assert jax_wire.loads(pb) == jv
 
 
+def test_wire_scheduling_structs_byte_equal_both_ways():
+    """The placement group handle and the strategy objects, which options
+    carry to the GCS, cross the wire as the JAX package's do."""
+    import importlib
+
+    # ray_tpu.util re-exports the function placement_group: import modules
+    jax_pg = importlib.import_module("ray_tpu.util.placement_group")
+    jax_ss = importlib.import_module("ray_tpu.util.scheduling_strategies")
+    pg = importlib.import_module("ray_tpu_torch.util.placement_group")
+    ss = importlib.import_module("ray_tpu_torch.util.scheduling_strategies")
+
+    def values(i, pgm, sm):
+        group = pgm.PlacementGroup(i.PlacementGroupID(bytes(range(12))),
+                                   [{"CPU": 1.0, "GPU": 1.0}])
+        return [group, sm.PlacementGroupSchedulingStrategy(group, 1, True),
+                sm.NodeAffinitySchedulingStrategy("ab" * 28, soft=True),
+                sm.NodeLabelSchedulingStrategy({"k": "v"}, {"s": "t"}),
+                sm.SpreadSchedulingStrategy()]
+
+    jv, pv = values(jax_ids, jax_pg, jax_ss), values(ids, pg, ss)
+    jb, pb = jax_wire.dumps(jv), wire.dumps(pv)
+    assert pb == jb
+    assert wire.dumps(wire.loads(jb)) == jb
+    assert jax_wire.dumps(jax_wire.loads(pb)) == pb
+
+
 @pytest.mark.parametrize("kind", ["TaskOptions", "ActorOptions", "TaskSpec"])
 def test_wire_options_equal_but_for_the_accelerator_field(kind):
     """``num_tpus`` became ``num_gpus`` (names of one length): the bytes are
