@@ -157,7 +157,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (time to the first report, each group's formation, the worker's median
    step beside phase 4's, the report's round trip, the checkpointed
    report's pause and the commit, the controller's ``reform_downtime``,
-   the restore and host-to-device seconds, the whole fit).
+   the restore and host-to-device seconds, the whole fit);
+17. serve and weights: a new port cluster whose object store is sized
+   from ``/dev/shm`` (the version spills to disk where it does not fit), a
+   detached ``WeightStore``, the HTTP proxy, and ``build_openai_app`` of
+   the 1b at full width and depth (seed 0, the default ``EngineConfig``)
+   on two replicas of ``num_gpus=0.5`` each, bound to shares of the one
+   card; phase 9's 12 greedy requests over HTTP, one at a time, 32 new
+   tokens each, equal token for token (ids, text and finish reason) to an
+   in-process ``LLMServer`` answering them the same way; then 4 client
+   threads keep sending requests while the driver publishes seed-1 weights
+   as version 1 (``WeightStore.publish``, 3.54 GB of fp32) and
+   ``handle.broadcast("update_weights", ...)`` makes each replica pull
+   them, build its compute copies on the card and swap them in between
+   steps: both acknowledge version 1, no request fails and more than 20
+   are answered; the 12 requests again equal in-process serving of the
+   seed-1 weights token for token; each replica's ``flash_fwd`` launches
+   (counted in the replica, set to 0 before the first HTTP round and read
+   after the last: the ``serve`` path) are above 0; a ``serve weights
+   metrics:`` line (replicas ready, HTTP latency and the engine's TTFT,
+   decode tokens/s, publish and each replica's pull and swap, the
+   broadcast's acknowledgement, requests answered during the swap and
+   dropped, each replica's peak memory, ``/dev/shm``, the card).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -4335,6 +4356,243 @@ def phase_runtime_training(card: str, training: dict) -> dict:
     return launches
 
 
+SERVE_REPLICAS = 2
+SERVE_GPU_SHARE = 0.5  # two replicas on the one card: a rollout could not
+#                        start a whole-card replica while another holds it
+SERVE_TOKENS = 32
+SERVE_CLIENTS = 4  # threads sending requests through the swap
+SERVE_MIN_ANSWERED = 20  # requests the clients must get answered
+SERVE_STORE = "serve_1b"
+SERVE_STORE_MAX = 16 << 30  # the object store: at most this, or half of
+#                             /dev/shm's free bytes
+SERVE_TIMEOUT_S = 600.0  # each cluster call's and HTTP request's
+SERVE_AFTER_ACK_S = 3.0  # the clients go on this long after the acks
+
+
+def shm_bytes() -> dict:
+    st = os.statvfs("/dev/shm")
+    return {"size": st.f_frsize * st.f_blocks,
+            "free": st.f_frsize * st.f_bavail}
+
+
+def http_complete(port: int, name: str, prompt: str, max_tokens: int
+                  ) -> dict:
+    """One greedy completion over the HTTP proxy, with its token ids."""
+    import urllib.request
+    from urllib.parse import quote
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/{quote(name)}",
+        data=json.dumps({"prompt": prompt, "max_tokens": max_tokens,
+                         "return_token_ids": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as resp:
+        result = json.loads(resp.read())["result"]
+    choice = result["choices"][0]
+    return {"token_ids": choice["token_ids"], "text": choice["text"],
+            "finish_reason": choice["finish_reason"],
+            "ttft_s": result["usage"]["ttft_s"],
+            "latency_s": time.perf_counter() - t0}
+
+
+def in_process_answers(seed: int, prompts) -> list:
+    """Phase 17's reference: an ``LLMServer`` in this process on the card
+    (the 1b, weights from ``seed``) answering the prompts one at a time,
+    after one warm-up round, as the HTTP rounds send them."""
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+    server = LLMServer(LLMConfig(model_id="1b"), seed=seed, device="cuda")
+
+    async def one(prompt, max_tokens):
+        return await server.completions(prompt, max_tokens=max_tokens)
+
+    for p in prompts:
+        asyncio.run(one(p, 2))
+    out = [asyncio.run(one(p, SERVE_TOKENS)) for p in prompts]
+    torch.cuda.synchronize()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{k: o[k] for k in ("token_ids", "text", "finish_reason")}
+            for o in out]
+
+
+def check_answers(label: str, got: list, want: list) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if any(g[k] != w[k] for k in ("token_ids", "text", "finish_reason")):
+            raise AssertionError(
+                f"{label}: request {i} answered {g['token_ids'][:8]}... "
+                f"({g['finish_reason']}) over HTTP, in-process "
+                f"{w['token_ids'][:8]}... ({w['finish_reason']})")
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} of {len(want)} answered")
+
+
+def phase_serve_weights(card: str, serving: dict) -> dict:
+    """Phase 17: Serve and the weight plane on the port's runtime."""
+    import gc
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, build_openai_app
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.weights import WeightStore
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = serving["prompts"]
+    metrics = {"card": card}
+    t0 = time.perf_counter()
+    want0 = in_process_answers(0, prompts)
+    want1 = in_process_answers(1, prompts)
+    if [w["token_ids"] for w in want0] == [w["token_ids"] for w in want1]:
+        raise AssertionError("seeds 0 and 1 answer alike: the swap would "
+                             "not show")
+    metrics["in_process_rounds_s"] = time.perf_counter() - t0
+    cfg = LLMConfig(model_id="1b", num_replicas=SERVE_REPLICAS,
+                    ray_actor_options={"num_gpus": SERVE_GPU_SHARE})
+    # the version to publish: seed 1's fp32 weights, drawn on the card as
+    # in-process serving draws them, then on the host
+    t0 = time.perf_counter()
+    version = {k: v.cpu().numpy() for k, v in init_params(
+        cfg.transformer_config(), seed=1, device="cuda").items()}
+    torch.cuda.empty_cache()
+    nbytes = sum(v.nbytes for v in version.values())
+    metrics["version_bytes"] = nbytes
+    metrics["version_on_host_s"] = time.perf_counter() - t0
+
+    shm = shm_bytes()
+    store_mem = max(1 << 30, min(SERVE_STORE_MAX, shm["free"] // 2))
+    metrics.update(dev_shm_bytes=shm["size"], dev_shm_free_bytes=shm["free"],
+                   object_store_memory=store_mem,
+                   version_spills=nbytes > store_mem)
+    log(f"serve weights: /dev/shm {shm['size'] / 2**30:.2f} GiB "
+        f"({shm['free'] / 2**30:.2f} free); object store "
+        f"{store_mem / 2**30:.2f} GiB for a {nbytes / 1e9:.3f} GB version"
+        f"{' (it spills)' if nbytes > store_mem else ''}")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8, object_store_memory=store_mem)
+    metrics["init_s"] = time.perf_counter() - t0
+    try:
+        store = WeightStore(SERVE_STORE)
+        port = serve.start_http_proxy()
+        t0 = time.perf_counter()
+        handle = build_openai_app([cfg])[f"llm:{cfg.model_id}"]
+        name = handle._name
+        # each replica answers once its engine is built
+        rt.get([r.health.remote() for r in handle._replicas],
+               timeout=SERVE_TIMEOUT_S)
+        handle.broadcast("kernel_launches", timeout=SERVE_TIMEOUT_S)
+        metrics["replicas_ready_s"] = time.perf_counter() - t0
+        if len(handle._replicas) != SERVE_REPLICAS:
+            raise AssertionError(f"{len(handle._replicas)} replicas")
+        log(f"serve weights: {SERVE_REPLICAS} replicas of num_gpus="
+            f"{SERVE_GPU_SHARE} ready in {metrics['replicas_ready_s']:.2f} s;"
+            f" HTTP proxy on port {port}")
+        for p in prompts:  # warm-up, as the reference had
+            http_complete(port, name, p, 2)
+        handle.broadcast("kernel_launches", reset=True,
+                         timeout=SERVE_TIMEOUT_S)
+
+        got0 = [http_complete(port, name, p, SERVE_TOKENS) for p in prompts]
+        check_answers("seed 0", got0, want0)
+        log(f"serve weights: {len(got0)} HTTP answers equal in-process "
+            f"serving of seed 0 token for token")
+
+        answered, failures, during = [], [], []
+        stop = threading.Event()
+        window = {}
+
+        def client(i):
+            k = i
+            while not stop.is_set():
+                p = prompts[k % len(prompts)]
+                k += SERVE_CLIENTS
+                t_sub = time.perf_counter()
+                try:
+                    http_complete(port, name, p, SERVE_TOKENS)
+                    answered.append((t_sub, time.perf_counter()))
+                except Exception as e:  # a dropped request fails the phase
+                    failures.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + SERVE_TIMEOUT_S
+        while len(answered) < SERVE_CLIENTS and not failures and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        window["start"] = time.perf_counter()
+        v = store.publish(version, version=1)
+        window["published"] = time.perf_counter()
+        acks = handle.broadcast("update_weights", SERVE_STORE,
+                                timeout=SERVE_TIMEOUT_S)
+        window["acked"] = time.perf_counter()
+        time.sleep(SERVE_AFTER_ACK_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT_S)
+        if [a["version"] for a in acks] != [v] * SERVE_REPLICAS or v != 1:
+            raise AssertionError(f"acks {acks}, published version {v}")
+        if failures:
+            raise AssertionError(f"{len(failures)} requests failed during "
+                                 f"the swap: {failures[:3]}")
+        if len(answered) <= SERVE_MIN_ANSWERED:
+            raise AssertionError(f"{len(answered)} requests answered, want "
+                                 f"more than {SERVE_MIN_ANSWERED}")
+        during = [a for a in answered if a[1] >= window["start"]
+                  and a[0] <= window["acked"]]
+
+        got1 = [http_complete(port, name, p, SERVE_TOKENS) for p in prompts]
+        check_answers("seed 1", got1, want1)
+        launches = handle.broadcast("kernel_launches",
+                                    timeout=SERVE_TIMEOUT_S)
+        fwd = [c["flash_attention_fwd"] for c in launches]
+        if not all(n > 0 for n in fwd):
+            raise AssertionError(f"flash_fwd launches by replica {fwd}")
+        log(f"serve weights: broadcast acks {[a['version'] for a in acks]}; "
+            f"{len(answered)} requests answered through the swap, 0 failed;"
+            f" {len(got1)} HTTP answers equal in-process serving of seed 1 "
+            f"token for token; flash_fwd launches by replica {fwd}")
+
+        engines = handle.broadcast("engine_metrics", timeout=SERVE_TIMEOUT_S)
+        memory = handle.broadcast("memory_stats", timeout=SERVE_TIMEOUT_S)
+        lat = sorted(g["latency_s"] for g in got0 + got1)
+        ttft = sorted(g["ttft_s"] for g in got0 + got1)
+        publish_s = window["published"] - window["start"]
+        metrics.update(
+            http_latency_p50_s=percentile(lat, 0.5),
+            http_latency_max_s=lat[-1],
+            engine_ttft_p50_s=percentile(ttft, 0.5), engine_ttft_max_s=ttft[-1],
+            decode_tokens_per_s=[e["decode_tokens"] / e["decode_s"]
+                                 for e in engines],
+            publish_s=publish_s, publish_gb_s=nbytes / publish_s / 1e9,
+            pull_s=[a["pull_s"] for a in acks],
+            pull_gb_s=[nbytes / a["pull_s"] / 1e9 for a in acks],
+            swap_s=[a["swap_s"] for a in acks],
+            broadcast_ack_s=window["acked"] - window["published"],
+            answered=len(answered), answered_during_swap=len(during),
+            dropped=len(failures),
+            peak_memory_bytes=[m["max_allocated_bytes"] for m in memory],
+            flash_fwd_launches=fwd)
+        launched = {k: sum(c[k] for c in launches) for k in launches[0]}
+        serve.shutdown()
+        store.shutdown()
+    finally:
+        rt.shutdown()
+    log("serve weights metrics: " + json.dumps(metrics))
+    return launched
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -4384,6 +4642,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["runtime_training"] = phase_runtime_training(dev["card"], training)
     log(f"runtime training: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["serve"] = phase_serve_weights(dev["card"], serving)
+    log(f"serve and weights: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

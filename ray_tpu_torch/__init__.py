@@ -12,8 +12,12 @@ goodput ledger and GPU detection (``util``), the token-file loader
 (``data``), the checkpoint plane with its storage tiers (``ckpt``, over the
 mesh geometry of ``weights``), the train plane on the runtime (``train``:
 ``TorchTrainer``, its controller and worker groups on placement groups,
-``util.placement_group``), and the flash-attention forward and backward
-as CUDA kernels with ring and Ulysses attention on them (``ops``). Entry
+``util.placement_group``), Serve (``serve``: deployments, the controller,
+handles, autoscaling and an HTTP proxy on the standard library), the weight
+plane (``weights``: the versioned weight store and its transports), the
+GCS KV API (``experimental.internal_kv``), and the flash-attention forward
+and backward as CUDA kernels with ring and Ulysses attention on them
+(``ops``). Entry
 points run on the card unless given ``device="cpu"``; ``init`` starts a
 cluster whose raylet advertises the host's cards as the ``GPU`` resource.
 
@@ -45,9 +49,9 @@ from ray_tpu_torch.object_ref import ObjectRef
 from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch import exceptions
 
-_SUBMODULES = ("ckpt", "cluster_utils", "collective", "data", "llm",
-               "models", "ops", "parallel", "train", "util", "utils",
-               "weights")
+_SUBMODULES = ("ckpt", "cluster_utils", "collective", "data",
+               "experimental", "llm", "models", "ops", "parallel", "serve",
+               "train", "util", "utils", "weights")
 
 
 def __getattr__(name):

@@ -222,6 +222,11 @@ _d("ckpt_sweep_grace_s", 300.0)
 # a bucket rooted here (one prefix per run); "" keeps them local-only
 _d("ckpt_tier_root", "")
 
+# --- serve ---
+# failed health checks in a row before the controller replaces a replica
+# that is not known dead (a replica building its model answers late)
+_d("serve_health_strikes", 30)
+
 # --- session ---
 _d("torch_session_root",
    os.path.join(tempfile.gettempdir(), "ray_tpu_torch_sessions"))

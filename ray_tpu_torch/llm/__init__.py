@@ -1,7 +1,9 @@
-"""LLM layer of the port: continuous-batching paged-KV engine + server.
+"""LLM layer of the port: continuous-batching paged-KV engine, its server
+and the Serve deployment builders.
 
-Counterpart of ``ray_tpu/llm``. The engine and server load lazily, so
-importing this package builds and loads no kernel.
+Counterpart of ``ray_tpu/llm`` (``pd.py`` and ``data_llm.py`` are not ported
+yet: ROADMAP.md). The engine and server load lazily, so importing this
+package builds and loads no kernel.
 """
 
 from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
@@ -12,10 +14,11 @@ def __getattr__(name):
         from ray_tpu_torch.llm.engine import TorchLLMEngine
 
         return TorchLLMEngine
-    if name == "LLMServer":
-        from ray_tpu_torch.llm.serve_llm import LLMServer
+    if name in ("LLMServer", "LLMHandle", "build_llm_deployment",
+                "build_openai_app"):
+        from ray_tpu_torch.llm import serve_llm
 
-        return LLMServer
+        return getattr(serve_llm, name)
     raise AttributeError(name)
 
 
@@ -25,4 +28,7 @@ __all__ = [
     "SamplingParams",
     "TorchLLMEngine",
     "LLMServer",
+    "LLMHandle",
+    "build_llm_deployment",
+    "build_openai_app",
 ]

@@ -12,14 +12,19 @@ paged-KV model runner (prefill per shape bucket, one decode step):
   one decode step for all active slots; recompute preemption when pages run
   out.
 
-Weights: a flax-path state dict (``models.convert``), or random weights from
-``seed``. They are cast once, at load, into compute copies
-(``model_runner.compute_params``); the JAX engine keeps fp32 params and
-casts them in every step to the same values.
+Weights: a flax-path state dict (``models.convert``) or a flax tree (as
+the JAX engine takes), the params at ``config.checkpoint_path`` (a
+checkpoint-plane store or a legacy ``params.msgpack``, either package's:
+``_load_params``), or random weights from ``seed``. They are cast once, at
+load, into compute copies (``model_runner.compute_params``); the JAX engine
+keeps fp32 params and casts them in every step to the same values. Weights
+are swapped by assigning a new dict of compute copies to ``engine.params``
+between steps (``LLMServer.update_weights``): a step reads the dict it
+started with, and no tensor of it is written in place.
 
 The engine is synchronous and single-threaded by design; ``serve_llm``'s
-``LLMServer`` gives it an async front end. Loading and saving params through
-the checkpoint plane wait for that plane's port (ROADMAP.md).
+``LLMServer`` gives it an async front end. ``save_params`` commits params
+through the checkpoint plane in the JAX engine's layout.
 """
 
 from __future__ import annotations
@@ -74,8 +79,9 @@ class RequestOutput:
 class TorchLLMEngine:
     """Synchronous continuous-batching engine over the paged-KV model runner.
 
-    ``params``: a state dict keyed by flax paths (``models.convert``);
-    ``None`` draws random weights from ``seed``. ``device`` defaults to the
+    ``params``: a state dict keyed by flax paths (``models.convert``) or a
+    flax tree; ``None`` loads ``config.checkpoint_path`` where it is set and
+    draws random weights from ``seed`` otherwise. ``device`` defaults to the
     card and raises where there is none."""
 
     def __init__(self, config: LLMConfig, params: Any = None, seed: int = 0,
@@ -90,16 +96,12 @@ class TorchLLMEngine:
                 f"does (its model runner reads each layer's dense mlp); "
                 f"{config.model_id!r} has {self.mcfg.n_experts} experts")
         self.tokenizer = get_tokenizer(config.tokenizer)
-        if config.checkpoint_path:
-            raise NotImplementedError(
-                "loading params from a checkpoint waits for the checkpoint "
-                "plane's port (ROADMAP.md); pass params= instead")
 
+        if params is None and config.checkpoint_path:
+            params = _load_params(config.checkpoint_path)
         if params is None:
             params = init_params(self.mcfg, seed=seed, device=self.device)
-        check_params(params, self.mcfg)
-        self.params = model_runner.compute_params(params, self.mcfg,
-                                                  self.device)
+        self.params = self.compute_params(params)
         del params
 
         e = self.ecfg
@@ -125,6 +127,14 @@ class TorchLLMEngine:
                         "generated_tokens": 0, "preempted": 0,
                         "prefill_calls": 0, "decode_tokens": 0,
                         "prefill_s": 0.0, "decode_s": 0.0}
+
+    def compute_params(self, params: Any) -> Dict[str, torch.Tensor]:
+        """New compute copies on this engine's device of ``params`` (a
+        flax-path state dict or a flax tree, numpy or tensor leaves),
+        checked against the config; what ``engine.params`` holds."""
+        params = state_dict_of(params)
+        check_params(params, self.mcfg)
+        return model_runner.compute_params(params, self.mcfg, self.device)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -169,6 +179,12 @@ class TorchLLMEngine:
 
     def has_unfinished(self) -> bool:
         return bool(self._waiting) or bool(self._active.any())
+
+    def num_waiting(self) -> int:
+        return len(self._waiting)
+
+    def num_active(self) -> int:
+        return int(self._active.sum())
 
     # -- scheduling internals ----------------------------------------------
 
@@ -432,3 +448,118 @@ class TorchLLMEngine:
                         if t != self.tokenizer.eos_token_id]
                 r.text = self.tokenizer.decode(toks)
         return results
+
+
+# ---------------------------------------------------------------------------
+# params through the checkpoint plane
+# ---------------------------------------------------------------------------
+
+
+def state_dict_of(params: Any) -> Dict[str, Any]:
+    """A flax-path state dict (dotted keys, no ``params`` root) of a flax
+    tree, a flat state dict as it is; leaves are kept as tensors or made
+    tensors over the numpy arrays (copied only when read-only)."""
+    from collections.abc import Mapping
+
+    from ray_tpu_torch.models.convert import _flatten
+
+    if any(isinstance(v, Mapping) for v in params.values()):
+        if isinstance(params.get("params"), Mapping):
+            params = params["params"]
+        params = _flatten(params)
+
+    def tensor(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        arr = np.ascontiguousarray(v)
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+
+    return {k: tensor(v) for k, v in params.items()}
+
+
+def _ndarray_from_msgpack(data: bytes):
+    """flax's ndarray ext type: a msgpack ``(shape, dtype name, bytes)``;
+    bfloat16 (which numpy lacks) comes back as a tensor."""
+    from ray_tpu_torch._private import msgpack
+
+    shape, dtype, buf = msgpack.unpackb(data)
+    dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+    if dtype == "bfloat16":
+        flat = np.frombuffer(buf, dtype=np.uint16).copy()
+        return torch.from_numpy(flat).view(torch.bfloat16).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+
+
+# flax's msgpack ext type codes (flax/serialization.py:_MsgpackExtType)
+_MSGPACK_NDARRAY, _MSGPACK_NPSCALAR = 1, 3
+
+
+def _msgpack_ext(code: int, data: bytes):
+    from ray_tpu_torch._private import msgpack
+
+    if code == _MSGPACK_NDARRAY:
+        return _ndarray_from_msgpack(data)
+    if code == _MSGPACK_NPSCALAR:
+        return _ndarray_from_msgpack(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(tree):
+    """flax's chunked form of an array over 2**30 bytes, undone in place."""
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            shape = tuple(tree["shape"][str(i)]
+                          for i in range(len(tree["shape"])))
+            chunks = [tree["chunks"][str(i)]
+                      for i in range(len(tree["chunks"]))]
+            return np.concatenate(chunks).reshape(shape)
+        for k, v in tree.items():
+            tree[k] = _unchunk(v)
+    return tree
+
+
+def _load_params(path: str):
+    """Engine params from ``path``: a checkpoint-plane store (manifest +
+    content-addressed chunks — the format ``save_params`` writes, in either
+    package), or the legacy single-file ``params.msgpack`` layout (flax's
+    ``msgpack_serialize``, read with this package's msgpack). Returns the
+    flax tree, numpy leaves, as the JAX engine's ``_load_params`` does."""
+    import os
+
+    from ray_tpu_torch._private import msgpack
+    from ray_tpu_torch.ckpt import CheckpointStore, restore_tree
+
+    if os.path.isdir(path):
+        store = CheckpointStore(path, name="llm")
+        if store.latest_id() is not None:
+            return restore_tree(store)
+
+    fn = path if os.path.isfile(path) else os.path.join(path, "params.msgpack")
+    with open(fn, "rb") as f:
+        blob = f.read()
+    return _unchunk(msgpack.unpackb(blob, ext_hook=_msgpack_ext))
+
+
+def save_params(params: Any, path: str, *, step: int = 0) -> str:
+    """Commit engine params through the checkpoint plane: ``path`` becomes
+    a checkpoint store (manifest + chunks) holding the flax tree
+    ``{"params": {...}}`` in fp32 numpy, the JAX engine's layout, so either
+    package's ``_load_params`` reads it. Repeated saves of mostly-unchanged
+    params dedup to the shared chunk pool; a torn save never becomes
+    ``latest``. The engine holds compute copies (``compute_params``), so a
+    save of ``engine.params`` holds their values, widened exactly to fp32,
+    and loading it back gives the same compute copies."""
+    import os
+
+    from ray_tpu_torch.ckpt import CheckpointStore, save_checkpoint
+
+    tree: Dict[str, Any] = {}
+    for key, val in state_dict_of(params).items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val.detach().float().cpu().numpy()
+    store = CheckpointStore(path, name="llm")
+    manifest = save_checkpoint(store, {"params": tree}, step=step)
+    return os.path.join(path, "manifests", f"{manifest.ckpt_id}.json")

@@ -23,7 +23,6 @@ import time
 from typing import Any, Dict, List, Optional
 
 import ray_tpu_torch
-from ray_tpu_torch._private.common import not_ported
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import ScalingConfig
 from ray_tpu_torch.train.context import TrainContext, set_context
@@ -162,20 +161,68 @@ class TrainWorker:
         finally:
             set_context(None)
 
-    # -- weight plane: elastic state hand-off -----------------------------
+    # -- weight plane (weights/): elastic state hand-off -------------------
 
     def publish_weight_shards(self, store_name: str, version: int,
                               shard_tree: Any, durable: bool = True) -> int:
-        """Publish this rank's shard of the training state to the weight
-        store, for the next incarnation to pull resharded. The port has no
-        weight store yet: raises."""
-        raise not_ported("the weight store")
+        """Publish this rank's shard of the training state (every leaf
+        sharded equally along dim 0 across the group). ``durable=True``
+        routes the bytes through the store actor so the published version
+        outlives this worker — the elastic re-form path: a killed group's
+        surviving state is pulled back by the NEXT incarnation, resharded
+        onto its (smaller) mesh, via ``pull_weight_shards``. Leaves may be
+        numpy arrays or tensors (published as their numpy values)."""
+        from ray_tpu_torch.train.scaling_policy import mesh_spec_for
+        from ray_tpu_torch.util import tracing
+        from ray_tpu_torch.weights import (ShardedTreeSpec, WeightStore,
+                                           publish_host_shards)
+        from ray_tpu_torch.weights.spec import flatten_tree, host_boxes
+        from ray_tpu_torch.weights.store import _as_numpy
+
+        with tracing.profile("train.publish", category="train",
+                             store=store_name, version=version):
+            mesh = mesh_spec_for(self.world_size)
+            skeleton, leaves = flatten_tree(shard_tree)
+            leaves = {path: _as_numpy(leaf) for path, leaf in leaves.items()}
+            parts, meta, shards = {}, {}, {}
+            host = mesh.hosts[self.rank]
+            for path, arr in leaves.items():
+                parts[path] = ("data",) + (None,) * (arr.ndim - 1)
+                meta[path] = ((arr.shape[0] * self.world_size,)
+                              + arr.shape[1:], arr.dtype.str)
+            spec = ShardedTreeSpec(mesh=mesh, parts=parts, meta=meta)
+            for path, arr in leaves.items():
+                box = host_boxes(spec.mesh, parts[path], meta[path][0],
+                                 host)[0]
+                shards[path] = {box: arr}
+            publish_host_shards(WeightStore(store_name), version, spec, host,
+                                shards, skeleton=skeleton, durable=durable)
+        return version
 
     def pull_weight_shards(self, store_name: str,
                            version: Optional[int] = None) -> Dict[str, Any]:
         """Pull this rank's shard of the newest published state, resharded
-        onto this group's mesh. The port has no weight store yet: raises."""
-        raise not_ported("the weight store")
+        onto THIS group's mesh (the publisher's world size may differ —
+        that is the point). Returns ``{"version": v, "tree": shard_tree}``
+        with each leaf's dim 0 sized for this world (numpy leaves)."""
+        from ray_tpu_torch.train.scaling_policy import mesh_spec_for
+        from ray_tpu_torch.weights import ShardedTreeSpec, WeightStore
+        from ray_tpu_torch.weights.spec import unflatten_tree
+        from ray_tpu_torch.weights.store import _spec_from_payload
+
+        store = WeightStore(store_name)
+        man = store.manifest(version)
+        src = _spec_from_payload(man["spec"])
+        mesh = mesh_spec_for(self.world_size)
+        dst = ShardedTreeSpec(
+            mesh=mesh,
+            parts={p: ("data",) + (None,) * (len(shape) - 1)
+                   for p, (shape, _) in src.meta.items()},
+            meta=dict(src.meta))
+        shards, ver = store.pull_shards(dst, mesh.hosts[self.rank],
+                                        man["version"], return_version=True)
+        leaves = {p: next(iter(boxes.values())) for p, boxes in shards.items()}
+        return {"version": ver, "tree": unflatten_tree(man["skeleton"], leaves)}
 
     def shutdown(self):
         return True

@@ -12,7 +12,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu",
              # the JAX runtime's third-party imports, which the card lacks
-             "cloudpickle", "msgpack", "psutil", "boto3")
+             "cloudpickle", "msgpack", "psutil", "boto3",
+             # the JAX Serve's HTTP and gRPC ingress
+             "aiohttp", "grpc")
 # what the card's machine installs besides the standard library
 ALLOWED = ("torch", "numpy", "scipy", "einops", "triton", "ray_tpu_torch")
 # optional adapters imported inside the function that needs them, by file
@@ -125,8 +127,9 @@ def test_named_imports_are_seen(tmp_path):
 
 
 def test_runtime_imports_load_no_torch_nor_third_party_codecs():
-    """The runtime's modules (what every worker, raylet and GCS imports)
-    load neither torch nor a package the card lacks; the zygote's
+    """The runtime's modules (what every worker, raylet and GCS imports),
+    Serve's (what its controller, proxy and replicas import) and the weight
+    store's load neither torch nor a package the card lacks; the zygote's
     pre-import, torch included, leaves CUDA uninitialised."""
     code = (
         "import sys\n"
@@ -141,6 +144,11 @@ def test_runtime_imports_load_no_torch_nor_third_party_codecs():
         "from ray_tpu_torch._private.provisioner import framing, pool, "
         "zygote\n"
         "from ray_tpu_torch.util import accelerators\n"
+        "from ray_tpu_torch.serve import api, multiplex\n"
+        "from ray_tpu_torch.serve.autoscale import ingress, policy, router, "
+        "window\n"
+        "from ray_tpu_torch.experimental import internal_kv\n"
+        "from ray_tpu_torch.weights import store, transport\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('torch',)!r}]\n"
         "assert not bad, bad\n"
@@ -170,7 +178,10 @@ def test_import_builds_and_loads_no_kernel():
         "quant\n"
         "from ray_tpu_torch.util import goodput, metrics, tracing\n"
         "from ray_tpu_torch.ops import ring_attention\n"
-        "from ray_tpu_torch import ckpt, data, train, weights\n"
+        "from ray_tpu_torch import ckpt, data, experimental, serve, train, "
+        "weights\n"
+        "from ray_tpu_torch.serve import api, multiplex\n"
+        "from ray_tpu_torch.weights import store, transport\n"
         "from ray_tpu_torch.ckpt import manifest, restore, saver, store\n"
         "from ray_tpu_torch.ckpt.tier import backend, bucket, pario, "
         "sweeper, tiered\n"

@@ -98,16 +98,23 @@ def test_unported_options_raise_naming_the_roadmap(port_local):
 
 
 def test_weight_store_methods_raise_naming_the_roadmap(port_local):
-    """The train worker's weight-plane hand-off needs the weight store,
-    which the port does not have yet: both methods raise naming its
-    ROADMAP item."""
+    """The train worker's weight-plane hand-off runs on the ported weight
+    store (it raised before the store's port); the weight plane's one tier
+    still to port, the XLA reshard, raises naming its ROADMAP item."""
+    import numpy as np
+
+    from ray_tpu_torch import weights
     from ray_tpu_torch.train.worker_group import TrainWorker
 
     worker = TrainWorker.remote(0, 1)
-    for ref in (worker.publish_weight_shards.remote("store", 1, {}),
-                worker.pull_weight_shards.remote("store")):
-        with pytest.raises(TaskError, match="queue 1 item 3"):
-            ray_tpu_torch.get(ref)
+    m = np.arange(6, dtype=np.float32).reshape(2, 3)
+    assert ray_tpu_torch.get(worker.publish_weight_shards.remote(
+        "store", 1, {"opt": {"m": m}})) == 1
+    out = ray_tpu_torch.get(worker.pull_weight_shards.remote("store"))
+    assert out["version"] == 1
+    np.testing.assert_array_equal(out["tree"]["opt"]["m"], m)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        weights.jax_reshard({"w": m}, {"data": 1}, {})
 
 
 def test_actor_basics(port_local):
