@@ -178,7 +178,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    metrics:`` line (replicas ready, HTTP latency and the engine's TTFT,
    decode tokens/s, publish and each replica's pull and swap, the
    broadcast's acknowledgement, requests answered during the swap and
-   dropped, each replica's peak memory, ``/dev/shm``, the card).
+   dropped, each replica's peak memory, ``/dev/shm``, the card);
+18. pd and batch inference: a new port cluster; ``build_pd_openai_app``
+   of the 1b at full width and depth (seed-0 weights drawn in each
+   worker, the default ``EngineConfig``) with one prefill and one decode
+   worker of ``num_gpus=0.5`` each; a prefill reply seen by the driver is
+   a ``DeviceObjectMarker``; phase 9's 12 greedy prompts, one at a time,
+   32 new tokens each, equal token for token to phase 17's in-process
+   serving, each request's KV pulled once by the decode worker from the
+   prefill worker; the prefill worker's ``flash_fwd`` launches above 0 and
+   the decode worker's 0 (the ``pd`` path); then ``build_llm_processor``
+   of the 1b over ``from_items`` of the same prompts in 3 blocks: 12 rows
+   in order, each block equal token for token to an in-process
+   ``generate`` of its prompts, the engine actor's ``flash_fwd`` launches
+   above 0 (the ``batch_inference`` path); ``iter_device_batches`` on the
+   card equal to ``iter_batches``; a ``pd batch metrics:`` line (workers
+   and engine actor ready, each PD request's latency and TTFT, KV bytes
+   and pull seconds a request, the decode worker's tokens/s, batch
+   inference rows/s and tokens/s, device-batch GB/s and ``input_stall``
+   share, each worker's peak memory, the card).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -4396,10 +4414,21 @@ def http_complete(port: int, name: str, prompt: str, max_tokens: int
             "latency_s": time.perf_counter() - t0}
 
 
+_IN_PROCESS = {}  # (seed, prompts) -> in_process_answers' answers
+
+
 def in_process_answers(seed: int, prompts) -> list:
     """Phase 17's reference: an ``LLMServer`` in this process on the card
     (the 1b, weights from ``seed``) answering the prompts one at a time,
-    after one warm-up round, as the HTTP rounds send them."""
+    after one warm-up round, as the HTTP rounds send them. Kept for the
+    later phases that hold their answers to the same reference."""
+    key = (seed, tuple(prompts))
+    if key not in _IN_PROCESS:
+        _IN_PROCESS[key] = _in_process_answers(seed, prompts)
+    return _IN_PROCESS[key]
+
+
+def _in_process_answers(seed: int, prompts) -> list:
     import gc
 
     import torch
@@ -4593,6 +4622,244 @@ def phase_serve_weights(card: str, serving: dict) -> dict:
     return launched
 
 
+PD_GPU_SHARE = 0.5  # the prefill and the decode worker share the one card
+PD_TIMEOUT_S = 600.0  # each cluster call's
+BATCH_BLOCKS = 3  # the Dataset's blocks of phase 9's 12 prompts
+DEVICE_BATCH_ROWS = 1 << 22  # rows of the device-batch Dataset
+DEVICE_BATCH_SIZE = 1 << 16
+
+
+def kv_bytes(cfg, prompt_tokens: int) -> int:
+    """The bytes of a prompt's KV pages in the engine's cache (k and v,
+    every layer, whole pages)."""
+    m, e = cfg.transformer_config(), cfg.engine_config
+    pages = -(-prompt_tokens // e.page_size)
+    itemsize = 2  # the cache's bf16
+    return 2 * m.n_layers * pages * e.page_size * m.n_kv_heads * \
+        m.head_dim * itemsize
+
+
+def phase_pd_batch(card: str, serving: dict) -> dict:
+    """Phase 18: prefill/decode disaggregation behind Serve, batch inference
+    over a Dataset, and device batches, on a new port cluster."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental.device_objects import DeviceObjectMarker
+    from ray_tpu_torch.llm import (LLMConfig, SamplingParams,
+                                   build_llm_processor)
+    from ray_tpu_torch.llm.engine import TorchLLMEngine
+    from ray_tpu_torch.llm.pd import build_pd_openai_app
+    from ray_tpu_torch.util import goodput
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = serving["prompts"]
+    metrics = {"card": card}
+    sp = SamplingParams(max_tokens=SERVE_TOKENS)
+    # the references: in-process serving one request at a time (phase
+    # 17's), and an in-process engine's generate of each Dataset block
+    t0 = time.perf_counter()
+    want = in_process_answers(0, prompts)
+    per = -(-len(prompts) // BATCH_BLOCKS)
+    blocks = [prompts[i:i + per] for i in range(0, len(prompts), per)]
+    engine = TorchLLMEngine(LLMConfig(model_id="1b"), seed=0, device="cuda")
+    want_blocks = [[{"token_ids": list(o.token_ids), "text": o.text,
+                     "finish_reason": o.finish_reason}
+                    for o in engine.generate(b, sp)] for b in blocks]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics["in_process_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)
+    metrics["init_s"] = time.perf_counter() - t0
+    try:
+        if rt.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"the cluster advertises "
+                                 f"{rt.cluster_resources().get('GPU')} GPU")
+        # --- prefill/decode disaggregation -------------------------------
+        cfg = LLMConfig(model_id="1b",
+                        ray_actor_options={"num_gpus": PD_GPU_SHARE})
+        t0 = time.perf_counter()
+        handle = build_pd_openai_app(cfg)
+        workers = rt.get(handle.options(method_name="workers").remote(),
+                         timeout=PD_TIMEOUT_S)
+        pre, dec = workers["prefill"][0], workers["decode"][0]
+        rt.get([pre.metrics.remote(), dec.metrics.remote()],
+               timeout=PD_TIMEOUT_S)  # each answers once its engine is up
+        metrics["pd_workers_ready_s"] = time.perf_counter() - t0
+        for p in prompts:  # warm-up, as the reference had
+            rt.get(handle.remote({"prompt": p, "max_tokens": 2}),
+                   timeout=PD_TIMEOUT_S)
+        # a prefill reply seen by the driver is a marker; the KV stays in
+        # the prefill worker until the driver pulls it
+        ref = pre.prefill.remote(prompts[0], sp)
+        rt.wait([ref], num_returns=1, timeout=PD_TIMEOUT_S)
+        raw = global_worker().memory_store.get(ref.id)
+        if not isinstance(raw, DeviceObjectMarker):
+            raise AssertionError(f"prefill's reply is a {type(raw)}")
+        state = rt.get(ref, timeout=PD_TIMEOUT_S)
+        if state["k"].device.type != "cpu":
+            raise AssertionError("a pulled KV state arrives on the host")
+        del ref, state
+
+        rt.get([w.kernel_launches.remote(reset=True) for w in (pre, dec)],
+               timeout=PD_TIMEOUT_S)
+        dec0 = rt.get(dec.metrics.remote(), timeout=PD_TIMEOUT_S)
+        pulled0 = rt.get(dec.kv_pulls.remote(reset=True),
+                         timeout=PD_TIMEOUT_S)
+        got, pulls = [], []
+        for p in prompts:
+            t = time.perf_counter()
+            out = rt.get(handle.remote({"prompt": p,
+                                        "max_tokens": SERVE_TOKENS,
+                                        "return_token_ids": True}),
+                         timeout=PD_TIMEOUT_S)
+            latency = time.perf_counter() - t
+            choice = out["choices"][0]
+            got.append({"token_ids": choice["token_ids"],
+                        "text": choice["text"],
+                        "finish_reason": choice["finish_reason"],
+                        "ttft_s": out["usage"]["ttft_s"],
+                        "latency_s": latency})
+            pulls.append(rt.get(dec.kv_pulls.remote(reset=True),
+                                timeout=PD_TIMEOUT_S))
+        check_answers("pd", got, want)
+        launches = {"prefill": rt.get(pre.kernel_launches.remote(),
+                                      timeout=PD_TIMEOUT_S),
+                    "decode": rt.get(dec.kernel_launches.remote(),
+                                     timeout=PD_TIMEOUT_S)}
+        pm, dm = rt.get([pre.metrics.remote(), dec.metrics.remote()],
+                        timeout=PD_TIMEOUT_S)
+        fwd = {k: v["flash_attention_fwd"] for k, v in launches.items()}
+        if fwd["prefill"] <= 0 or fwd["decode"] != 0:
+            raise AssertionError(f"flash_fwd launches by worker {fwd}")
+        if pm["decode_steps"] != 0 or dm["prefill_tokens"] != 0:
+            raise AssertionError(f"the workers did not split the work: "
+                                 f"prefill {pm}, decode {dm}")
+        if [q["pulls"] for q in pulls] != [1] * len(prompts):
+            raise AssertionError(f"KV pulls a request {pulls}")
+        kv = [kv_bytes(cfg, len(p) + 1) for p in prompts]  # BOS + bytes
+        if any(q["bytes"] < b for q, b in zip(pulls, kv)):
+            raise AssertionError(f"pulled {[q['bytes'] for q in pulls]} "
+                                 f"bytes, the KV pages hold {kv}")
+        memory = rt.get([w.memory_stats.remote() for w in (pre, dec)],
+                        timeout=PD_TIMEOUT_S)
+        log(f"pd and batch inference: {len(got)} PD answers equal "
+            f"in-process serving token for token; flash_fwd launches "
+            f"{fwd}; prefill worker decode steps {pm['decode_steps']}, "
+            f"decode worker prefill tokens {dm['prefill_tokens']}; "
+            f"{pulled0['pulls']} pulls before the measured round")
+        lat = sorted(g["latency_s"] for g in got)
+        ttft = sorted(g["ttft_s"] for g in got)
+        metrics.update(
+            pd_latency_s=[g["latency_s"] for g in got],
+            pd_latency_p50_s=percentile(lat, 0.5), pd_latency_max_s=lat[-1],
+            pd_ttft_s=[g["ttft_s"] for g in got],
+            pd_ttft_p50_s=percentile(ttft, 0.5), pd_ttft_max_s=ttft[-1],
+            kv_page_bytes=kv, kv_pull_bytes=[q["bytes"] for q in pulls],
+            kv_pull_s=[q["seconds"] for q in pulls],
+            kv_pull_gb_s=[q["bytes"] / q["seconds"] / 1e9 for q in pulls],
+            decode_worker_tokens_per_s=(
+                (dm["decode_tokens"] - dec0["decode_tokens"])
+                / (dm["decode_s"] - dec0["decode_s"])),
+            prefill_worker_peak_bytes=memory[0]["max_allocated_bytes"],
+            decode_worker_peak_bytes=memory[1]["max_allocated_bytes"],
+            pd_flash_fwd_launches=fwd)
+        pd_launches = {k: launches["prefill"][k] + launches["decode"][k]
+                       for k in launches["prefill"]}
+        for w in (pre, dec):
+            rt.kill(w)
+        serve.delete(f"llm-pd:{cfg.model_id}")
+
+        # --- batch inference over a Dataset ------------------------------
+        t0 = time.perf_counter()
+        proc = build_llm_processor(
+            cfg, sampling_params=sp,
+            postprocess=lambda row, out: {
+                "prompt": row["prompt"], "generated_text": out["text"],
+                "token_ids": out["token_ids"],
+                "finish_reason": out["finish_reason"]})
+        eng = proc.engine_actor
+        rt.get(eng.kernel_launches.remote(reset=True), timeout=PD_TIMEOUT_S)
+        metrics["engine_actor_ready_s"] = time.perf_counter() - t0
+        ds = rd.from_items([{"prompt": p} for p in prompts],
+                           parallelism=BATCH_BLOCKS)
+        t0 = time.perf_counter()
+        rows = proc(ds).take_all()
+        wall = time.perf_counter() - t0
+        if [r["prompt"] for r in rows] != list(prompts):
+            raise AssertionError(f"{len(rows)} rows, not the prompts in "
+                                 f"order")
+        for i, (b, w) in enumerate(zip(blocks, want_blocks)):
+            block_rows = rows[i * per:i * per + len(b)]
+            check_answers(f"batch inference block {i}", [
+                {"token_ids": r["token_ids"], "text": r["generated_text"],
+                 "finish_reason": r["finish_reason"]} for r in block_rows], w)
+        bi_launches = rt.get(eng.kernel_launches.remote(),
+                             timeout=PD_TIMEOUT_S)
+        if bi_launches["flash_attention_fwd"] <= 0:
+            raise AssertionError(f"the engine actor's launches {bi_launches}")
+        em = rt.get(eng.memory_stats.remote(), timeout=PD_TIMEOUT_S)
+        tokens = sum(len(r["token_ids"]) for r in rows)
+        metrics.update(batch_rows=len(rows), batch_wall_s=wall,
+                       batch_rows_per_s=len(rows) / wall,
+                       batch_tokens_per_s=tokens / wall,
+                       engine_actor_peak_bytes=em["max_allocated_bytes"],
+                       batch_flash_fwd_launches=bi_launches[
+                           "flash_attention_fwd"])
+        log(f"pd and batch inference: {len(rows)} rows in order, each of "
+            f"{len(blocks)} blocks equal to an in-process generate token "
+            f"for token; engine actor flash_fwd launches "
+            f"{bi_launches['flash_attention_fwd']}")
+        proc.shutdown()
+
+        # --- device batches ----------------------------------------------
+        ds = rd.range(DEVICE_BATCH_ROWS, parallelism=8).map_batches(
+            lambda b: {"x": b["id"].astype(np.float32) * 0.5,
+                       "y": b["id"] % 7}).materialize()
+        host = list(ds.iter_batches(batch_size=DEVICE_BATCH_SIZE))
+        nbytes = sum(v.nbytes for b in host for v in b.values())
+        stall0 = goodput.snapshot()["buckets"]["input_stall"]
+        t0 = time.perf_counter()
+        on_card = list(ds.iter_device_batches(batch_size=DEVICE_BATCH_SIZE,
+                                              device_prefetch=2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stall = goodput.snapshot()["buckets"]["input_stall"] - stall0
+        if len(on_card) != len(host):
+            raise AssertionError(f"{len(on_card)} device batches, "
+                                 f"{len(host)} host batches")
+        for d, h in zip(on_card, host):
+            for k, v in h.items():
+                if not d[k].is_cuda or not torch.equal(
+                        d[k].cpu(), torch.from_numpy(v)):
+                    raise AssertionError(f"device batch column {k} differs "
+                                         f"from iter_batches")
+        metrics.update(device_batches=len(on_card), device_batch_bytes=nbytes,
+                       device_batch_s=wall,
+                       device_batch_gb_s=nbytes / wall / 1e9,
+                       input_stall_share=stall / wall)
+        log(f"pd and batch inference: {len(on_card)} device batches "
+            f"({nbytes / 1e6:.1f} MB) equal to iter_batches on the card")
+        del on_card
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    log("pd batch metrics: " + json.dumps(metrics))
+    return {"pd": pd_launches, "batch_inference": bi_launches}
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -4645,6 +4912,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["serve"] = phase_serve_weights(dev["card"], serving)
     log(f"serve and weights: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths.update(phase_pd_batch(dev["card"], serving))
+    log(f"pd and batch inference: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

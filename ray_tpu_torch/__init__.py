@@ -3,23 +3,24 @@
 A package of its own beside ``ray_tpu`` (the JAX reference), importing none
 of it. Ported so far: the runtime's single-node core (``init``, ``@remote``
 tasks and actors, ``put``/``get``/``wait``, the GCS, the raylet, the core
-worker and the shared-memory object store, under ``_private``), the
-paged-KV LLM serving path (``llm``), the decoder LMs and the ViT
-(``models``), their training step on one device or on a mesh of five axes,
-traced or not (``parallel``), the collective group on ``torch.distributed``
-with its codecs and bucketed tier (``collective``), metrics, spans, the
-goodput ledger and GPU detection (``util``), the token-file loader
+worker and the shared-memory object store, under ``_private``), the paged-KV
+LLM serving path with prefill/decode disaggregation and batch inference
+(``llm``), the decoder LMs and the ViT (``models``), their training step on
+one device or on a mesh of five axes, traced or not (``parallel``), the
+collective group on ``torch.distributed`` with its codecs and bucketed tier
+(``collective``), metrics, spans, the goodput ledger, GPU detection and the
+state API (``util``), the streaming Dataset and the token-file loader
 (``data``), the checkpoint plane with its storage tiers (``ckpt``, over the
 mesh geometry of ``weights``), the train plane on the runtime (``train``:
 ``TorchTrainer``, its controller and worker groups on placement groups,
 ``util.placement_group``), Serve (``serve``: deployments, the controller,
 handles, autoscaling and an HTTP proxy on the standard library), the weight
-plane (``weights``: the versioned weight store and its transports), the
-GCS KV API (``experimental.internal_kv``), and the flash-attention forward
-and backward as CUDA kernels with ring and Ulysses attention on them
-(``ops``). Entry
-points run on the card unless given ``device="cpu"``; ``init`` starts a
-cluster whose raylet advertises the host's cards as the ``GPU`` resource.
+plane (``weights``: the versioned weight store and its transports), the GCS
+KV API and device objects (``experimental``), and the flash-attention
+forward and backward as CUDA kernels with ring and Ulysses attention on them
+(``ops``). Entry points run on the card unless given ``device="cpu"``;
+``init`` starts a cluster whose raylet advertises the host's cards as the
+``GPU`` resource.
 
 Like the JAX package's ``__init__``, this module imports the runtime's API
 and nothing heavy: the other submodules load lazily, neither torch nor a

@@ -187,8 +187,6 @@ _NOT_PORTED = {
     "compiled DAGs": "queue 1 item 6, compiled DAGs (ray_tpu/dag/)",
     "the dashboard":
         "queue 1 item 6, cluster services (ray_tpu/dashboard/)",
-    "device objects": "queue 1 item 3, device channels and the XLA "
-                      "reshard tier (ray_tpu/experimental/device_objects.py)",
     "client mode": "queue 1 item 6, utilities (ray_tpu/util/client/)",
     "the XLA reshard tier":
         "queue 1 item 3, device channels and the XLA reshard tier "

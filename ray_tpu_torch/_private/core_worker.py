@@ -843,6 +843,12 @@ class CoreWorker:
         self._chan_closed: set = set()  # torn-down mailboxes drop pushes
         self.actor_instance = None
         self.actor_id: Optional[ActorID] = None
+        # device-object transport (reference: per-actor GPUObjectStore):
+        # values produced by tensor_transport-marked methods stay here
+        self.device_store: Dict[bytes, Any] = {}
+        self._device_fetch_cache: Dict[bytes, Any] = {}
+        # this process's pulls from holders: count, blob bytes, seconds
+        self.device_pull_stats = {"pulls": 0, "bytes": 0, "seconds": 0.0}
         self._actor_async = False
         self._exec_pool = None
         self._exec_lock = threading.Lock()
@@ -1406,10 +1412,49 @@ class CoreWorker:
             # pending: loop
 
     async def _maybe_pull_device(self, value, deadline):
-        """The JAX runtime resolves a device-object marker here. Device
-        objects are not ported (``not_ported("device objects")``), so no
-        value is a marker and every value passes through."""
-        return value
+        """Resolve a DeviceObjectMarker by pulling from the holder worker
+        (the held value itself when this worker IS the holder). Reference:
+        gpu_object_manager orchestrating p2p pulls between actors. The
+        pull is host-mediated: the holder serializes the value as the
+        object plane would (a CUDA tensor copied to the host) and it
+        arrives here as a CPU tensor."""
+        from ray_tpu_torch.experimental.device_objects import DeviceObjectMarker
+
+        if not isinstance(value, DeviceObjectMarker):
+            return value
+        if value.address == self.address:
+            if value.oid in self.device_store:
+                return self.device_store[value.oid]
+            raise ObjectLostError(
+                f"device object {value.oid.hex()[:12]} was freed")
+        cached = self._device_fetch_cache.get(value.oid)
+        if cached is not None:
+            return cached
+        timeout = max(1.0, min(deadline - time.monotonic(), 300.0))
+        t0 = time.perf_counter()
+        try:
+            reply = wire.loads(await self._worker_client(value.address).call(
+                "GetDeviceObject", wire.dumps({"oid": value.oid}),
+                timeout=timeout, retries=1, connect_timeout=5.0))
+        except (RpcError, asyncio.TimeoutError) as e:
+            raise ObjectLostError(
+                f"holder {value.address} of device object "
+                f"{value.oid.hex()[:12]} unreachable: {e}")
+        if reply["status"] != "ok":
+            self._device_fetch_cache.pop(value.oid, None)
+            raise ObjectLostError(
+                f"device object {value.oid.hex()[:12]} gone from holder "
+                f"{value.address} (freed or actor restarted)")
+        inband, buffers = read_blob(reply["blob"])
+        fetched = deserialize(inband, buffers)
+        stats = self.device_pull_stats
+        stats["pulls"] += 1
+        stats["bytes"] += len(reply["blob"])
+        stats["seconds"] += time.perf_counter() - t0
+        if len(self._device_fetch_cache) > 32:
+            self._device_fetch_cache.pop(next(iter(self._device_fetch_cache)))
+        self._device_fetch_cache[value.oid] = fetched
+        return fetched
 
     def get(self, refs, timeout: Optional[float] = None):
         single = isinstance(refs, ObjectRef)
@@ -1616,8 +1661,23 @@ class CoreWorker:
         self._maybe_drop_record(oid.task_id())
 
     async def _maybe_free_device_marker(self, value):
-        """Releases a device-held value in the JAX runtime; no value is one
-        here (see :meth:`_maybe_pull_device`)."""
+        """A marker's last reference is gone: release the value it points
+        at, here or on its holder."""
+        from ray_tpu_torch.experimental.device_objects import DeviceObjectMarker
+
+        if not isinstance(value, DeviceObjectMarker):
+            return
+        self._device_fetch_cache.pop(value.oid, None)
+        if value.address == self.address:
+            self.device_store.pop(value.oid, None)
+        else:
+            try:
+                await self._worker_client(value.address).call(
+                    "FreeDeviceObject", wire.dumps({"oid": value.oid}),
+                    timeout=10.0, retries=1)
+            except (RpcError, asyncio.TimeoutError, OSError) as e:
+                logger.debug("FreeDeviceObject to %s failed: %s",
+                             value.address, e)
 
     def _on_borrow_first(self, oid: bytes, owner: str):
         """First local handle to a foreign-owned object: register as a
@@ -2445,8 +2505,6 @@ class CoreWorker:
                           tensor_transport=""):
         """Non-blocking (see submit_task): actor calls pipeline without a
         per-call cross-thread round trip."""
-        if tensor_transport not in ("", "object"):
-            raise not_ported("device objects")
         task_id = TaskID.of(self.job_id)
         streaming = num_returns == "streaming"
         nret = 0 if streaming else num_returns
@@ -3029,6 +3087,21 @@ class CoreWorker:
             raise not_ported("the dashboard")
         if method == "Ping":
             return wire.dumps({"status": "ok", "pid": os.getpid()})
+        if method == "GetDeviceObject":
+            req = wire.loads(payload)
+            value = self.device_store.get(req["oid"])
+            if value is None and req["oid"] not in self.device_store:
+                return wire.dumps({"status": "gone"})
+            # large device->host copies must not stall the event loop
+            self._ensure_pool(1)
+            inband, buffers = await self.loop.run_in_executor(
+                self._exec_pool, serialize, value)
+            return wire.dumps({"status": "ok",
+                               "blob": pack_blob(inband, buffers)})
+        if method == "FreeDeviceObject":
+            req = wire.loads(payload)
+            freed = self.device_store.pop(req["oid"], None) is not None
+            return wire.dumps({"freed": freed})
         if method == "CheckActor":
             # GCS restart recovery probe: is the given actor instantiated
             # here? (dedups in-flight creations after an init-data replay)
@@ -3501,7 +3574,7 @@ class CoreWorker:
         return out
 
     async def _pack_results(self, spec: TaskSpec, result, err,
-                            borrows=()) -> dict:
+                            transport: str = "", borrows=()) -> dict:
         """Build one task's reply dict (callers pickle it, or embed it
         directly in a batch reply — no per-task double pickling)."""
         if err is not None:
@@ -3524,6 +3597,12 @@ class CoreWorker:
         nested: Dict[bytes, list] = {}
         for i, value in enumerate(values):
             oid = ObjectID.for_task_return(spec.task_id, i)
+            if transport:
+                # the value stays resident here; ship a small marker instead
+                from ray_tpu_torch.experimental.device_objects import DeviceObjectMarker
+
+                self.device_store[oid.binary()] = value
+                value = DeviceObjectMarker(oid.binary(), self.address, transport)
             with collect_serialized_refs() as inner:
                 inband, buffers = serialize(value)
             total = len(inband) + sum(b.nbytes for b in buffers)
@@ -3630,9 +3709,8 @@ class CoreWorker:
         # plain object-plane return (reference: ray.method override order)
         transport = (getattr(spec, "tensor_transport", "")
                      or getattr(method, "__ray_tpu_tensor_transport__", ""))
-        if transport not in ("", "object"):
-            err = TaskError(repr(not_ported("device objects")), "")
-            return wire.dumps({"status": "app_error", "error": pickle.dumps(err)})
+        if transport == "object":
+            transport = ""
         args, kwargs, seen_refs = await self._resolve_args(spec.args_blob)
         if spec.num_returns == -1:
             return await self._exec_actor_streaming(
@@ -3670,7 +3748,7 @@ class CoreWorker:
         self._trace_task(spec, spec.method_name, t0, err)
         del args, kwargs  # drop our handles before computing borrows
         return wire.dumps(await self._pack_results(
-            spec, result, err,
+            spec, result, err, transport=transport,
             borrows=self._surviving_borrows(seen_refs)))
 
     # ------------------------------------------------------------------

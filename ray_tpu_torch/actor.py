@@ -2,8 +2,8 @@
 the port of ``ray_tpu/actor.py``.
 
 Reference: python/ray/actor.py (ActorClass._remote, ActorHandle,
-concurrency groups, max_restarts semantics). DAG authoring (``bind``) and
-device-object transports raise until the port has them.
+concurrency groups, max_restarts semantics). DAG authoring (``bind``)
+raises until the port has compiled DAGs.
 """
 
 from __future__ import annotations
@@ -148,10 +148,9 @@ class ActorClass:
 
 def method(num_returns: int = 1, concurrency_group: str = "", tensor_transport: str = ""):
     """@ray_tpu_torch.method decorator for per-method options (reference:
-    ray.method). A ``tensor_transport`` other than the object plane's needs
-    device objects, which the port does not have yet."""
-    if tensor_transport not in ("", "object"):
-        raise not_ported("device objects")
+    ray.method). Any non-empty ``tensor_transport`` but ``"object"`` keeps
+    the returned value in the producing worker and ships a
+    ``DeviceObjectMarker`` (``experimental/device_objects.py``)."""
 
     def decorator(fn):
         fn.__ray_tpu_num_returns__ = num_returns

@@ -1,3 +1,3 @@
-"""ray_tpu_torch.experimental: the internal KV API (``internal_kv``), the
-port of ``ray_tpu/experimental``'s. Device objects are not ported yet
-(ROADMAP.md)."""
+"""ray_tpu_torch.experimental: the internal KV API (``internal_kv``) and the
+device-object transport (``device_objects``), the port of
+``ray_tpu/experimental``'s."""

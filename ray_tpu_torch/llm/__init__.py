@@ -1,9 +1,10 @@
-"""LLM layer of the port: continuous-batching paged-KV engine, its server
-and the Serve deployment builders.
+"""LLM layer of the port: continuous-batching paged-KV engine, its server,
+the Serve deployment builders, prefill/decode disaggregation and
+data-parallel serving (``pd``), and batch inference over a Dataset
+(``data_llm``).
 
-Counterpart of ``ray_tpu/llm`` (``pd.py`` and ``data_llm.py`` are not ported
-yet: ROADMAP.md). The engine and server load lazily, so importing this
-package builds and loads no kernel.
+Counterpart of ``ray_tpu/llm``. The engine and server load lazily, so
+importing this package builds and loads no kernel.
 """
 
 from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
@@ -19,6 +20,10 @@ def __getattr__(name):
         from ray_tpu_torch.llm import serve_llm
 
         return getattr(serve_llm, name)
+    if name == "build_llm_processor":
+        from ray_tpu_torch.llm.data_llm import build_llm_processor
+
+        return build_llm_processor
     raise AttributeError(name)
 
 
@@ -31,4 +36,5 @@ __all__ = [
     "LLMHandle",
     "build_llm_deployment",
     "build_openai_app",
+    "build_llm_processor",
 ]

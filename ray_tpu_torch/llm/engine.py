@@ -373,8 +373,11 @@ class TorchLLMEngine:
 
     def export_kv(self, request_id: str) -> dict:
         """Gather a live request's KV pages + scheduling state, releasing
-        the request locally. The pages come back as CPU tensors in the
-        cache dtype, [L, n_pages, P, KVH, HD]."""
+        the request locally. The pages come back as a gathered copy in the
+        cache dtype, [L, n_pages, P, KVH, HD], on the engine's device: a
+        prefill worker keeps them there until the decode worker pulls
+        them, and pickling the state (the object plane) copies them to
+        the host."""
         req = self._requests.get(request_id)
         if req is None or req.slot < 0:
             raise KeyError(f"no live request {request_id}")
@@ -388,8 +391,8 @@ class TorchLLMEngine:
             "finish_reason": req.finish_reason,
             "params": req.params,
             "ttft_s": req.ttft_s,
-            "k": self.cache.k[:, pages].cpu(),
-            "v": self.cache.v[:, pages].cpu(),
+            "k": self.cache.k[:, pages],
+            "v": self.cache.v[:, pages],
         }
         self.abort_request(request_id)
         return state

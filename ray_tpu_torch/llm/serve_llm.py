@@ -212,19 +212,9 @@ class LLMServer:
     def kernel_launches(self, reset: bool = False) -> Dict[str, int]:
         """This process's launch count of each attention kernel wrapper
         (``ops.attention``), set to 0 after reading when ``reset``."""
-        from ray_tpu_torch.ops.attention import (attention_delta,
-                                                 flash_attention_bwd,
-                                                 flash_attention_bwd_dkv,
-                                                 flash_attention_bwd_dq,
-                                                 flash_attention_fwd)
+        from ray_tpu_torch.ops.attention import launch_counts
 
-        wrappers = (flash_attention_fwd, attention_delta, flash_attention_bwd,
-                    flash_attention_bwd_dq, flash_attention_bwd_dkv)
-        counts = {fn.__name__: fn.launches for fn in wrappers}
-        if reset:
-            for fn in wrappers:
-                fn.launches = 0
-        return counts
+        return launch_counts(reset)
 
 
 def _sync(device) -> None:

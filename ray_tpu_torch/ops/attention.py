@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -503,3 +503,16 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
     if impl == "xla":
         return reference_attention(q, k, v, causal, segment_ids)
     raise ValueError(f"unknown attention impl {impl!r}: auto, flash or xla")
+
+
+def launch_counts(reset: bool = False) -> Dict[str, int]:
+    """This process's launch count of each kernel wrapper, by its name; set
+    to 0 after reading when ``reset``. What a serving process reports so a
+    caller can see which kernels its path ran."""
+    wrappers = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+                flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    if reset:
+        for fn in wrappers:
+            fn.launches = 0
+    return counts

@@ -807,3 +807,58 @@ def test_runtime_gpu_task_returns_a_card_tensor(cuda_device):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     finally:
         rt.shutdown()
+
+
+def test_device_object_and_device_batches_on_the_card(cuda_device):
+    """A ``tensor_transport``-marked actor method's CUDA tensor stays on its
+    worker's card (the driver holds a marker) and the driver's pull gives
+    it as a CPU tensor, bit for bit; ``iter_device_batches`` yields CUDA
+    tensors equal to ``iter_batches``. (The actor class is local, so it
+    travels by value.)"""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.experimental.device_objects import (DeviceObjectMarker,
+                                                           free)
+
+    class Holder:
+        @rt.method(tensor_transport="device")
+        def make(self, n: int):
+            import torch
+
+            g = torch.Generator(device="cuda").manual_seed(5)
+            return torch.randn(n, generator=g, device="cuda")
+
+        def where(self):
+            from ray_tpu_torch._private.worker import global_worker
+
+            return [str(v.device) for v in global_worker().device_store.values()]
+
+    rt.shutdown()
+    rt.init(num_cpus=2)
+    try:
+        holder = rt.remote(num_gpus=1)(Holder).remote()
+        ref = holder.make.remote(1 << 20)
+        rt.wait([ref], num_returns=1, timeout=300)
+        assert isinstance(global_worker().memory_store.get(ref.id),
+                          DeviceObjectMarker)
+        assert rt.get(holder.where.remote(), timeout=300) == ["cuda:0"]
+        got = rt.get(ref, timeout=300)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        want = torch.randn(1 << 20, generator=g, device="cuda").cpu()
+        assert got.device.type == "cpu" and torch.equal(got, want)
+        assert free(ref) is True
+        assert rt.get(holder.where.remote(), timeout=300) == []
+
+        ds = rd.range(1 << 16, parallelism=4).map_batches(
+            lambda b: {"x": b["id"].astype(np.float32), "y": b["id"] % 5})
+        host = list(ds.iter_batches(batch_size=4096))
+        card = list(ds.iter_device_batches(batch_size=4096,
+                                           device_prefetch=3))
+        assert len(card) == len(host) == 16
+        for c, h in zip(card, host):
+            for k, v in h.items():
+                assert c[k].is_cuda
+                assert torch.equal(c[k].cpu(), torch.from_numpy(v))
+    finally:
+        rt.shutdown()

@@ -19,6 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu",
 ALLOWED = ("torch", "numpy", "scipy", "einops", "triton", "ray_tpu_torch")
 # optional adapters imported inside the function that needs them, by file
 LAZY_ADAPTERS = {"ray_tpu_torch/llm/tokenizer.py": {"transformers"},
+                 # the Dataset's parquet and pandas interchange (it raises
+                 # naming the package where it is missing)
+                 "ray_tpu_torch/data/block.py": {"pandas", "pyarrow"},
                  # a pip runtime env runs ``python -m pip install`` in the
                  # env's venv, only for a task or actor that asks for one
                  "ray_tpu_torch/_private/runtime_env.py": {"pip"}}
@@ -128,8 +131,10 @@ def test_named_imports_are_seen(tmp_path):
 
 def test_runtime_imports_load_no_torch_nor_third_party_codecs():
     """The runtime's modules (what every worker, raylet and GCS imports),
-    Serve's (what its controller, proxy and replicas import) and the weight
-    store's load neither torch nor a package the card lacks; the zygote's
+    Serve's (what its controller, proxy and replicas import), the weight
+    store's, the Dataset's (what its tasks import), the PD router's and the
+    batch processor's load neither torch nor a package the card lacks; the
+    zygote's
     pre-import, torch included, leaves CUDA uninitialised."""
     code = (
         "import sys\n"
@@ -147,8 +152,15 @@ def test_runtime_imports_load_no_torch_nor_third_party_codecs():
         "from ray_tpu_torch.serve import api, multiplex\n"
         "from ray_tpu_torch.serve.autoscale import ingress, policy, router, "
         "window\n"
-        "from ray_tpu_torch.experimental import internal_kv\n"
+        "from ray_tpu_torch.experimental import device_objects, "
+        "internal_kv\n"
         "from ray_tpu_torch.weights import store, transport\n"
+        "from ray_tpu_torch.data import block, context, dataset, "
+        "datasources\n"
+        "from ray_tpu_torch.data._internal import executor, operators, "
+        "tasks\n"
+        "from ray_tpu_torch.llm import data_llm, pd\n"
+        "from ray_tpu_torch.util import state\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + ('torch',)!r}]\n"
         "assert not bad, bad\n"
@@ -203,3 +215,90 @@ def test_import_builds_and_loads_no_kernel():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the Dataset, PD serving and batch inference with pyarrow, pandas,
+# cloudpickle and the JAX package blocked
+# ---------------------------------------------------------------------------
+
+_BLOCKED = ("pyarrow", "pandas", "cloudpickle", "msgpack", "jax", "ray_tpu")
+
+_DRIVER = """
+import sys, tempfile
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch import data as rd
+from ray_tpu_torch.llm import (EngineConfig, LLMConfig, SamplingParams,
+                               build_llm_processor)
+from ray_tpu_torch.llm.pd import build_pd_openai_app
+
+rt.init(num_cpus=6, device="cpu")
+ds = rd.from_items([{"k": i % 3, "v": float(i)} for i in range(30)],
+                   parallelism=3)
+print(sorted((r["k"], r["sum(v)"]) for r in ds.groupby("k").sum("v")
+             .take_all()))
+print([r["v"] for r in ds.sort("v", descending=True).take(2)])
+users = rd.from_items([{"k": i, "name": f"u{i}"} for i in range(3)])
+print(sorted(r["name"] for r in ds.join(users, on="k").take_all())[::10])
+d = tempfile.mkdtemp()
+ds.write_csv(d)
+print(rd.read_csv(d).count())
+print([float(b["v"].sum()) for b in ds.map_batches(
+    lambda b: {"v": b["v"] * 2}).iter_device_batches(batch_size=10,
+                                                      device="cpu")])
+for fn in (lambda: ds.write_parquet(d), lambda: rd.read_parquet(d),
+           ds.to_pandas):
+    try:
+        fn()
+    except ImportError as e:
+        print("needs pyarrow" in str(e) or "needs pandas" in str(e))
+print(sorted({n for r in ds.map(lambda r: {"loaded": [
+    m for m in BLOCKED if m in sys.modules]}).take_all()
+              for n in r["loaded"]}))
+cfg = LLMConfig(model_id="tiny", engine_config=EngineConfig(
+    max_num_seqs=4, max_model_len=128, page_size=16, prefill_bucket_min=16),
+    model_overrides={"dtype": "float32"},
+    ray_actor_options={"num_cpus": 0.5})
+from ray_tpu_torch.llm.engine import TorchLLMEngine
+want = TorchLLMEngine(cfg, device="cpu").generate(
+    ["hi there", "b"], SamplingParams(max_tokens=4))
+h = build_pd_openai_app(cfg, device="cpu")
+out = rt.get(h.remote({"prompt": "hi there", "max_tokens": 4,
+                       "return_token_ids": True}), timeout=120)
+print(out["choices"][0]["token_ids"] == want[0].token_ids)
+proc = build_llm_processor(cfg, sampling_params=SamplingParams(max_tokens=4),
+                           device="cpu")
+rows = proc(rd.from_items([{"prompt": "hi there"}, {"prompt": "b"}],
+                          parallelism=1)).take_all()
+print([r["generated_text"] for r in rows] == [o.text for o in want])
+proc.shutdown()
+print([n for n in BLOCKED if n in sys.modules])
+rt.shutdown()
+"""
+
+
+def test_dataset_pd_and_batch_inference_without_arrow_pandas_or_jax(
+        tmp_path):
+    """The Dataset (groupby, sort, join, CSV, device batches), PD serving
+    and batch inference run in a cluster whose driver, GCS, raylet and
+    workers cannot import pyarrow, pandas, cloudpickle, msgpack or the JAX
+    package (shadowed on ``PYTHONPATH`` by modules that raise); parquet and
+    pandas calls raise ImportError naming their package."""
+    shim = tmp_path / "shim"
+    shim.mkdir()
+    for name in _BLOCKED:
+        (shim / f"{name}.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    env["PYTHONPATH"] = f"{shim}{os.pathsep}{REPO}"
+    out = subprocess.run(
+        [sys.executable, "-c", f"BLOCKED = {_BLOCKED!r}\n" + _DRIVER],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[:12] == [
+        "[(0, 135.0), (1, 145.0), (2, 155.0)]", "[29.0, 28.0]",
+        "['u0', 'u1', 'u2']", "30", "[90.0, 290.0, 490.0]", "True", "True",
+        "True", "[]", "True", "True", "[]"], out.stdout

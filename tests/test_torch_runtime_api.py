@@ -75,8 +75,7 @@ def test_unported_options_raise_naming_the_roadmap(port_local):
     class A:
         pass
 
-    for make in (lambda: f.bind(), lambda: A.bind(),
-                 lambda: ray_tpu_torch.method(tensor_transport="nccl")):
+    for make in (lambda: f.bind(), lambda: A.bind()):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
     # placement groups and the strategy objects are ported: the options
