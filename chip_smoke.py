@@ -196,7 +196,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and engine actor ready, each PD request's latency and TTFT, KV bytes
    and pull seconds a request, the decode worker's tokens/s, batch
    inference rows/s and tokens/s, device-batch GB/s and ``input_stall``
-   share, each worker's peak memory, the card).
+   share, each worker's peak memory, the card);
+19. runtime faults: a new port cluster with tracing on in every process;
+   a ``num_gpus=1`` actor of the 1b at full width and depth (seed 0) with
+   ``max_restarts=1`` answers phase 9's 12 greedy prompts at once, 32
+   tokens each, token for token as phase 17's in-process serving; killed
+   with ``kill(actor, no_restart=False)``, it comes back on a detected
+   card once the old worker has exited and answers again the same way,
+   its ``flash_fwd`` launches above 0 (the ``runtime_restart`` path); one
+   prompt's tokens streamed from it (``num_returns="streaming"``) equal
+   phase 9's, a second stream cancelled after 4 tokens raises
+   ``TaskCancelledError`` and the actor answers again; a span recorded in
+   the actor is in the driver's ``get_spans()`` and the GCS timeline; the
+   1b's fp32 params (3.54 GB) checkpointed through the object-plane tier
+   (``ObjectPlaneBackend``), evicted locally, restored from the vault
+   bit-equal, and the store listed by ``state.list_checkpoints()``; then a
+   ``cluster_utils.Cluster`` of two nodes, the card on the second: a
+   ``num_gpus=1`` task there returns the same params, pulled across the
+   raylets to the driver on the head bit-equal; then a store of 1 GiB
+   takes the tree's leaves (they spill to local disk) and gives them back
+   bit-equal; a ``runtime ft metrics:`` line (kill-to-ready and
+   kill-to-first-answer seconds, each round's wall, stream and cancel
+   seconds, the checkpoint's save, mirror and restore, the pull's and the
+   spill's and restore's GB/s, each worker's peak memory, the card).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -4860,6 +4882,408 @@ def phase_pd_batch(card: str, serving: dict) -> dict:
     return {"pd": pd_launches, "batch_inference": bi_launches}
 
 
+FT_TIMEOUT_S = 300.0  # each cluster call's
+FT_CANCEL_AFTER = 4  # tokens the cancelled stream yields before the cancel
+FT_CANCEL_TOKENS = 512  # the cancelled stream's budget: it would run ~10 s
+FT_SPILL_STORE = 1 << 30  # (d)'s store: below the 3.54 GB tree
+FT_STORE_MAX = 8 << 30  # the other stores: at most this, or a third of
+# /dev/shm's free bytes
+FT_CKPT = "ft_1b"  # the object-plane checkpoint's store and vault
+
+
+class FaultServer:
+    """Phase 19's actor: phase 9's 1b ``LLMServer`` (seed 0) in a worker of
+    the port's runtime, created with ``max_restarts=1``."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.server = LLMServer(LLMConfig(model_id="1b"), seed=0,
+                                device="cuda")
+        torch.cuda.synchronize()
+
+    def ready(self) -> dict:
+        """This incarnation's pid and the cards its lease is bound to."""
+        return {"pid": os.getpid(),
+                "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def complete(self, prompt: str) -> dict:
+        out = asyncio.run(self.server.completions(prompt,
+                                                  max_tokens=SERVE_TOKENS))
+        return {k: out[k] for k in ("token_ids", "text", "finish_reason")}
+
+    def answer(self, prompts) -> dict:
+        """Phase 9's round in this worker: every prompt at once for 2 tokens
+        to warm up, then for SERVE_TOKENS, the launch counters set to 0
+        just before and read just after."""
+        import torch
+
+        server = self.server
+
+        async def answer_all(max_tokens):
+            return await asyncio.gather(*(
+                server.completions(p, max_tokens=max_tokens)
+                for p in prompts))
+
+        asyncio.run(answer_all(2))
+        torch.cuda.synchronize()
+        server.kernel_launches(reset=True)
+        t0 = time.perf_counter()
+        out = asyncio.run(answer_all(SERVE_TOKENS))
+        torch.cuda.synchronize()
+        return {"answers": [{k: o[k] for k in ("token_ids", "text",
+                                                "finish_reason")}
+                            for o in out],
+                "wall_s": time.perf_counter() - t0,
+                "launches": server.kernel_launches(),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    def stream(self, prompt: str, max_tokens: int):
+        """One greedy request's tokens, each yielded as the engine emits it
+        (called with ``num_returns="streaming"``); a stream closed early
+        aborts its request."""
+        import uuid
+
+        from ray_tpu_torch.llm import SamplingParams
+
+        engine = self.server.engine
+        rid = uuid.uuid4().hex
+        engine.add_request(rid, prompt, SamplingParams(max_tokens=max_tokens))
+        sent, done = 0, False
+        try:
+            while not done and engine.has_unfinished():
+                for out in engine.step():
+                    if out.request_id == rid:
+                        yield from out.token_ids[sent:]
+                        sent, done = len(out.token_ids), out.finished
+        finally:
+            if not done:
+                engine.abort_request(rid)
+
+    def traced(self, tag: str) -> int:
+        """Record one span in this worker and ship it to the GCS now (the
+        timer would within a second); its pid."""
+        from ray_tpu_torch.util import tracing
+
+        with tracing.profile("runtime_ft.actor_span", tag=tag):
+            pass
+        tracing.flush()
+        return os.getpid()
+
+
+def card_params(seed: int) -> dict:
+    """The 1b's fp32 params from ``seed``, drawn on the card as phase 17
+    draws a version, as numpy on the host; with the pid, the cards and the
+    peak device memory of the process that drew them."""
+    import torch
+
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.models.convert import init_params
+
+    params = {k: v.cpu().numpy() for k, v in init_params(
+        LLMConfig(model_id="1b").transformer_config(), seed=seed,
+        device="cuda").items()}
+    return {"params": params, "pid": os.getpid(),
+            "cards": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def check_same_bits(label: str, got: dict, want: dict) -> None:
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: leaves {sorted(got)[:3]}... are not "
+                             f"the tree's")
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g.view(np.uint8), w.view(np.uint8)):
+            raise AssertionError(f"{label}: leaf {k} is not bit-equal")
+
+
+def actor_restarted(actor, restarts: int) -> bool:
+    """The GCS holds the actor alive after ``restarts`` restarts."""
+    from ray_tpu_torch.util import state
+
+    rec, = [a for a in state.list_actors()
+            if a["actor_id"] == actor._actor_id.hex()]
+    return rec["state"] == "ALIVE" and rec["restarts_used"] == restarts
+
+
+def process_gone(pid: int) -> bool:
+    """``pid`` has exited: no such process, or a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def phase_runtime_faults(card: str, serving: dict) -> dict:
+    """Phase 19: the runtime's fault paths on the card: an actor restart,
+    streaming and cancel, a pull across two raylets, spilling, an
+    object-plane checkpoint and a worker's spans."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import ckpt
+    from ray_tpu_torch._private import wire
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.exceptions import TaskCancelledError
+    from ray_tpu_torch.util import state, tracing
+    from ray_tpu_torch.util.accelerators import detect_gpu_ids
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    prompts = serving["prompts"]
+    want = in_process_answers(0, prompts)
+    metrics = {"card": card}
+    shm = shm_bytes()
+    store_mem = max(4 << 30, min(FT_STORE_MAX, shm["free"] // 3))
+    metrics.update(dev_shm_free_bytes=shm["free"],
+                   object_store_memory=store_mem)
+    cards = detect_gpu_ids()[0]
+
+    # --- one node, the card as GPU, tracing on in every process ---------
+    os.environ["RAY_TPU_ENABLE_TRACING"] = "1"
+    tracing.enable()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8, object_store_memory=store_mem)
+    metrics["init_s"] = time.perf_counter() - t0
+    try:
+        # (a) a restart: killed, back on the card, serving again
+        server_cls = rt.remote(num_gpus=1, max_restarts=1)(FaultServer)
+        t0 = time.perf_counter()
+        server = server_cls.remote()
+        first = rt.get(server.ready.remote(), timeout=FT_TIMEOUT_S)
+        metrics["actor_ready_s"] = time.perf_counter() - t0
+        one = rt.get(server.answer.remote(prompts), timeout=FT_TIMEOUT_S)
+        check_answers("restart: first incarnation", one["answers"], want)
+
+        t_kill = time.perf_counter()
+        rt.kill(server, no_restart=False)
+        deadline = t_kill + FT_TIMEOUT_S
+        while not actor_restarted(server, 1):
+            if time.perf_counter() > deadline:
+                raise AssertionError("the actor did not come back")
+            time.sleep(0.05)
+        again = rt.get(server.ready.remote(), timeout=FT_TIMEOUT_S)
+        metrics["kill_to_ready_s"] = time.perf_counter() - t_kill
+        if again["pid"] == first["pid"] or not process_gone(first["pid"]):
+            raise AssertionError(f"pid {first['pid']} -> {again['pid']}: the "
+                                 f"old worker has not exited")
+        if first["cards"] not in cards or again["cards"] not in cards:
+            raise AssertionError(f"the incarnations' cards {first['cards']}, "
+                                 f"{again['cards']}, not detected {cards}")
+        answered = rt.get(server.complete.remote(prompts[0]),
+                          timeout=FT_TIMEOUT_S)
+        metrics["kill_to_first_answer_s"] = time.perf_counter() - t_kill
+        check_answers("restart: first answer", [answered], want[:1])
+        two = rt.get(server.answer.remote(prompts), timeout=FT_TIMEOUT_S)
+        check_answers("restart: second incarnation", two["answers"], want)
+        launched = two["launches"]
+        if launched["flash_attention_fwd"] <= 0:
+            raise AssertionError(f"the restarted worker's launches {launched}")
+        metrics.update(round_wall_s=[one["wall_s"], two["wall_s"]],
+                       actor_pids=[first["pid"], again["pid"]],
+                       actor_cards=[first["cards"], again["cards"]],
+                       actor_peak_bytes=[one["peak_bytes"],
+                                         two["peak_bytes"]],
+                       flash_fwd_launches=[one["launches"][
+                           "flash_attention_fwd"],
+                           launched["flash_attention_fwd"]])
+        log(f"runtime faults: a num_gpus=1 actor killed (no_restart=False) "
+            f"was back on card {again['cards']} as pid {again['pid']} "
+            f"{metrics['kill_to_ready_s']:.2f} s later (pid {first['pid']} "
+            f"gone) and answered {metrics['kill_to_first_answer_s']:.2f} s "
+            f"after the kill; both incarnations' {len(prompts)} answers "
+            f"equal in-process serving token for token; flash_fwd launches "
+            f"{metrics['flash_fwd_launches']}")
+
+        # (b) streaming, and a cancelled stream
+        t0 = time.perf_counter()
+        streamed = [rt.get(r, timeout=FT_TIMEOUT_S) for r in
+                    server.stream.options(num_returns="streaming").remote(
+                        prompts[0], SERVE_TOKENS)]
+        metrics["stream_s"] = time.perf_counter() - t0
+        if streamed != serving["token_ids"][0]:
+            raise AssertionError(f"streamed {streamed[:8]}..., phase 9 "
+                                 f"answered {serving['token_ids'][0][:8]}...")
+        gen = server.stream.options(num_returns="streaming").remote(
+            prompts[0], FT_CANCEL_TOKENS)
+        head = [rt.get(next(gen), timeout=FT_TIMEOUT_S)
+                for _ in range(FT_CANCEL_AFTER)]
+        if head != serving["token_ids"][0][:FT_CANCEL_AFTER]:
+            raise AssertionError(f"the second stream began {head}")
+        t0 = time.perf_counter()
+        rt.cancel(gen)
+        tail = []
+        try:
+            for ref in gen:
+                tail.append(rt.get(ref, timeout=FT_TIMEOUT_S))
+            cancelled = False
+        except TaskCancelledError:
+            cancelled = True
+        metrics["cancel_s"] = time.perf_counter() - t0
+        if not cancelled or FT_CANCEL_AFTER + len(tail) >= FT_CANCEL_TOKENS:
+            raise AssertionError(f"the cancelled stream went on for "
+                                 f"{len(tail)} more tokens and ended "
+                                 f"without the cancel error")
+        after = rt.get(server.complete.remote(prompts[1]),
+                       timeout=FT_TIMEOUT_S)
+        check_answers("after the cancel", [after], want[1:2])
+        metrics["cancelled_stream_tokens"] = FT_CANCEL_AFTER + len(tail)
+        log(f"runtime faults: {len(streamed)} streamed tokens equal phase "
+            f"9's; a stream cancelled after {FT_CANCEL_AFTER} tokens "
+            f"({len(tail)} more arrived) raised TaskCancelledError in "
+            f"{metrics['cancel_s']:.3f} s and the actor answered again")
+
+        # (f) a span recorded in the GPU actor reaches the driver
+        tag = os.urandom(4).hex()
+        pid = rt.get(server.traced.remote(tag), timeout=FT_TIMEOUT_S)
+        spans = [sp for sp in tracing.get_spans()
+                 if sp["name"] == "runtime_ft.actor_span"
+                 and sp.get("tag") == tag]
+        events = [e for e in state.get_timeline()["traceEvents"]
+                  if e["name"] == "runtime_ft.actor_span"
+                  and e["args"].get("tag") == tag]
+        if [sp["pid"] for sp in spans] != [pid] or \
+                [e["pid"] for e in events] != [pid]:
+            raise AssertionError(f"the actor's span: {spans} in get_spans, "
+                                 f"{events} in the timeline")
+        log(f"runtime faults: the GPU actor's span (pid {pid}) is in the "
+            f"driver's get_spans() and the GCS timeline")
+        rt.kill(server)
+
+        # (e) the 1b's params checkpointed through the object plane
+        t0 = time.perf_counter()
+        drawn = card_params(0)
+        tree = drawn["params"]
+        nbytes = sum(v.nbytes for v in tree.values())
+        metrics.update(tree_bytes=nbytes,
+                       tree_on_host_s=time.perf_counter() - t0)
+        root = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+        try:
+            backend = ckpt.ObjectPlaneBackend(FT_CKPT)
+            store = ckpt.TieredStore(os.path.join(root, FT_CKPT),
+                                     name=FT_CKPT, mirror=False,
+                                     backend=backend)
+            t0 = time.perf_counter()
+            man = ckpt.save_checkpoint(store, tree, step=0)
+            t1 = time.perf_counter()
+            store.mirror_now(man.ckpt_id)
+            t2 = time.perf_counter()
+            store.evict_local(man.ckpt_id)
+            restored = ckpt.restore_tree(store, man.ckpt_id)
+            t3 = time.perf_counter()
+            check_same_bits("object-plane checkpoint", restored, tree)
+            fetched = store.io.counters["fetch_chunks"]
+            if fetched != len(man.chunk_set()) or \
+                    backend.list_chunks() != man.chunk_set():
+                raise AssertionError(f"{fetched} chunks fetched from the "
+                                     f"vault for {len(man.chunk_set())}")
+            del restored
+            listed = state.list_checkpoints().get(FT_CKPT)
+            if listed is None or listed["latest"] != man.ckpt_id or \
+                    listed["tier"]["residency_summary"] != {"evicted": 1}:
+                raise AssertionError(f"list_checkpoints: {listed}")
+            metrics.update(ckpt_save_s=t1 - t0, ckpt_mirror_s=t2 - t1,
+                           ckpt_mirror_gb_s=nbytes / (t2 - t1) / 1e9,
+                           ckpt_restore_s=t3 - t2,
+                           ckpt_restore_gb_s=nbytes / (t3 - t2) / 1e9,
+                           ckpt_chunks=fetched)
+            store.close()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"runtime faults: {nbytes / 1e9:.3f} GB of params in {fetched} "
+            f"chunks mirrored to the object-plane vault in "
+            f"{metrics['ckpt_mirror_s']:.2f} s, evicted locally and restored "
+            f"from the vault bit-equal in {metrics['ckpt_restore_s']:.2f} s; "
+            f"list_checkpoints shows {FT_CKPT}")
+    finally:
+        rt.shutdown()
+        os.environ.pop("RAY_TPU_ENABLE_TRACING", None)
+        tracing.disable()
+
+    # (c) two nodes: the card on the second, the driver on the head
+    cluster = Cluster(head_node_args={"resources": {"CPU": 4.0, "GPU": 0.0},
+                                      "object_store_memory": store_mem})
+    try:
+        cluster.add_node(resources={"CPU": 2.0, "GPU": 1.0},
+                         object_store_memory=store_mem)
+        rt.init(address=cluster.address)
+        cluster.wait_for_nodes(2)
+        head = global_worker().node_hex
+        task = rt.remote(num_gpus=1)(card_params)
+        t0 = time.perf_counter()
+        ref = task.remote(0)
+        rt.wait([ref], timeout=FT_TIMEOUT_S)
+        t1 = time.perf_counter()
+        got = rt.get(ref, timeout=FT_TIMEOUT_S)
+        t2 = time.perf_counter()
+        check_same_bits("pulled across raylets", got["params"], tree)
+        gpus = {n["node_id"]: n["total_resources"].get("GPU", 0.0)
+                for n in rt.nodes() if n["alive"]}
+        if got["cards"] not in cards or gpus.get(head) != 0.0 or \
+                sorted(gpus.values()) != [0.0, 1.0]:
+            raise AssertionError(f"the task ran on cards {got['cards']}; "
+                                 f"GPUs by node {gpus}, head {head}")
+        metrics.update(remote_task_s=t1 - t0, pull_s=t2 - t1,
+                       pull_gb_s=nbytes / (t2 - t1) / 1e9,
+                       remote_task_peak_bytes=got["peak_bytes"])
+        del got, ref
+        log(f"runtime faults: a num_gpus=1 task on the second node returned "
+            f"the 1b's params in {t1 - t0:.2f} s; the head pulled "
+            f"{nbytes / 1e9:.3f} GB across raylets bit-equal in "
+            f"{t2 - t1:.2f} s ({metrics['pull_gb_s']:.3f} GB/s)")
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
+
+    # (d) a store smaller than the tree: its leaves spill and restore
+    rt.init(num_cpus=2, num_gpus=0, object_store_memory=FT_SPILL_STORE)
+    try:
+        raylet = global_worker().raylet
+        t0 = time.perf_counter()
+        refs = {k: rt.put(v) for k, v in tree.items()}
+        t1 = time.perf_counter()
+        for k, r in refs.items():
+            check_same_bits("spilled and restored",
+                            {k: rt.get(r, timeout=FT_TIMEOUT_S)},
+                            {k: tree[k]})
+        t2 = time.perf_counter()
+        stats = wire.loads(global_worker()._run(
+            raylet.call("StoreStats", b"")))
+        if stats["num_spilled"] <= 0 or stats["num_restored"] <= 0:
+            raise AssertionError(f"nothing spilled: {stats}")
+        metrics.update(spill_store_bytes=FT_SPILL_STORE, spill_put_s=t1 - t0,
+                       spill_gb_s=nbytes / (t1 - t0) / 1e9,
+                       restore_s=t2 - t1,
+                       restore_gb_s=nbytes / (t2 - t1) / 1e9,
+                       num_spilled=stats["num_spilled"],
+                       num_restored=stats["num_restored"])
+        del refs
+        log(f"runtime faults: {len(tree)} leaves ({nbytes / 1e9:.3f} GB) put "
+            f"into a {FT_SPILL_STORE / 2**30:.0f} GiB store in {t1 - t0:.2f} "
+            f"s ({stats['num_spilled']} spills), read back bit-equal in "
+            f"{t2 - t1:.2f} s ({stats['num_restored']} restores)")
+    finally:
+        rt.shutdown()
+    metrics["phase_s"] = time.perf_counter() - phase_t0
+    log("runtime ft metrics: " + json.dumps(metrics))
+    return launched
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -4915,6 +5339,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(phase_pd_batch(dev["card"], serving))
     log(f"pd and batch inference: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["runtime_restart"] = phase_runtime_faults(dev["card"], serving)
+    log(f"runtime faults: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -3763,8 +3763,13 @@ class CoreWorker:
 
         if getattr(object_ref_mod, "_ref_counter", None) is self.ref_counter:
             object_ref_mod.set_ref_counter(None)
-        # spans stay in this process (util/tracing.py): shipping them to the
-        # GCS, which the JAX runtime flushes here, is not ported yet
+        try:
+            from ray_tpu_torch.util import tracing
+
+            if tracing.enabled():
+                tracing.flush()
+        except Exception as e:
+            logger.debug("tracing flush at shutdown failed: %s", e)
         try:
             # tail-event protection: events recorded since the last flush
             # interval must not die with the process

@@ -20,9 +20,10 @@ Public surface::
     ckpt.diff_manifests(store.read(a), store.read(b))   # chunk delta
 
 ``save`` pauses the caller only while the state is copied to host memory;
-serialization, sha256 and the writes run on a background thread. Not
-ported yet: the object-plane tier backend and the GCS stats mirror, which
-need the runtime.
+serialization, sha256 and the writes run on a background thread. On a
+port cluster every store mirrors its stats into the GCS
+(``util.state.list_checkpoints``), and ``ObjectPlaneBackend`` keeps a
+tier's chunks as objects of the cluster.
 """
 
 # Lazy exports (PEP 562): the plane pulls in numpy + the weights geometry,
@@ -43,6 +44,7 @@ _EXPORTS = {
     "ChunkBackend": "tier.backend", "LocalFSBackend": "tier.backend",
     "BucketBackend": "tier.bucket", "DirBucketClient": "tier.bucket",
     "FaultShim": "tier.bucket",
+    "ObjectPlaneBackend": "tier.object_plane",
     "ParallelIO": "tier.pario",
     "SweepPolicy": "tier.sweeper", "sweep_store": "tier.sweeper",
 }

@@ -13,17 +13,17 @@ pool (``manifest.py`` layout). The store adds the management plane:
   manifest references are deleted. Drops are *counted* (manifests/chunks/
   bytes) and persisted beside the checkpoints, so truncation is visible,
   never silent.
-
-The JAX store also mirrors its stats into the cluster's GCS when one is up,
-and does nothing there without one, by its own contract. The port has no
-runtime yet, so ``mirror()`` returns at once, as the JAX one does with no
-cluster; the GCS mirror comes with the runtime's port.
+- GCS registration: when a port cluster is up, every mutation mirrors the
+  store's stats to the KV ``ckpt`` namespace under the store name, which
+  ``util.state.list_checkpoints()`` reads. Registration is best-effort by
+  contract: checkpointing works (and is tested) without any cluster.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -42,6 +42,10 @@ class CheckpointStore:
         # monotonically-accumulated drop/GC counters (persisted so they
         # survive the process: truncation evidence must not vanish)
         self._counters = self._load_counters()
+        self._last_mirror = 0.0
+        # commit (caller thread) and a TieredStore's mirror pump both
+        # throttle through _last_mirror
+        self._mirror_lock = threading.Lock()
 
     # -- lookup --------------------------------------------------------
 
@@ -231,12 +235,28 @@ class CheckpointStore:
         }
 
     def mirror(self, min_interval: float = 0.0) -> None:
-        """Where the JAX store mirrors its stats into the GCS KV for the
-        state API, dashboard and CLI. There is no cluster for the port to
-        mirror into yet, so this returns at once (the JAX store's no-cluster
-        path); ``TieredStore`` and the saver call it where the JAX ones
-        do."""
-        return None
+        """Mirror the store's stats into the GCS KV (``ckpt`` namespace)
+        for the state API. Best-effort by contract: stores work with no
+        cluster at all (unit tests, offline tools). ``min_interval``
+        rate-limits the whole-store stats walk on hot paths; explicit
+        mutations (pin, retention) mirror unconditionally."""
+        with self._mirror_lock:
+            if min_interval and (time.time() - self._last_mirror
+                                 < min_interval):
+                return
+            self._last_mirror = time.time()
+        try:
+            from ray_tpu_torch._private.worker import is_initialized
+
+            if not is_initialized():
+                return
+            from ray_tpu_torch._private import wire
+            from ray_tpu_torch.experimental.internal_kv import _internal_kv_put
+
+            _internal_kv_put(self.name.encode(), wire.dumps(self.stats()),
+                             namespace="ckpt")
+        except Exception:  # the stats mirror is best-effort by contract
+            pass
 
     # -- counters ------------------------------------------------------
 

@@ -9,10 +9,8 @@ Layers:
 - ``pario``         — bounded-parallel chunk IO with verification
 - ``tiered``        — ``TieredStore``: local commits + async mirror pump,
                       residency, eviction, read-through restore
+- ``object_plane``  — chunks as owned cluster objects (vault actor)
 - ``sweeper``       — keep-last/pinned/grace retention across tiers
-
-The JAX package's ``object_plane`` backend keeps chunks as objects of a
-running cluster and waits for the runtime's port.
 """
 
 from ray_tpu_torch.ckpt.tier.backend import (BackendUnavailable,
@@ -43,4 +41,16 @@ __all__ = [
     "sweep_store",
     "sweep_registered",
     "backend_from_descriptor",
+    "ObjectPlaneBackend",
 ]
+
+
+def __getattr__(name: str):
+    # ObjectPlaneBackend pulls in the worker and actor machinery: kept lazy
+    # so that offline tools import the tier without the runtime
+    if name == "ObjectPlaneBackend":
+        from ray_tpu_torch.ckpt.tier.object_plane import ObjectPlaneBackend
+
+        return ObjectPlaneBackend
+    raise AttributeError(f"module 'ray_tpu_torch.ckpt.tier' has no attribute "
+                         f"{name!r}")

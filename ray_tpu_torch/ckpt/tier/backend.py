@@ -196,9 +196,7 @@ class LocalFSBackend(ChunkBackend):
 def backend_from_descriptor(d: Dict[str, object]) -> ChunkBackend:
     """Reconstruct a backend from its :meth:`ChunkBackend.descriptor`
     payload — how a sweeper or another host re-attaches to a store's
-    remote tier from a different process. An object-plane descriptor (the
-    JAX package's vault of cluster objects) raises: its backend needs the
-    runtime, which the port does not have yet."""
+    remote tier from a different process."""
     kind = d.get("kind")
     if kind == "localfs":
         return LocalFSBackend(str(d["root"]))
@@ -209,8 +207,7 @@ def backend_from_descriptor(d: Dict[str, object]) -> ChunkBackend:
         client = bucket_client_from_descriptor(dict(d["client"]))  # type: ignore[arg-type]
         return BucketBackend(client, prefix=str(d.get("prefix") or ""))
     if kind == "object_plane":
-        raise ValueError(
-            "chunk backend 'object_plane' keeps chunks as objects of a "
-            "running cluster; the port has no runtime yet, so it cannot "
-            "attach to one")
+        from ray_tpu_torch.ckpt.tier.object_plane import ObjectPlaneBackend
+
+        return ObjectPlaneBackend(str(d["namespace"]))
     raise ValueError(f"unknown chunk backend descriptor kind {kind!r}")

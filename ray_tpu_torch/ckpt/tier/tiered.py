@@ -21,17 +21,16 @@ on a remote tier. Durability arrives asynchronously:
    tier, sha256-verified, and cached back into the local pool.
 
 The residency index lives at ``<root>/RESIDENCY`` (atomic JSON) and rides
-``stats()`` (the JAX store also mirrors it into the GCS, which the port does
-not have yet). The backend descriptor persists at ``<root>/TIER`` so any
-process (a sweeper, a replacement host) can re-attach with :func:`attach`.
-A failed mirror is logged as a warning where the JAX store records a
-cluster event.
+the store's GCS KV mirror (ns="ckpt"), so ``util.state.list_checkpoints``
+sees per-checkpoint residency cluster-wide. The backend descriptor
+persists at ``<root>/TIER`` so any process (a sweeper, a replacement host)
+can re-attach with :func:`attach`. A failed mirror is recorded as a
+cluster event (``util.events``).
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import queue
 import threading
@@ -42,8 +41,6 @@ from ray_tpu_torch.ckpt import manifest as mf
 from ray_tpu_torch.ckpt.store import CheckpointStore
 from ray_tpu_torch.ckpt.tier.backend import (ChunkBackend, backend_from_descriptor)
 from ray_tpu_torch.ckpt.tier.pario import ChunkFetchError, ParallelIO
-
-logger = logging.getLogger(__name__)
 
 RESIDENCY_FILE = "RESIDENCY"
 TIER_FILE = "TIER"
@@ -158,8 +155,11 @@ class TieredStore(CheckpointStore):
                 # residency stays "mirroring" (+ the error) until an
                 # explicit, idempotent re-mirror succeeds
                 self._update_residency(cid, MIRRORING, error=repr(e))
-                logger.warning("store %s: mirror of %s failed: %r",
-                               self.name, cid, e)
+                from ray_tpu_torch.util import events
+
+                events.record("ckpt_tier", "WARNING",
+                              f"mirror of {cid} failed: {e!r}",
+                              store=self.name)
 
     def mirror_now(self, ckpt_id: Optional[str] = None) -> Dict[str, int]:
         """Synchronously replicate one checkpoint (default: latest) to the

@@ -811,8 +811,14 @@ class _ServeController:
         transitions.append(entry)
         del transitions[:-64]
         try:
-            from ray_tpu_torch.util import tracing
+            from ray_tpu_torch.util import events, tracing
 
+            events.record(
+                "serve", "INFO",
+                "autoscale %s: %d -> %d (%s)" % (name, before, decision.want,
+                                                 decision.reason),
+                deployment=name, direction=decision.direction,
+                **decision.metrics)
             end = _t.time()
             tracing.record_span("serve.autoscale", end - 1e-4, end,
                                 category="serve", deployment=name,

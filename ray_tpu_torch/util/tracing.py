@@ -10,16 +10,21 @@ writes the spans as ``ph: "X"`` slices, with a flow-event pair for every
 parent-to-child edge that crosses a thread, so Perfetto draws it as an
 arrow.
 
-Enable with ``RAY_TPU_ENABLE_TRACING=1`` (the JAX package's switch) or
-:func:`enable`. Spans are kept in the process, as the JAX module keeps them
-in the runtime's local mode, and read back with :func:`get_spans`.
+Every process buffers its spans and flushes them to the GCS KV (``trace``
+namespace, one ``spans_<proc>_<n>`` key per flush): every 32 spans, one
+second after the first unflushed span, at worker shutdown and at exit.
+:func:`get_spans` gathers them cluster-wide, and the GCS timeline
+(``state.get_timeline``) draws them beside the task slices. In the
+runtime's local mode spans stay in the process; with no runtime at all
+they stay in the buffer, and :func:`get_spans` reads them from there.
 
-Not ported yet: shipping spans to the runtime's GCS, so a worker's spans
-stay in that worker (``ROADMAP.md`` queue 1 item 2).
+Enable with ``RAY_TPU_ENABLE_TRACING=1`` (the JAX package's switch; on the
+driver set it before ``init``, and workers inherit it) or :func:`enable`.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import contextvars
 import json
@@ -29,11 +34,21 @@ import time
 import uuid
 from typing import List, Optional, Tuple
 
+from ray_tpu_torch._private import wire
+
 _lock = threading.Lock()
-_spans: List[dict] = []
+_buffer: List[dict] = []  # recorded here, not yet flushed to the GCS
+_local_spans: List[dict] = []  # flushed in the runtime's local mode
+_flush_counter = 0
 _enabled: Optional[bool] = None
 
+_FLUSH_EVERY = 32
+_FLUSH_INTERVAL_S = 1.0
 _MAX_BUFFER = 10_000  # drop-oldest beyond this: tracing never grows unbounded
+_timer: Optional[threading.Timer] = None
+# names this process's flush keys: pids collide across nodes and restarts
+_proc_tag = uuid.uuid4().hex[:10]
+_atexit_registered = False
 
 _ctx: "contextvars.ContextVar[Optional[Tuple[str, str]]]" = \
     contextvars.ContextVar("ray_tpu_torch_trace_ctx", default=None)
@@ -90,8 +105,10 @@ def disable():
 
 def record_span(name: str, start_s: float, end_s: float,
                 category: str = "task", **extra):
-    """Keep one span. ``trace_id`` and ``parent_id`` come from the active
-    context where they are not passed."""
+    """Buffer one span; the buffer ships every :data:`_FLUSH_EVERY` spans
+    and :data:`_FLUSH_INTERVAL_S` after its first. ``trace_id`` and
+    ``parent_id`` come from the active context where they are not
+    passed."""
     if not enabled():
         return
     if "trace_id" not in extra:
@@ -108,10 +125,45 @@ def record_span(name: str, start_s: float, end_s: float,
         "tid": threading.get_ident() % 100_000,
         **extra,
     }
+    global _timer
+    flush_now = False
     with _lock:
-        _spans.append(span)
-        if len(_spans) > _MAX_BUFFER:
-            del _spans[: len(_spans) - _MAX_BUFFER]
+        _ensure_atexit()
+        _buffer.append(span)
+        if len(_buffer) > _MAX_BUFFER:
+            del _buffer[: len(_buffer) - _MAX_BUFFER]
+        if len(_buffer) >= _FLUSH_EVERY:
+            # hand off without waiting for the GCS: a traced submit loop
+            # must not stall every 32 spans (_MAX_BUFFER bounds the rest)
+            flush_now = True
+        elif _timer is None:
+            _timer = threading.Timer(_FLUSH_INTERVAL_S, _timer_flush)
+            _timer.daemon = True
+            _timer.start()
+    if flush_now:
+        flush(block=False)
+
+
+def _timer_flush():
+    global _timer
+    with _lock:
+        _timer = None
+    flush()
+
+
+def _flush_at_exit():
+    # spans of the last flush interval would otherwise die with the timer
+    try:
+        flush()
+    except Exception:
+        pass
+
+
+def _ensure_atexit():
+    global _atexit_registered
+    if not _atexit_registered:
+        _atexit_registered = True
+        atexit.register(_flush_at_exit)
 
 
 @contextlib.contextmanager
@@ -137,23 +189,116 @@ def profile(name: str, category: str = "user", **extra):
 
 
 def reset_after_fork():
-    """Drop the spans and the active context a worker forked from the zygote
-    inherits, so that it never reports the zygote's spans as its own."""
+    """Drop what a worker forked from the zygote inherits of the span
+    pipeline: the buffer, the flush counter and proc tag (the child would
+    re-ship the zygote's spans under the zygote's keys), the timer (its
+    thread did not survive the fork, so the child would think a flush is
+    armed) and the active context."""
+    global _timer, _flush_counter, _proc_tag
     with _lock:
-        _spans.clear()
+        _buffer.clear()
+        _timer = None
+        _flush_counter = 0
+        _proc_tag = uuid.uuid4().hex[:10]
+    del _local_spans[:]
     _ctx.set(None)
 
 
-def get_spans() -> List[dict]:
-    """Every span recorded in this process so far, by start time."""
+def _core_or_none():
+    """The runtime's worker, or None where this process has no runtime."""
+    from ray_tpu_torch._private.worker import global_worker, is_initialized
+
+    return global_worker() if is_initialized() else None
+
+
+def flush(block: bool = True):
+    """Ship the buffered spans to the GCS KV; safe to call anywhere.
+
+    ``block=False`` (the size-triggered flush) does not wait for the GCS;
+    explicit callers (``get_spans``, shutdown, exit) do. With no runtime
+    the spans stay in the buffer; a flush that fails puts them back."""
+    global _flush_counter
+    core = _core_or_none()
+    if core is None:
+        return  # spans recorded before init ship after it
     with _lock:
-        return sorted(_spans, key=lambda s: s["ts"])
+        if not _buffer:
+            return
+        spans, _buffer[:] = list(_buffer), []
+        _flush_counter += 1
+        counter = _flush_counter
+
+    def _rebuffer():
+        with _lock:
+            _buffer[:0] = spans
+            if len(_buffer) > _MAX_BUFFER:
+                del _buffer[: len(_buffer) - _MAX_BUFFER]
+
+    try:
+        if getattr(core, "mode", "") == "local":
+            _local_spans.extend(spans)
+            return
+        req = {"ns": "trace", "key": f"spans_{_proc_tag}_{counter}",
+               "value": wire.dumps(spans)}
+
+        async def _put_guarded():
+            try:
+                await core._gcs_call("KVPut", req)
+            except Exception:
+                _rebuffer()
+
+        import asyncio
+
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if running is not None and running is core.loop:
+            # on the worker's own loop (an async task): blocking would
+            # deadlock, so fire and forget
+            from ray_tpu_torch._private.async_util import spawn
+
+            spawn(_put_guarded(), what="trace-span flush")
+        elif not block:
+            asyncio.run_coroutine_threadsafe(_put_guarded(), core.loop)
+        else:
+            core._run(_put_guarded())
+    except Exception:
+        _rebuffer()  # tracing never takes the workload down
+
+
+def get_spans() -> List[dict]:
+    """Every span recorded so far, by start time: cluster-wide on a
+    cluster, this process's own in local mode or without a runtime."""
+    flush()
+    core = _core_or_none()
+    if core is None:
+        with _lock:
+            return sorted(_buffer, key=lambda s: s["ts"])
+    if getattr(core, "mode", "") == "local":
+        return sorted(_local_spans, key=lambda s: s["ts"])
+    keys = core._run(core._gcs_call(
+        "KVKeys", {"ns": "trace", "prefix": "spans_"}))["keys"]
+    out: List[dict] = []
+    for key in keys:
+        blob = core._run(core._gcs_call(
+            "KVGet", {"ns": "trace", "key": key}))["value"]
+        if blob:
+            out.extend(wire.loads(blob))
+    return sorted(out, key=lambda s: s["ts"])
 
 
 def clear():
-    """Drop every span recorded so far."""
+    """Drop every span recorded so far: the GCS trace table and this
+    process's buffers."""
     with _lock:
-        _spans.clear()
+        _buffer.clear()
+    del _local_spans[:]
+    core = _core_or_none()
+    if core is None or getattr(core, "mode", "") == "local":
+        return
+    core._run(core._gcs_call("KVDel", {"ns": "trace", "key": "spans_",
+                                       "prefix": True}))
 
 
 _SPAN_META = ("name", "cat", "ts", "dur", "pid", "tid")

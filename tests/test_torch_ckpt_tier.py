@@ -6,8 +6,7 @@ packages on the same inputs, with what each package did compared.
 Covers the tier's acceptance properties:
 (a) backend contract — LocalFS and bucket behave identically behind
     ``ChunkBackend``, including multipart uploads whose aborted halves are
-    never visible (the object-plane backend needs the runtime: its
-    descriptor raises);
+    never visible;
 (b) parallel IO — bounded fetch with sha256 verification (corrupt remote
     bytes are *rejected*, with per-chunk fallback to the local tier),
     range coalescing, in-flight byte-cap progress;
@@ -22,6 +21,10 @@ Covers the tier's acceptance properties:
     and per-op accounting);
 and a store one package's tier wrote (mirrored, then evicted locally)
 restores through the other's read-through fetch.
+
+The cluster cases (the object-plane tier, the GCS sweep RPC and the state
+API's view of the stores) run last, on a port cluster and a JAX cluster
+started side by side in this process.
 
 Each scenario takes a package (``PORT`` or ``JAX``) and a directory and
 returns what it observed: backend op counts, IO counters, mirror, evict and
@@ -721,9 +724,15 @@ def test_sharded_save_mirror_evict_restore_2host_accounting(tmp_path):
 
 
 def test_object_plane_descriptor_names_the_missing_runtime():
-    with pytest.raises(ValueError, match="no runtime"):
-        PORT.backend.backend_from_descriptor(
-            {"kind": "object_plane", "namespace": "x"})
+    """With no cluster up, an object-plane descriptor cannot reach its vault:
+    both packages raise the tier's retryable error, naming the missing
+    ``init()``."""
+    for p in (PORT, JAX):
+        importlib.import_module(p.name).shutdown()
+        with pytest.raises(p.backend.BackendUnavailable,
+                           match=r"init\(\) has not been called"):
+            p.backend.backend_from_descriptor(
+                {"kind": "object_plane", "namespace": "x"})
 
 
 def _mirror_and_evict(p, root, tree):
@@ -765,3 +774,143 @@ def test_jax_restores_a_port_tiered_store_through_the_remote_tier(tmp_path):
     tree = _tree(7.0)
     man = _mirror_and_evict(PORT, tmp_path, tree)
     _restore_through_bucket(JAX, tmp_path, man, tree)
+
+
+# ---------------------------------------------------------------------------
+# cluster surface: object-plane tier + GCS sweep RPC + state API, on a port
+# cluster and a JAX cluster side by side
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def clusters():
+    rts = [importlib.import_module(p.name) for p in (PORT, JAX)]
+    for rt in rts:
+        rt.shutdown()
+    rts[0].init(num_cpus=4, device="cpu")
+    rts[1].init(num_cpus=4)
+    yield
+    for rt in rts:
+        rt.shutdown()
+
+
+def _object_plane_tier(p, root):
+    backend = p.ckpt.ObjectPlaneBackend("tier_test")
+    data = b"object plane chunk bytes"
+    h = hashlib.sha256(data).hexdigest()
+    rec = {"put": backend.put(h, data), "put_again": backend.put(h, data)}
+    assert rec == {"put": True, "put_again": False}
+    assert backend.get(h) == data
+    rec["ranged"] = backend.get(h, offset=7, length=5)
+    assert rec["ranged"] == data[7:12]
+    assert backend.has(h)
+    rec["chunks"] = backend.list_chunks()
+    assert rec["chunks"] == {h: len(data)}
+    assert backend.chunk_mtime(h) is not None
+    with pytest.raises(KeyError):
+        backend.get("0" * 64)
+    backend.delete(h)
+    assert not backend.has(h)
+    rec["descriptor"] = backend.descriptor()
+
+    # a checkpoint mirrored into the cluster restores after local evict:
+    # the vault actor owns the refs, not the saving worker
+    store = p.ckpt.TieredStore(str(root / "op"), name="op-tier",
+                               mirror=False, backend=backend)
+    try:
+        tree = _tree(6.0)
+        man = p.ckpt.save_checkpoint(store, tree, step=1)
+        rec["mirror"] = store.mirror_now(man.ckpt_id)
+        rec["evict"] = store.evict_local(man.ckpt_id)
+        rec["vault_chunks"] = backend.list_chunks()
+        assert rec["vault_chunks"] == man.chunk_set()
+        ids = backend.list_manifests()
+        assert ids == [man.ckpt_id]
+        rec["vault_manifest"] = json.loads(backend.get_manifest(ids[0]))
+        # another handle on the same vault, as another process re-attaches
+        clone = p.backend.backend_from_descriptor(backend.descriptor())
+        assert clone.list_manifests() == ids
+        restored = p.ckpt.restore_tree(store, man.ckpt_id)
+        for k, arr in tree.items():
+            np.testing.assert_array_equal(restored[k], arr)
+        rec["restored"] = {k: hashlib.sha256(np.asarray(v).tobytes())
+                           .hexdigest() for k, v in restored.items()}
+        rec["fetched"] = store.io.counters["fetch_chunks"]
+        for cid in ids:
+            backend.delete_manifest(cid)
+        for ch in list(backend.list_chunks()):
+            backend.delete(ch)
+    finally:
+        store.close()
+    return rec
+
+
+def test_object_plane_backend_tier(clusters, tmp_path):
+    """The vault actor's chunk and manifest contract, and a checkpoint
+    mirrored into the cluster that restores after a local evict: the same
+    chunk keys, manifest and restored tree in both packages."""
+    record = _same(_object_plane_tier, tmp_path)
+    assert record["descriptor"] == {"kind": "object_plane",
+                                    "namespace": "tier_test"}
+    assert record["fetched"] == len(record["vault_chunks"]) == 6
+
+
+def _sweep_rpc_and_state(p, root):
+    state = importlib.import_module(f"{p.name}.util.state")
+    name = f"swept-store-{p.name}"
+    shim = p.ckpt.FaultShim(p.ckpt.DirBucketClient(str(root / "swb")))
+    store = p.ckpt.TieredStore(str(root / "swroot"), name=name, mirror=False,
+                               backend=p.ckpt.BucketBackend(shim),
+                               sweep={"keep_last": 1, "grace_s": 0})
+    ids = []
+    for i in range(3):
+        m = p.ckpt.save_checkpoint(store, _tree(float(i + 1)), step=i)
+        store.mirror_now(m.ckpt_id)
+        ids.append(m.ckpt_id)
+    store.mirror()  # stats (with the sweep policy and residency) -> KV
+
+    listed = state.list_checkpoints()[name]
+    assert listed["sweep"] == {"keep_last": 1, "grace_s": 0}
+    assert listed["tier"]["residency_summary"] == {"remote": 3}
+
+    core = state._core()
+    out = core._run(core._gcs_call("CkptSweep", {}), 60.0)
+    reports = [r for r in out["reports"] if r["name"] == name]
+    assert len(reports) == 1
+    assert reports[0]["local"]["dropped_manifests"] == 2
+    assert store.list_ids() == [ids[2]]
+    swept = state.ckpt_sweeps()[name]
+    assert swept["dropped_manifests"] >= 2
+    store.close()
+    return {"listed": sorted(listed), "sweep": listed["sweep"],
+            "report": {k: v for k, v in reports[0].items() if k != "name"},
+            "swept": {k: v for k, v in swept.items() if k != "name"}}
+
+
+def test_gcs_sweep_rpc_and_state_surface(clusters, tmp_path):
+    _same(_sweep_rpc_and_state, tmp_path)
+
+
+def _listed_checkpoint_store(p, root):
+    """A plain CheckpointStore's stats as the cluster's state API lists
+    them after a save, a pin and a retention pass."""
+    state = importlib.import_module(f"{p.name}.util.state")
+    name = f"listed-{p.name}"
+    store = p.ckpt.CheckpointStore(str(root / "plain"), name=name)
+    first = p.ckpt.save_checkpoint(store, _tree(2.0), step=1)
+    p.ckpt.save_checkpoint(store, _tree(3.0), step=2)
+    store.pin(first.ckpt_id)
+    store.retention(keep_last=1)
+    listed = state.list_checkpoints()[name]
+    assert listed == store.stats()
+    return {k: v for k, v in listed.items() if k != "name"}
+
+
+def test_list_checkpoints_shows_a_saved_store_on_a_port_cluster(clusters,
+                                                                tmp_path):
+    """On a port cluster, ``state.list_checkpoints()`` holds a saved store's
+    stats, key for key and value for value as the JAX state API holds the
+    same store's on a JAX cluster."""
+    record = _same(_listed_checkpoint_store, tmp_path)
+    assert record["num_checkpoints"] == 2
+    assert len(record["pinned"]) == 1

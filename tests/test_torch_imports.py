@@ -148,7 +148,8 @@ def test_runtime_imports_load_no_torch_nor_third_party_codecs():
         "task_events, wire, worker, worker_main)\n"
         "from ray_tpu_torch._private.provisioner import framing, pool, "
         "zygote\n"
-        "from ray_tpu_torch.util import accelerators\n"
+        "from ray_tpu_torch.util import accelerators, events, tracing\n"
+        "from ray_tpu_torch.ckpt.tier import object_plane\n"
         "from ray_tpu_torch.serve import api, multiplex\n"
         "from ray_tpu_torch.serve.autoscale import ingress, policy, router, "
         "window\n"
@@ -195,8 +196,9 @@ def test_import_builds_and_loads_no_kernel():
         "from ray_tpu_torch.serve import api, multiplex\n"
         "from ray_tpu_torch.weights import store, transport\n"
         "from ray_tpu_torch.ckpt import manifest, restore, saver, store\n"
-        "from ray_tpu_torch.ckpt.tier import backend, bucket, pario, "
-        "sweeper, tiered\n"
+        "from ray_tpu_torch.ckpt.tier import backend, bucket, "
+        "object_plane, pario, sweeper, tiered\n"
+        "from ray_tpu_torch.util import events\n"
         "from ray_tpu_torch.data import token_loader\n"
         "from ray_tpu_torch.weights import plan, spec\n"
         "from ray_tpu_torch.train import scaling_policy\n"

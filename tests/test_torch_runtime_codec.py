@@ -543,7 +543,7 @@ def test_observability_resets_after_fork():
     assert metrics.scrape_metrics()["ray_tpu_torch_test_fork_reset"][
         "data"] != {}
     with tracing._lock:  # a span as a traced zygote would hold one
-        tracing._spans.append({"name": "fork.test", "ts": 0.0})
+        tracing._buffer.append({"name": "fork.test", "ts": 0.0})
     token = tracing.set_context("t" * 32, "s" * 16)
     goodput.add("step_compute", 1.5)
     metrics.reset_after_fork()

@@ -12,7 +12,9 @@ package's (``ray_tpu/util``), fed the same calls in one process:
 - ``goodput``: exclusive regions, ``add``, ``count`` and ``note_mfu`` give
   the same buckets and counters, each ledger with ``sum(buckets) + idle ==
   wall``; ``flush_payload`` sets the same gauges; ``CompileWatch`` gives
-  the same first and recompile sequence for the same keys.
+  the same first and recompile sequence for the same keys;
+- ``events``: in each package's local mode the same records give the same
+  events under every filter, severities normalised alike.
 """
 
 import math
@@ -308,3 +310,43 @@ def test_compile_watch_sequence_equals_the_jax_modules():
                              "mask": torch.ones(2, 3)})
     assert key == (("mask", (2, 3), "torch.float32"),
                    ("tokens", (2, 3), "torch.int64"))
+
+
+# -- events ---------------------------------------------------------------------
+
+
+def _feed_events(mod):
+    mod._local_events.clear()
+    mod.record("weights", "warning", "publish lagging", version=3)
+    mod.record("weights", "not-a-severity", "normalized")
+    mod.record("serve", "info", "autoscale d: 1 -> 2 (queue)",
+               deployment="d", direction="up")
+    mod.record("other", "ERROR", "boom", n=1.5)
+    views = [mod.list_events(), mod.list_events(source="weights"),
+             mod.list_events(severity="error"), mod.list_events(limit=2),
+             mod.list_events(source="serve", severity="INFO")]
+    mod._local_events.clear()
+    return [[{k: v for k, v in e.items() if k != "ts"} for e in view]
+            for view in views]
+
+
+def test_events_equal_the_jax_module_in_local_mode():
+    pytest.importorskip("flax")
+    import ray_tpu
+    from ray_tpu.util import events as jax_events
+
+    import ray_tpu_torch
+    from ray_tpu_torch.util import events
+
+    runtimes = (ray_tpu_torch, ray_tpu)
+    for rt in runtimes:
+        rt.shutdown()
+        rt.init(local_mode=True)
+    try:
+        ours, theirs = _feed_events(events), _feed_events(jax_events)
+    finally:
+        for rt in runtimes:
+            rt.shutdown()
+    assert ours == theirs
+    assert [e["severity"] for e in ours[0]] == ["WARNING", "INFO", "INFO",
+                                                "ERROR"]
