@@ -218,7 +218,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bit-equal; a ``runtime ft metrics:`` line (kill-to-ready and
    kill-to-first-answer seconds, each round's wall, stream and cancel
    seconds, the checkpoint's save, mirror and restore, the pull's and the
-   spill's and restore's GB/s, each worker's peak memory, the card).
+   spill's and restore's GB/s, each worker's peak memory, the card);
+20. pipeline: the one-device ``TrainStepBundle`` of the 1b at full width
+   and depth (seed 0, ``make_stage_optimizer``'s AdamW with a global-norm
+   clip of 1.0) takes 3 steps on the concatenation of
+   ``make_microbatches``' four 1 x 2048 microbatches, each step's
+   microbatching delta and gradient measured on its params, and a second
+   copy of the same params takes 3 steps on the mean of the microbatches'
+   gradients; then a new port cluster, and a ``PipelineTrainer`` of the
+   same 1b from the same initial params: two stage actors of
+   ``num_gpus=0.5`` on the one card (8 layers each, remat), seeded through
+   their weight stores, 1F1B over shared-memory channels of depth 2 (8 MiB
+   bf16 activations and gradients a hop), the controller's coordinated
+   clip; 3 steps whose losses, gradient norms at steps 0 and 1, and each
+   stage's params after the last step lie within the bounds derived from
+   the reference (PIPE_*'s notes), and each stage's ``flash_fwd``,
+   ``flash_bwd`` and Delta launches (counted in the stage: the
+   ``pipeline`` path) equal to its layers' count a microbatch; before it,
+   a compiled graph of three host actors whose values equal the eager
+   chain's; a ``pipeline metrics:`` line (stages ready, the seeding's
+   publish and pulls, the median step beside the reference's, each
+   stage's idle and receive-wait share beside the 1F1B bubble bound, the
+   activation bytes a microbatch, send and receive seconds a hop, each
+   stage's peak memory, the compiled and eager chains' p50 ms).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -651,14 +673,16 @@ def phase_bwd_kernels(card: str) -> dict:
                                                      causal)
                     outs += [("flash_bwd", "dq", dq), ("flash_bwd", "dk", dk),
                              ("flash_bwd", "dv", dv)]
-                    # dK and dV of two runs of the fused kernel are the same
-                    # bits: they stay in one block's registers
-                    dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do,
-                                                   causal)[1:]
-                    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-                        raise AssertionError("flash_bwd's dk, dv differ "
+                    # two runs of the fused kernel give the same bits: dK
+                    # and dV stay in one block's registers, and dQ's adds
+                    # go in a fixed order
+                    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal)
+                    if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                            and torch.equal(dv, dv2)):
+                        raise AssertionError("flash_bwd's dq, dk, dv differ "
                                              "between two runs")
-                    del dk2, dv2
+                    del dq2, dk2, dv2
                 outs.append(("flash_bwd_dq", "dq", flash_attention_bwd_dq(
                     q, k, v, do, lse, delta, causal)))
                 dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -717,12 +741,15 @@ def time_bwd(q, k, v, do, card) -> dict:
     o, lse = att.flash_attention_fwd(q, k, v, True)
     delta = att.attention_delta(o, do)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dq_count = att.dq_counters(q)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
 
-    # the C entries called directly: no counter, no Delta, no zeros
+    # the C entries called directly: no counter, no Delta, no zeros but
+    # the order's counters (a launch counts in them)
     def fused():
+        dq_count.zero_()
         att._launch("flash_bwd", "flash_bwd",
-                    (q, k, v, do, lse, delta, dk, dv, dq_acc), True)
+                    (q, k, v, do, lse, delta, dk, dv, dq_acc, dq_count), True)
 
     def mma():
         att._launch("flash_bwd", "flash_bwd_dq",
@@ -999,11 +1026,14 @@ def time_attention(q, k, v, do, o, lse, delta, causal: bool,
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dq_count = att.dq_counters(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
 
     def fused():  # the C entry called directly: no counter, Delta or zeros
+        dq_count.zero_()  # but the order's counters (a launch counts in them)
         att._launch("flash_bwd", "flash_bwd",
-                    (q, k, v, do, lse, delta, dk, dv, dq_acc), causal)
+                    (q, k, v, do, lse, delta, dk, dv, dq_acc, dq_count),
+                    causal)
 
     rep = q.shape[2] // k.shape[2]
     qt, kt, vt = (x.transpose(1, 2) for x in (
@@ -3137,9 +3167,10 @@ def phase_expert_parallel(card: str) -> dict:
 
 # The traced training phase. Tolerances, each derived where it is used:
 # traced against untraced on one device, the same kernels in the same
-# order: they part only where flash_bwd adds dQ's key-tile shares by TMA
-# reduce-add in the order the CTAs arrive (fp32, 2^-24 of a partial sum an
-# addition), which moves a gradient by about 1e-6 of its size. Adam's early
+# order, each the same from run to run (flash_bwd adds dQ's key-tile shares
+# in a fixed order): equal. The bound holds runs that a reordered fp32 sum
+# parts (2^-24 of a partial sum an addition), which moves a gradient by
+# about 1e-6 of its size. Adam's early
 # steps move a parameter by about lr whatever its gradient's size, so where
 # a gradient is near 0 that noise can flip its step's sign (2 lr apart);
 # the loss moves by those parameters' |g| x 2 lr, small because their |g|
@@ -3611,9 +3642,9 @@ CKPT_CORPUS_TOKENS = 1 << 26
 CKPT_LOADER_CHECK = 8
 CKPT_STEPS, CKPT_SAVE_AT = 6, 3  # steps of each run; the save after step 3
 # Run B (a save in flight) and the resumed steps against run A: the same
-# steps on the same batches from the same weights, which part only by
-# flash_bwd's reduce-add order (TRACED_LOSS_RTOL's reasoning, over
-# CKPT_STEPS steps); the first loss precedes any update: equal.
+# steps on the same batches from the same weights, which part at most by
+# a reordered fp32 sum (TRACED_LOSS_RTOL's reasoning, over CKPT_STEPS
+# steps); the first loss precedes any update: equal.
 CKPT_LOSS_RTOL = TRACED_LOSS_RTOL
 
 
@@ -3798,8 +3829,8 @@ def phase_checkpointed_training(card: str):
         launches = {c.__name__: c.launches for c in counters}
         # against run B, which held the same state at the save: the first
         # resumed step is B's step 4 on the same state and batch through a
-        # deterministic forward, so equal; the rest part only by flash_bwd
-        # from step 4 on
+        # deterministic forward, so equal; the rest at most by a reordered
+        # fp32 sum from step 4 on
         check_losses("resumed run", losses_r, losses_b[CKPT_SAVE_AT:],
                      ref="run B")
         check_losses("resumed run", losses_r, losses_a[CKPT_SAVE_AT:],
@@ -5284,6 +5315,391 @@ def phase_runtime_faults(card: str, serving: dict) -> dict:
     return launched
 
 
+PIPE_STAGES = 2
+PIPE_MICROBATCHES = 4  # of PIPE_MB_SIZE x TRAIN_SEQ: phase 4's 4 x 2048
+PIPE_MB_SIZE = 1
+PIPE_STEPS = 3
+PIPE_DEPTH = 2  # channel slots an edge: a send overlaps the next compute
+PIPE_SEED = 0  # the initial weights' (drawn on the card as phase 4 draws)
+PIPE_BATCH_SEED = 0  # make_microbatches' seed
+PIPE_TIMEOUT_S = 600.0  # each cluster call's
+# The pipeline's step t against the one-device step on the concatenated
+# batch, same initial params, same optimizer (make_stage_optimizer's
+# warmup-cosine AdamW with the controller's global-norm clip of 1.0, as
+# make_optimizer's chain). The pipeline's loss is the mean of the four
+# microbatches' losses, each from the same modules and products at batch
+# 1 x 2048 as a one-device forward of that microbatch (the hop copies the
+# bf16 activation and its gradient exactly), so its distance to the
+# one-device step's loss is:
+# - the forward's microbatching term: delta_t = |eval(batch) - mean_j
+#   eval(mb_j)|, measured on the reference's own params at step t (other
+#   GEMM tilings at batch 1 and 4: fp32 sums in other orders, bf16
+#   roundings that fall apart); counted twice (the pipeline's forwards may
+#   round apart from the one-device microbatch forwards as much again);
+# - the fp32 means: the token mean (log2 of the tokens' count roundings of
+#   2^-24) and the mean of 4 means, PIPE_MEAN_ROUNDINGS units of 2^-24 |L|;
+# - the updates before step t: AdamW moves an element by at most
+#   lr_s ADAM_RATIO (|m_hat| <= sqrt(v_hat) for b1 = 0.9, b2 = 0.95 stays
+#   below 1.2 x) plus the decay, so two runs whose gradients round apart
+#   part by at most 2 ADAM_RATIO lr_s an element and a step, which moves
+#   the loss by at most that times ||g_t||_1 (first order; ||g_t||_1 of
+#   the reference's gradient at its step-t params, measured). The schedule
+#   gives lr_0 = 0: steps 0 and 1 run the same params on both sides.
+# That loss bound is loose (first order, every element at its worst), so
+# the gradients and the updates are held too, against the one-device run's
+# own microbatching: the reference also trains a second copy of the same
+# initial params, each step on the mean of the four microbatches'
+# gradients (g_m, batch 1 each) where the first copy takes the gradient of
+# the concatenated batch (g_w, batch 4). The pipeline computes g_m's sum
+# in its stages (the same modules at batch 1; the hop copies activations
+# and their gradients exactly), so it parts from the one-device
+# microbatched run by rounding at most as far as that run parts from the
+# whole-batch one, and by the triangle inequality:
+# - the global norm before the clip at steps 0 and 1 (the same params on
+#   all sides): |norm_pipe - |g_w|| <= 2 |g_w - g_m| plus fp32 roundings of
+#   both norms, PIPE_NORM_ROUNDINGS units of 2^-24 |g_w| (log2 of a leaf's
+#   2^27 squares, of ~150 leaves' sum, the root and the division by 4;
+#   twice);
+# - each stage's parameters after PIPE_STEPS steps:
+#   |p_pipe - p_w| <= 2 |p_m - p_w| plus PIPE_PARAM_ROUNDINGS units of
+#   2^-24 |p_w| (the decay's and the step's rounding a step, on each side).
+# Both bounds are measured in the run, and the updates' own size |p_w - p_0|
+# beside them says what they can see: a stage that skipped its update, or
+# took it with the sign flipped, parts from p_w by |p_w - p_0| or twice it.
+PIPE_ADAM_RATIO = 1.2
+PIPE_MEAN_ROUNDINGS = 13 + 4  # log2(8192) + the mean of 4 microbatches
+PIPE_NORM_ROUNDINGS = 2 * (27 + 8 + 2)
+PIPE_PARAM_ROUNDINGS = 2 * 2 * 3  # PIPE_STEPS steps
+DAG_ITERS = 200  # timed iterations of the compiled and the eager chain
+
+
+def phase_pipeline(card: str) -> dict:
+    """Phase 20: the pipeline plane and compiled graphs on the port's
+    runtime (the ``pipeline`` path)."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+    from ray_tpu_torch.train.pipeline import (PipelineConfig,
+                                              PipelineTrainer,
+                                              bubble_upper_bound,
+                                              make_microbatches,
+                                              partition_layers)
+    from ray_tpu_torch.train.pipeline.partition import (make_stage_optimizer,
+                                                        stage_param_keys,
+                                                        top_key)
+
+    cfg = CONFIGS[TRAIN_CONFIG]
+    act_bytes = PIPE_MB_SIZE * TRAIN_SEQ * cfg.d_model * 2  # bf16
+    pipe = PipelineConfig(
+        num_stages=PIPE_STAGES, num_microbatches=PIPE_MICROBATCHES,
+        microbatch_size=PIPE_MB_SIZE, seq_len=TRAIN_SEQ,
+        clip_global_norm=1.0, channel_depth=PIPE_DEPTH,
+        channel_capacity=act_bytes + (1 << 16), step_timeout_s=PIPE_TIMEOUT_S)
+    metrics = {"card": card, "config": TRAIN_CONFIG,
+               "stages": PIPE_STAGES, "microbatches": PIPE_MICROBATCHES,
+               "microbatch": [PIPE_MB_SIZE, TRAIN_SEQ], "steps": PIPE_STEPS,
+               "channel_depth": PIPE_DEPTH,
+               "channel_capacity": pipe.channel_capacity}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the reference: the one-device step on the concatenated batch ----
+    t0 = time.perf_counter()
+    opt = make_stage_optimizer()
+    bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
+        learning_rate=opt.learning_rate, weight_decay=opt.weight_decay,
+        warmup_steps=opt.warmup_steps, total_steps=opt.total_steps,
+        b1=opt.b1, b2=opt.b2, clip=pipe.clip_global_norm))
+    params, opt_state = bundle.init(seed=PIPE_SEED)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+    # the microbatched copy (PIPE_NORM_ROUNDINGS' note); the bundle computes
+    # on its own tensors, ``params``, and copies a dict it is given into
+    # them, so the whole-batch run's are kept aside while it does
+    params_m = {k: v.detach().clone() for k, v in params.items()}
+    opt_state_m = bundle.optimizer.init(params_m)
+
+    def on_card(mb):
+        return {"tokens": torch.from_numpy(mb["tokens"]).long().cuda(),
+                "targets": torch.from_numpy(mb["targets"]).long().cuda(),
+                "mask": torch.from_numpy(mb["mask"]).cuda()}
+
+    def norm(xs):
+        """The global norm of the tensors ``xs`` yields, one at a time."""
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(x) for x in xs])).item()
+
+    ref_losses, deltas, g1, ref_gnorm, ref_step_s = [], [], [], [], []
+    grad_mb_dist = []  # |g_w - g_m| at the steps with the same params
+    for step in range(PIPE_STEPS):
+        mbs = make_microbatches(cfg, pipe, PIPE_BATCH_SEED, step)
+        batch = on_card({k: np.concatenate([m[k] for m in mbs])
+                         for k in mbs[0]})
+        whole = bundle.eval_step(params, batch).item()
+        parts = float(np.mean([bundle.eval_step(params, on_card(m)).item()
+                               for m in mbs]))
+        deltas.append(abs(whole - parts))
+        _, grads = bundle.gradients(params, batch)
+        g1.append(sum(g.abs().sum().item() for g in grads.values()))
+        ref_gnorm.append(norm(grads.values()))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = bundle.step(params, opt_state, batch)[2].item()
+        ref_step_s.append(time.perf_counter() - t1)
+        ref_losses.append(loss)
+        kept = {k: v.detach().clone() for k, v in params.items()}
+        grads_m = None
+        for m in mbs:
+            g = bundle.gradients(params_m, on_card(m))[1]
+            if grads_m is None:
+                grads_m = g
+            else:
+                torch._foreach_add_(list(grads_m.values()), list(g.values()))
+            del g
+        torch._foreach_div_(list(grads_m.values()), float(len(mbs)))
+        if step < 2:  # lr_0 = 0: the same params on both sides
+            grad_mb_dist.append(norm(grads[k] - grads_m[k]
+                                     for k in grads))
+        del grads
+        bundle.optimizer.update(params_m, [grads_m[k] for k in params_m],
+                                opt_state_m)
+        del grads_m
+        with torch.no_grad():
+            for k, v in kept.items():
+                params[k].copy_(v)
+        del kept
+    stage_keys = [set(stage_param_keys(cfg, s, PIPE_STAGES))
+                  for s in range(PIPE_STAGES)]
+
+    def stage_norms(tree, minus=None):
+        """Each stage's |tree - minus| over its leaves, leaf by leaf on the
+        card."""
+        return [norm((tree[k].cuda() if minus is None
+                      else tree[k].cuda() - minus[k].cuda())
+                     for k in tree if top_key(k) in keys)
+                for keys in stage_keys]
+
+    final_w = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+    update_norm = stage_norms(params, init)  # |p_w - p_0|
+    param_w_norm = stage_norms(params)
+    param_mb_dist = stage_norms(params_m, params)
+    metrics["reference_s"] = time.perf_counter() - t0
+    del bundle, params, opt_state, params_m, opt_state_m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_bounds = [2 * grad_mb_dist[t] + PIPE_NORM_ROUNDINGS * 2.0 ** -24
+                   * ref_gnorm[t] for t in range(2)]
+    param_bounds = [2 * param_mb_dist[s] + PIPE_PARAM_ROUNDINGS
+                    * 2.0 ** -24 * param_w_norm[s]
+                    for s in range(PIPE_STAGES)]
+    log(f"pipeline: the microbatched reference: |g_w - g_m| at steps 0, 1 "
+        f"{grad_mb_dist} (|g_w| {ref_gnorm[:2]}), bounds on the pipeline's "
+        f"norm {grad_bounds}; by stage after {PIPE_STEPS} steps |p_m - p_w| "
+        f"{param_mb_dist}, bounds on |p_pipe - p_w| {param_bounds}, the "
+        f"updates |p_w - p_0| {update_norm}")
+    lrs = [opt.schedule(s) for s in range(PIPE_STEPS)]
+    bounds = [2 * deltas[t] + PIPE_MEAN_ROUNDINGS * 2.0 ** -24
+              * abs(ref_losses[t])
+              + 2 * PIPE_ADAM_RATIO * sum(lrs[:t]) * g1[t]
+              for t in range(PIPE_STEPS)]
+    log(f"pipeline: one-device reference of {TRAIN_CONFIG} at "
+        f"{PIPE_MICROBATCHES * PIPE_MB_SIZE} x {TRAIN_SEQ}: losses "
+        f"{ref_losses}, microbatching deltas {deltas}, lr {lrs}, ||g||_1 "
+        f"{g1}; bounds 2 delta + {PIPE_MEAN_ROUNDINGS} 2^-24 |L| + 2 x "
+        f"{PIPE_ADAM_RATIO} sum(lr before) ||g||_1 = {bounds}")
+
+    shm = shm_bytes()
+    store_mem = max(1 << 30, min(SERVE_STORE_MAX, shm["free"] // 2))
+    metrics["object_store_memory"] = store_mem
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8, object_store_memory=store_mem)
+    metrics["init_s"] = time.perf_counter() - t0
+    try:
+        # -- a compiled graph of three host actors, on the fresh cluster
+        @rt.remote(num_cpus=0.3)
+        class Stage:
+            def __init__(self, add):
+                self.add = add
+
+            def apply(self, x):
+                return x + self.add
+
+        eager_actors = [Stage.remote(a) for a in (1, 10, 100)]
+
+        def eager(i):
+            s1, s2, s3 = eager_actors
+            return rt.get(s3.apply.remote(s2.apply.remote(s1.apply.remote(i))),
+                          timeout=60)
+
+        with InputNode() as inp:
+            c1, c2, c3 = Stage.bind(1), Stage.bind(10), Stage.bind(100)
+            dag = c3.apply.bind(c2.apply.bind(c1.apply.bind(inp)))
+        t0 = time.perf_counter()
+        compiled = dag.experimental_compile()
+        metrics["dag_compile_s"] = time.perf_counter() - t0
+        try:
+            times = {"eager": [], "compiled": []}
+            for i in range(-1, DAG_ITERS):  # the first of each is a warm-up
+                for label, run in (("eager", eager), ("compiled", lambda j:
+                                                      compiled.execute(j)
+                                                      .get(timeout=60))):
+                    t1 = time.perf_counter()
+                    got = run(i)
+                    if i >= 0:
+                        times[label].append(time.perf_counter() - t1)
+                    if got != i + 111:
+                        raise AssertionError(f"{label} chain gave {got} for "
+                                             f"{i}, want {i + 111}")
+        finally:
+            compiled.teardown()
+            for a in eager_actors:
+                rt.kill(a)
+
+        # -- the pipeline: two half-card stage actors ------------------
+        t0 = time.perf_counter()
+        trainer = PipelineTrainer(
+            cfg, pipe, params=init, seed=PIPE_BATCH_SEED,
+            device="cuda",
+            optimizer_factory=make_stage_optimizer)
+        metrics["trainer_up_s"] = time.perf_counter() - t0
+        del init
+        try:
+            actors = trainer.actors
+            rt.get([a.kernel_launches.remote(reset=True) for a in actors],
+                   timeout=PIPE_TIMEOUT_S)
+            rt.get([a.memory_stats.remote(reset=True) for a in actors],
+                   timeout=PIPE_TIMEOUT_S)
+            stats = trainer.train(PIPE_STEPS)
+            stage_launches = rt.get([a.kernel_launches.remote()
+                                     for a in actors], timeout=PIPE_TIMEOUT_S)
+            memory = rt.get([a.memory_stats.remote() for a in actors],
+                            timeout=PIPE_TIMEOUT_S)
+            t1 = time.perf_counter()
+            final_pipe = trainer.merged_params()
+            metrics["merged_params_s"] = time.perf_counter() - t1
+        finally:
+            trainer.shutdown()
+    finally:
+        rt.shutdown()
+
+    losses = [s["loss"] for s in stats]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"pipeline losses not finite: {losses}")
+    errs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    if not all(e <= b for e, b in zip(errs, bounds)):
+        raise AssertionError(f"pipeline losses {losses} part from the "
+                             f"one-device step's {ref_losses} by {errs}, "
+                             f"beyond the bounds {bounds}")
+    grad_norm = [s["grad_norm"] for s in stats]
+    grad_errs = [abs(grad_norm[t] - ref_gnorm[t]) for t in range(2)]
+    if not all(e <= b for e, b in zip(grad_errs, grad_bounds)):
+        raise AssertionError(f"pipeline gradient norms {grad_norm[:2]} part "
+                             f"from the one-device step's {ref_gnorm[:2]} by "
+                             f"{grad_errs}, beyond the bounds {grad_bounds}")
+    if set(final_pipe) != set(final_w):
+        raise AssertionError(f"the pipeline's merged params have keys "
+                             f"{sorted(set(final_pipe) ^ set(final_w))} "
+                             f"that the model does not, or lack them")
+    param_errs = stage_norms(final_pipe, final_w)
+    del final_pipe, final_w
+    if not all(e <= b for e, b in zip(param_errs, param_bounds)):
+        raise AssertionError(f"pipeline stages' params after {PIPE_STEPS} "
+                             f"steps part from the one-device run's by "
+                             f"{param_errs}, beyond the bounds "
+                             f"{param_bounds} (the updates: {update_norm})")
+    per_mb = []  # each stage's launches a step
+    remat = 2 if cfg.remat else 1
+    for s, (start, stop) in enumerate(partition_layers(cfg.n_layers,
+                                                       PIPE_STAGES)):
+        L = stop - start
+        fwd = L * remat + (0 if s == PIPE_STAGES - 1 else L)
+        per_mb.append({"flash_attention_fwd": fwd, "attention_delta": L,
+                       "flash_attention_bwd": L,
+                       "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0})
+    for s, got in enumerate(stage_launches):
+        want = {k: v * PIPE_MICROBATCHES * PIPE_STEPS
+                for k, v in per_mb[s].items()}
+        if got != want:
+            raise AssertionError(f"pipeline stage {s} launched {got}, want "
+                                 f"{want}")
+        if not all(got[k] > 0 for k in ("flash_attention_fwd",
+                                         "attention_delta",
+                                         "flash_attention_bwd")):
+            raise AssertionError(f"pipeline stage {s} did not launch every "
+                                 f"kernel: {got}")
+    launches = {k: sum(g[k] for g in stage_launches)
+                for k in stage_launches[0]}
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    M = PIPE_MICROBATCHES
+    timings = trainer.timings
+    last = stats[1:]  # the first step is the stages' warm-up
+    metrics.update({
+        "losses": losses, "reference_losses": ref_losses,
+        "loss_errors": errs, "loss_bounds": bounds,
+        "microbatching_deltas": deltas, "grad_l1": g1, "lr": lrs,
+        "grad_norm": grad_norm, "reference_grad_norm": ref_gnorm,
+        "grad_norm_errors": grad_errs, "grad_norm_bounds": grad_bounds,
+        "grad_microbatching_dist": grad_mb_dist,
+        "param_errors_by_stage": param_errs,
+        "param_bounds_by_stage": param_bounds,
+        "param_microbatching_dist_by_stage": param_mb_dist,
+        "update_norm_by_stage": update_norm,
+        "stages_ready_s": timings["ready_s"],
+        "publish_s": timings["publish_s"],
+        "publish_bytes": timings["publish_bytes"],
+        "publish_gb_per_s": timings["publish_bytes"] / timings["publish_s"]
+        / 1e9,
+        "pull_s": timings["pull_s"],
+        "pull_gb_per_s": timings["publish_bytes"] / timings["pull_s"] / 1e9,
+        "step_s": [s["step_s"] for s in stats],
+        "step_s_median": median([s["step_s"] for s in last]),
+        "reference_step_s": ref_step_s,
+        "tokens_per_s": M * PIPE_MB_SIZE * TRAIN_SEQ
+        / median([s["step_s"] for s in last]),
+        "reference_tokens_per_s": M * PIPE_MB_SIZE * TRAIN_SEQ
+        / median(ref_step_s[1:]),
+        "idle_share": [[1.0 - c / s["wall_s"] for c in s["compute_s"]]
+                       for s in stats],
+        "recv_wait_share": [[r / s["wall_s"] for r in s["recv_wait_s"]]
+                            for s in stats],
+        "bubble_upper_bound": bubble_upper_bound(PIPE_STAGES, M),
+        "activation_bytes_per_mb": stats[-1]["activation_bytes_per_mb"],
+        "send_s_per_hop": [[x / M for x in s["send_s"]] for s in last],
+        "recv_wait_s_per_hop": [[x / M for x in s["recv_wait_s"]]
+                                for s in last],
+        "hop": stats[-1]["hop"],
+        "stage_peak_bytes": [m["peak_bytes"] for m in memory],
+        "launches_by_stage": stage_launches,
+        "dag_eager_ms_p50": 1e3 * statistics.median(times["eager"]),
+        "dag_compiled_ms_p50": 1e3 * statistics.median(times["compiled"]),
+        "dag_iters": DAG_ITERS})
+    if metrics["activation_bytes_per_mb"] != act_bytes:
+        raise AssertionError(f"{metrics['activation_bytes_per_mb']} "
+                             f"activation bytes a microbatch, want "
+                             f"{act_bytes}")
+    log(f"pipeline: {PIPE_STAGES} stages of num_gpus={1 / PIPE_STAGES}, "
+        f"{PIPE_STEPS} steps, losses {losses} within {bounds} of the "
+        f"one-device step's {ref_losses}; gradient norms at steps 0, 1 "
+        f"{grad_errs} within {grad_bounds}; each stage's params "
+        f"{param_errs} within {param_bounds} (updates {update_norm}); "
+        f"launches by stage {stage_launches}"
+        f"; compiled graph p50 {metrics['dag_compiled_ms_p50']:.3f} ms "
+        f"against eager {metrics['dag_eager_ms_p50']:.3f} ms [{card}]")
+    log("pipeline metrics: " + json.dumps(metrics))
+    return launches
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -5342,6 +5758,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["runtime_restart"] = phase_runtime_faults(dev["card"], serving)
     log(f"runtime faults: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    paths["pipeline"] = phase_pipeline(dev["card"])
+    log(f"pipeline: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

@@ -184,7 +184,9 @@ class WorkerLease:
 # the JAX package's libraries that the runtime reaches and the port does not
 # have yet, with the ROADMAP.md item that ports each
 _NOT_PORTED = {
-    "compiled DAGs": "queue 1 item 6, compiled DAGs (ray_tpu/dag/)",
+    "device channels":
+        "queue 1 item 3, device channels and the XLA reshard tier "
+        "(ray_tpu/dag/device_channel.py:IciTransfer)",
     "the dashboard":
         "queue 1 item 6, cluster services (ray_tpu/dashboard/)",
     "client mode": "queue 1 item 6, utilities (ray_tpu/util/client/)",

@@ -3697,10 +3697,22 @@ class CoreWorker:
         if spec.seqno > 0:
             await self._wait_for_turn(spec)
         if spec.method_name == "__rtpu_dag_loop__":
-            # the compiled-graph data plane (dag/executor.py in the JAX
-            # package) installs an actor's static schedule here
-            err = TaskError(repr(not_ported("compiled DAGs")), "")
-            return wire.dumps({"status": "app_error", "error": pickle.dumps(err)})
+            # compiled-graph data plane: install this actor's static schedule
+            # and run it on a dedicated thread — no further control-plane
+            # traffic per iteration (reference: dag_node_operation.py:704)
+            from ray_tpu_torch.dag.executor import DagLoopRunner
+
+            args, kwargs, _seen = await self._resolve_args(spec.args_blob)
+            try:
+                runner = DagLoopRunner(self.actor_instance, args[0])
+                runner.start()
+                self._dag_runner = runner  # keep alive with the actor
+            except Exception as e:
+                err = TaskError(repr(e), traceback.format_exc())
+                return wire.dumps({"status": "app_error",
+                                   "error": pickle.dumps(err)})
+            return wire.dumps({"status": "ok", "results": [
+                ("inline", pack_blob(*serialize("started")))]})
         method = getattr(self.actor_instance, spec.method_name, None)
         if method is None:
             err = TaskError(f"AttributeError: no method {spec.method_name}", "")

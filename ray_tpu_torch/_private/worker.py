@@ -367,6 +367,10 @@ def put(value: Any) -> ObjectRef:
 
 
 def get(refs, *, timeout: Optional[float] = None):
+    from ray_tpu_torch.dag import CompiledDAGRef
+
+    if isinstance(refs, CompiledDAGRef):
+        return refs.get(timeout if timeout is not None else 300.0)
     if isinstance(refs, (list, tuple)):
         bad = [r for r in refs if not isinstance(r, ObjectRef)]
         if bad:

@@ -2,8 +2,8 @@
 the port of ``ray_tpu/actor.py``.
 
 Reference: python/ray/actor.py (ActorClass._remote, ActorHandle,
-concurrency groups, max_restarts semantics). DAG authoring (``bind``)
-raises until the port has compiled DAGs.
+concurrency groups, max_restarts semantics), and DAG authoring
+(``bind``, ``ray_tpu_torch/dag``).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict, Optional
 
-from ray_tpu_torch._private.common import ActorOptions, not_ported
+from ray_tpu_torch._private.common import ActorOptions
 from ray_tpu_torch._private.ids import ActorID
 
 _OPTION_FIELDS = set(ActorOptions.__dataclass_fields__)
@@ -53,7 +53,9 @@ class ActorMethod:
         )
 
     def bind(self, *args, **kwargs):
-        raise not_ported("compiled DAGs")
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -137,7 +139,9 @@ class ActorClass:
         return _worker.global_worker().create_actor(self, args, kwargs, self._options)
 
     def bind(self, *args, **kwargs):
-        raise not_ported("compiled DAGs")
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

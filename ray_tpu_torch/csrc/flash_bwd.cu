@@ -84,10 +84,10 @@
 //   barrier across the consumers, consumer cw takes dQ's columns 64 cw ..
 //   + 63 over all 128 keys (D = 128; at D = 64 all columns over its own
 //   keys), and one thread adds the fp32 result into the accumulator from a
-//   staging tile with a TMA reduce-add, which skips rows >= S. The order of
-//   those fp32 adds from different blocks changes from run to run, so dQ's
-//   last bits may too; dK and dV stay in one block's registers and are the
-//   same in every run;
+//   staging tile with a TMA reduce-add, which skips rows >= S. Those fp32
+//   adds come from different blocks; a counter a q tile puts them in a
+//   fixed order (dq_index), so dQ is the same in every run, as dK and dV
+//   are, which stay in one block's registers;
 // - causal: a consumer whose keys lie wholly above a q tile's diagonal
 //   skips its products (its dS half is zeros) but arrives on every
 //   barrier; only tiles that cross the diagonal or S pay for the mask. TMA
@@ -442,9 +442,10 @@ constexpr int kStatBytes = 2 * kStatStride;
 // item (resident), the ring's Q and dO tiles, two dS tiles (128 keys x 64
 // q, bf16, one per parity of the tile count), each consumer's 16 KB staging
 // tile (dQ in fp32 on its way to the reduce-add; dK, dV in bf16 on their
-// way out), the ring's lse and Delta, then the mbarriers (KV full, KV
-// empty; for each stage full, then for each stage empty). A tile is D / 64
-// boxes side by side, box c holding columns 64c .. 64c + 63.
+// way out), the ring's lse and Delta, the mbarriers (KV full, KV empty;
+// for each stage full, then for each stage empty), then each consumer's
+// pending dQ share (dq_index's note). A tile is D / 64 boxes side by side,
+// box c holding columns 64c .. 64c + 63.
 template <int D>
 struct BwdSmem {
   static constexpr int kStages = D == 64 ? 3 : 2;
@@ -458,7 +459,8 @@ struct BwdSmem {
   static constexpr int kStgBytes = kWsQ * 64 * 4;
   static constexpr int kStats = kStg + 2 * kStgBytes;
   static constexpr int kBars = kStats + kStages * kStatBytes;
-  static constexpr int kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+  static constexpr int kPend = kBars + 8 * (2 + 2 * kStages);
+  static constexpr int kBytes = kPend + 8 + 1024;
 
   __device__ static uint32_t full(uint32_t base, int s) {
     return base + kBars + 16 + 8 * s;
@@ -495,23 +497,110 @@ struct RingPos {
 };
 
 // A work item: the 128-key tile at k0 of one (batch, KV head). Items are
-// numbered with the key tile major, so when causal the first key tiles,
-// which see the most q tiles, come first; blocks take them in the snake
-// order of work_index. An item walks the group's query heads in turn and,
-// for each, the 64-row q tiles from qt0 (the diagonal when causal) on.
+// numbered with the key tile major; blocks take them in the snake order of
+// work_index. Without dQ the first key tiles, which see the most q tiles
+// when causal, come first. With dQ the last come first (dq_index's note).
+// An item walks the group's query heads in turn and, for each, the 64-row
+// q tiles from qt0 (the diagonal when causal) on.
 struct BwdWork {
   int b, kvh, k0, qt0;
 };
 
-__device__ __forceinline__ BwdWork bwd_work(int w, int B, int KVH,
-                                            int causal) {
+__device__ __forceinline__ BwdWork bwd_work(int w, int n_work, int B,
+                                            int KVH, int causal,
+                                            bool last_first) {
   const int n_bkv = B * KVH;
+  if (last_first) w = n_work - 1 - w;
   BwdWork wk;
   wk.b = w % n_bkv / KVH;
   wk.kvh = w % n_bkv % KVH;
   wk.k0 = w / n_bkv * kWsKeys;
   wk.qt0 = causal ? wk.k0 / kWsQ : 0;
   return wk;
+}
+
+// The order of dQ's adds. Each q tile's dQ is the sum of the shares of the
+// key tiles that see it, added into the fp32 accumulator by TMA
+// reduce-adds from different blocks, so their order would change from run
+// to run and dQ's last bits with it. A counter a (batch, head, q tile),
+// zero at the launch, fixes it: the shares go in from the last key tile
+// that sees the q tile down to the first, and each consumer, skipped ones
+// too, counts its share in once its adds have landed. At D = 128 the two
+// consumers of an item add disjoint columns and go in together; at D = 64
+// both add every column, so consumer 1 goes first.
+//
+// Why the order ends and what it costs: items are dealt last key tile
+// first, so a share waits only on items with a lower work index, which no
+// block holds behind an item with a higher one; the lowest unfinished item
+// never waits, so every item ends. When causal, a key tile's first q tile
+// is two past the one before it, so an item keeps behind the items whose
+// shares precede its own. Thread 0 of a consumer signals a share at its
+// next tile's adds (or at the item's end), when they have long landed, and
+// reads the counter while its warpgroup fills the staging tile, so it
+// waits neither on its own reduce-add nor on the read; the pending share
+// waits in shared memory, since the products need every register. The
+// counter takes relaxed loads and adds only: a share's add is issued after
+// its wait_group 0 has seen the reduce-adds before it complete, and the
+// next share's adds only after its load has seen that count, every access
+// at the L2. A wait past 2^25 polls (tens of seconds) traps: an error,
+// not a hung card.
+
+// The counter of q tile q0 of (b, h): its index in dq_count.
+__device__ __forceinline__ int dq_index(int b, int h, int H, int q0, int S) {
+  return (b * H + h) * ((S + kWsQ - 1) / kWsQ) + q0 / kWsQ;
+}
+
+// The count at the turn of consumer cw of the item at k0 on q tile q0: the
+// key tiles that see q0 are 0 .. last (causal: k0 <= q0), and those after
+// k0 go first, two consumers each.
+__device__ __forceinline__ int dq_want(int q0, int k0, int S, int causal,
+                                       int D, int cw) {
+  const int n_kt = (S + kWsKeys - 1) / kWsKeys;
+  const int last = causal ? min(q0 / kWsKeys, n_kt - 1) : n_kt - 1;
+  return 2 * (last - k0 / kWsKeys) + (D == 64 ? 1 - cw : 0);
+}
+
+// `seen`: a load of the counter issued earlier. The poll is one PTX loop:
+// written in C++, its count and trap cost the consumers' products spilled
+// registers.
+__device__ __forceinline__ void dq_wait(const int* count, int want,
+                                        int seen) {
+  if (seen < want) {
+    asm volatile(
+        "{\n.reg .pred done, late;\n.reg .s32 v;\n.reg .u32 n;\n"
+        "mov.u32 n, 0;\n"
+        "WAIT_%=:\n"
+        "ld.relaxed.gpu.global.s32 v, [%0];\n"
+        "setp.ge.s32 done, v, %1;\n"
+        "@done bra.uni DONE_%=;\n"
+        "nanosleep.u32 64;\n"
+        "add.u32 n, n, 1;\n"
+        "setp.gt.u32 late, n, 33554432;\n"
+        "@late trap;\n"
+        "bra.uni WAIT_%=;\n"
+        "DONE_%=:\n}\n" ::"l"(count),
+        "r"(want)
+        : "memory");
+  }
+  hopper::fence_proxy_async_global();
+}
+
+// The caller's reduce-adds of this share have completed (wait_group 0).
+__device__ __forceinline__ void dq_signal(int* count) {
+  hopper::fence_proxy_async_global();
+  hopper::red_add_relaxed_gpu(count, 1);
+}
+
+// Signal the share whose adds are in flight, if any: the index of its
+// counter waits in shared memory (`slot`, -1 for none), not in registers,
+// which the products need.
+__device__ __forceinline__ void dq_flush(int* counters, uint32_t slot) {
+  const int pending = (int)hopper::ld_shared_u32(slot);
+  if (pending >= 0) {
+    hopper::tma_store_wait<0>();
+    dq_signal(counters + pending);
+    hopper::st_shared(slot, 0xffffffffu);
+  }
 }
 
 // P^T of one tile in registers, in place of S^T: sc holds S^T of the
@@ -614,9 +703,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tdv,
                  const __grid_constant__ CUtensorMap tdq,
                  const __grid_constant__ CUtensorMap tlse,
-                 const __grid_constant__ CUtensorMap tdelta, int B, int S,
-                 int H,
-                 int KVH, float scale, float scale_log2, int causal) {
+                 const __grid_constant__ CUtensorMap tdelta,
+                 int* __restrict__ dq_count, int B, int S, int H, int KVH,
+                 float scale, float scale_log2, int causal) {
   using L = BwdSmem<D>;
   constexpr int kStages = L::kStages;
   constexpr int kBoxes = D / 64;
@@ -650,7 +739,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
       for (int round = 0;; ++round) {
         const int w = work_index(round);
         if (w >= n_work) break;
-        const BwdWork wk = bwd_work(w, B, KVH, causal);
+        const BwdWork wk = bwd_work(w, n_work, B, KVH, causal, kWithDQ);
         if (round > 0) hopper::mbar_wait(kv_empty, (round - 1) & 1);
         hopper::mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
         for (int c = 0; c < kBoxes; ++c) {
@@ -710,10 +799,14 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
 
   RingPos<kStages> pos;
   int ds_parity = 0;  // which dS tile this q tile writes
+  // thread 0's share whose adds are in flight, signalled at the next
+  // tile's adds or at the item's end (dq_index's note)
+  const uint32_t pend_slot = base + L::kPend + 4 * cw;
+  if (kWithDQ && tid == 0) hopper::st_shared(pend_slot, 0xffffffffu);
   for (int round = 0;; ++round) {
     const int w = work_index(round);
     if (w >= n_work) break;
-    const BwdWork wk = bwd_work(w, B, KVH, causal);
+    const BwdWork wk = bwd_work(w, n_work, B, KVH, causal, kWithDQ);
     const int key_lo = wk.k0 + 64 * cw;  // this consumer's first key
     const int key_a = key_lo + 16 * warp + g;
 
@@ -844,8 +937,15 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
           if (!dq_zero) {
             // dQ (64 q rows x 64 columns, fp32) through the staging tile:
             // two 32-column boxes, 128-byte swizzled, reduce-added by one
-            // thread; the tile's previous TMA operation must have read it
-            if (tid == 0) hopper::tma_store_wait_read<0>();
+            // thread in its turn; the tile's previous TMA operation must
+            // have landed, and its share is then signalled
+            int seen = 0;
+            if (tid == 0) {
+              hopper::tma_store_wait<0>();
+              dq_flush(dq_count, pend_slot);
+              seen = hopper::ld_relaxed_gpu(
+                  dq_count + dq_index(wk.b, h, H, q0, S));
+            }
             hopper::bar_sync<128>(my_bar);
 #pragma unroll
             for (int jj = 0; jj < 8; ++jj) {
@@ -860,11 +960,21 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
             hopper::fence_proxy_async();
             hopper::bar_sync<128>(my_bar);
             if (tid == 0) {
+              const int idx = dq_index(wk.b, h, H, q0, S);
+              dq_wait(dq_count + idx, dq_want(q0, wk.k0, S, causal, D, cw),
+                      seen);
               for (int c = 0; c < 2; ++c)
                 hopper::tma_reduce_add_4d(&tdq, stg + c * kQBox,
                                           dq_col0 + 32 * c, h, q0, wk.b);
               hopper::tma_store_commit();
+              hopper::st_shared(pend_slot, (uint32_t)idx);
             }
+          } else if (tid == 0) {
+            // a skipped consumer's share is zero: only its turn
+            int* count = dq_count + dq_index(wk.b, h, H, q0, S);
+            dq_wait(count, dq_want(q0, wk.k0, S, causal, D, cw),
+                    hopper::ld_relaxed_gpu(count));
+            dq_signal(count);
           }
         } else {
           hopper::wgmma_wait<0>();
@@ -875,6 +985,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
           hopper::mbar_arrive(L::empty(base, s));
         }
       }
+    }
+    if constexpr (kWithDQ) {
+      if (tid == 0) dq_flush(dq_count, pend_slot);
     }
     // K and V are free for the next item; dK and dV go out through the
     // staging tile, rows >= S skipped by TMA
@@ -891,9 +1004,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D, bool kWithDQ>
 cudaError_t launch_ws(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, void* dq_acc, int B, int S, int H,
-                      int KVH, const long long* st, int causal,
-                      cudaStream_t stream) {
+                      void* dk, void* dv, void* dq_acc, void* dq_count,
+                      int B, int S, int H, int KVH, const long long* st,
+                      int causal, cudaStream_t stream) {
   // strides: q, k, v, dO, dk, dv, then (kWithDQ) the fp32 accumulator
   CUtensorMap tq, tk, tv, tdo, tdk, tdv, tdq, tlse, tdelta;
   if (!hopper::encode_bf16_rows(&tq, q, B, S, H, D, st[0], st[1], st[2],
@@ -934,8 +1047,9 @@ cudaError_t launch_ws(const void* q, const void* k, const void* v,
   const int n_work = (S + kWsKeys - 1) / kWsKeys * B * KVH;
   const float scale = 1.f / sqrtf((float)D);
   kernel<<<min(n_work, n_sm), kWsThreads, kSmem, stream>>>(
-      tq, tk, tv, tdo, tdk, tdv, tdq, tlse, tdelta, B, S, H, KVH, scale,
-      scale * kLog2e, causal);
+      tq, tk, tv, tdo, tdk, tdv, tdq, tlse, tdelta,
+      static_cast<int*>(dq_count), B, S, H, KVH, scale, scale * kLog2e,
+      causal);
   return cudaGetLastError();
 }
 
@@ -1098,11 +1212,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_ws<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, B,
-                                S, H, KVH, strides, causal, st);
+    return launch_ws<64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                nullptr, B, S, H, KVH, strides, causal, st);
   if (dtype == 0 && D == 128)
     return launch_ws<128, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
-                                 B, S, H, KVH, strides, causal, st);
+                                 nullptr, B, S, H, KVH, strides, causal, st);
   if (dtype == 1 && D == 64)
     return launch_dkv<float, 64, true>(q, k, v, dout, lse, delta, dk, dv, B,
                                        S, H, KVH, strides, causal, st);
@@ -1112,21 +1226,24 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// flash_bwd: the bf16 backward in one kernel, flash_bwd_dkv's arguments and
+// flash_bwd: the bf16 backward in one kernel, flash_bwd_dkv's arguments,
 // dq_acc, an fp32 (B, S, H, D) tensor that must hold zeros: each q tile's
-// dQ is added into it (dtype 0 only).
+// dQ is added into it (dtype 0 only), and dq_count, B * H * ceil(S / 64)
+// int32 zeros that order those adds (dq_index's note), so that dQ is the
+// same from run to run; the launch counts in them, so each launch needs
+// fresh zeros.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, void* dq_acc, int dtype, int B,
-                         int S, int H, int KVH, int D,
+                         void* dk, void* dv, void* dq_acc, void* dq_count,
+                         int dtype, int B, int S, int H, int KVH, int D,
                          const long long* strides, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch_ws<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, B,
-                               S, H, KVH, strides, causal, st);
+    return launch_ws<64, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc,
+                               dq_count, B, S, H, KVH, strides, causal, st);
   if (dtype == 0 && D == 128)
-    return launch_ws<128, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc, B,
-                                S, H, KVH, strides, causal, st);
+    return launch_ws<128, true>(q, k, v, dout, lse, delta, dk, dv, dq_acc,
+                                dq_count, B, S, H, KVH, strides, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -251,6 +251,28 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// fence.proxy.async.global: order the thread's global accesses through the
+// generic proxy (a flag) with those through the async proxy (TMA).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ld.relaxed.gpu: a counter in global memory that other blocks add to.
+__device__ __forceinline__ int ld_relaxed_gpu(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// red.relaxed.gpu.add: add to a counter in global memory, no value back.
+__device__ __forceinline__ void red_add_relaxed_gpu(int* p, int v) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // st.shared.b32 at a shared-memory address.
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t value) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(value)
@@ -269,6 +291,13 @@ __device__ __forceinline__ void st_shared_f32x2(uint32_t addr, float x,
 __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// ld.shared.b32 at a shared-memory address.
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
 }
 

@@ -872,19 +872,27 @@ class _JoinOperator(AllToAllOperator):
     def _advance_phase(self):
         if self._phase == "collect" and self.inputs_done:
             self._input_bundles = self._left_bundles + self._right_bundles
+            self._position = {id(b): i
+                              for i, b in enumerate(self._input_bundles)}
             self._start_map(None)
 
     def _on_map_done(self, map_ref, bundle):
         # maps finish in arbitrary order: split by side here so the reduce
-        # can tell left parts from right parts
-        if id(bundle) in self._left_ids:
-            self._left_outputs.append(map_ref)
-        else:
-            self._right_outputs.append(map_ref)
+        # can tell left parts from right parts, and keep each map's input
+        # position
+        out = (self._left_outputs if id(bundle) in self._left_ids
+               else self._right_outputs)
+        out.append((self._position[id(bundle)], map_ref))
 
     def _on_all_maps_done(self):
+        # the reduce sees each side's parts in input order, not completion
+        # order: a partition's first row fixes its block's columns (as
+        # arrow's from_pylist does), so completion order would decide
+        # whether a left or outer join keeps the right side's columns
         self._left_map_count = len(self._left_outputs)
-        self._map_outputs = self._left_outputs + self._right_outputs
+        self._map_outputs = [ref for _, ref in sorted(
+            self._left_outputs, key=lambda e: e[0])] + [
+            ref for _, ref in sorted(self._right_outputs, key=lambda e: e[0])]
 
     def _n_parts(self) -> int:
         if self._num_partitions:

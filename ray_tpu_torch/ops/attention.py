@@ -372,8 +372,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True
 
     - bf16: one launch of ``flash_bwd`` of ``csrc/flash_bwd.cu``, which
       computes dK and dV and adds each q tile's dQ into a zeroed fp32
-      accumulator, cast to bf16 after. ``flash_attention_bwd.launches``
-      counts these launches;
+      accumulator in a fixed order (so every output is the same from run
+      to run), cast to bf16 after. ``flash_attention_bwd.launches`` counts
+      these launches;
     - fp32: the pair, ``flash_attention_bwd_dq`` and
       ``flash_attention_bwd_dkv`` (the ``mma.sync`` kernels).
 
@@ -429,6 +430,15 @@ def flash_attention_bwd_rows(q, k, v, do, lse, delta, causal: bool = True,
     return (dq if dq_acc is None else dq_acc.add_(dq)), dk, dv
 
 
+def dq_counters(q: torch.Tensor) -> torch.Tensor:
+    """The zeros that ``flash_bwd`` orders its dQ adds with: one int32 a
+    (batch, head, 64-row q tile) of q (B, S, H, D). A launch counts in
+    them, so each launch takes fresh ones."""
+    B, S, H, _ = q.shape
+    return torch.zeros(B * H * -(-S // 64), dtype=torch.int32,
+                       device=q.device)
+
+
 def _launch_bwd(q, k, v, do, lse, delta, causal: bool, dq_acc=None):
     # the kernel adds every q tile's share into the accumulator, so a fresh
     # one starts at 0
@@ -437,7 +447,7 @@ def _launch_bwd(q, k, v, do, lse, delta, causal: bool, dq_acc=None):
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("flash_bwd", "flash_bwd",
-            (q, k, v, do, lse, delta, dk, dv, out), causal)
+            (q, k, v, do, lse, delta, dk, dv, out, dq_counters(q)), causal)
     flash_attention_bwd.launches += 1
     return (out if dq_acc is not None else out.to(q.dtype)), dk, dv
 

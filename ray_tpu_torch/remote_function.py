@@ -7,7 +7,7 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, Dict
 
-from ray_tpu_torch._private.common import TaskOptions, not_ported
+from ray_tpu_torch._private.common import TaskOptions
 
 
 _OPTION_FIELDS = set(TaskOptions.__dataclass_fields__)
@@ -65,7 +65,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """DAG authoring (reference: python/ray/dag/function_node.py)."""
-        raise not_ported("compiled DAGs")
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

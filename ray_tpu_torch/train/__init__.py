@@ -9,7 +9,8 @@ where the group asks for one -> the user's train loop with
 checkpoint plane, with the group killed and re-formed from fresh processes
 resuming from the latest checkpoint on failure.
 
-``ray_tpu.train.pipeline`` (MPMD pipeline parallelism) is not ported yet.
+``ray_tpu_torch.train.pipeline`` is MPMD pipeline parallelism: stage actors
+running a 1F1B schedule over the channel plane (``ray_tpu_torch/dag``).
 """
 
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager

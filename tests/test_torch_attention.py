@@ -326,7 +326,7 @@ BINDINGS = {
     "dq": ("flash_bwd_dq", "_launch_bwd_dq", "flash_attention_bwd_dq", 7, 15),
     "dkv": ("flash_bwd_dkv", "_launch_bwd_dkv", "flash_attention_bwd_dkv", 8,
             18),
-    "fused": ("flash_bwd", "_launch_bwd", "flash_attention_bwd", 9, 21),
+    "fused": ("flash_bwd", "_launch_bwd", "flash_attention_bwd", 10, 21),
     "delta": ("flash_bwd_delta", "_launch_delta", "attention_delta", 3, 6),
 }
 
@@ -336,8 +336,10 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
     """As for the forward: the backward entry points get their ctypes
     signatures before the first call, and the wrapper passes the pointers,
     the shape, every b, s, h stride of the 4-d tensors and the stream. The
-    fused kernel's last pointer is the fp32 dQ accumulator of q's shape,
-    all zeros when the kernel is called (the kernel adds into it)."""
+    fused kernel's last two pointers are the fp32 dQ accumulator of q's
+    shape and the int32 counters of its adds' order, one a (batch, head,
+    64-row q tile), all zeros when the kernel is called (the kernel adds
+    into both)."""
     import contextlib
     import ctypes
     import importlib
@@ -346,6 +348,7 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
     fn_name, launcher, counter_name, n_ptr, n_strides = BINDINGS[kernel]
     q, k, v = (torch.from_numpy(x) for x in _qkv(13, 1, 8, 4, 2, 64))
     numel = q.numel()
+    n_count = 1 * 4 * 1  # B * H * ceil(S / 64)
 
     class EntryPoint:
         argtypes = None
@@ -353,9 +356,11 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
 
         def __call__(self, *args):
             self.args = args
-            if kernel == "fused":  # read the accumulator as the kernel would
+            if kernel == "fused":  # read the zeros as the kernel would
                 self.acc = np.ctypeslib.as_array(
                     (ctypes.c_float * numel).from_address(args[8])).copy()
+                self.count = np.ctypeslib.as_array(
+                    (ctypes.c_int32 * n_count).from_address(args[9])).copy()
             return 0
 
     entry = EntryPoint()
@@ -385,6 +390,9 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
     assert counter.launches == before + 1
     if kernel == "fused":
         assert entry.acc.shape == (numel,) and not entry.acc.any()
+        assert not entry.count.any()
+        assert att.dq_counters(q).shape == (n_count,)
+        assert att.dq_counters(q).dtype == torch.int32
         dq, dk, dv = out
         assert dq.dtype == q.dtype and dq.shape == q.shape
         assert dk.shape == dv.shape == k.shape

@@ -116,14 +116,54 @@ def test_join_inner_and_left(clusters):
                                for i in range(4, 12)], parallelism=3)
         return left, right
 
-    for how in ("inner", "left", "right", "outer"):
-        want, got = both(build, lambda lr: _by("id")(
-            lr[0].join(lr[1], on="id", how=how).take_all()))
-        assert sorted(map(repr, got)) == sorted(map(repr, want)), how
+    # A join partition's block takes its columns from its first row (arrow's
+    # from_pylist; the port's Table does the same), and the rows come in
+    # the order the reduce takes the map outputs. The JAX join takes them
+    # in the order its maps finish, so under load a left or outer join
+    # keeps or drops the right side's columns by timing; the port's takes
+    # them in input order. One JAX task at a time makes the JAX maps finish
+    # in input order too.
+    import ray_tpu.data as jdata
+
+    jctx = jdata.DataContext.get_current()
+    prev = jctx.max_tasks_in_flight
+    jctx.max_tasks_in_flight = 1
+    try:
+        for how in ("inner", "left", "right", "outer"):
+            want, got = both(build, lambda lr: _by("id")(
+                lr[0].join(lr[1], on="id", how=how).take_all()))
+            assert sorted(map(repr, got)) == sorted(map(repr, want)), how
+    finally:
+        jctx.max_tasks_in_flight = prev
     inner = both(build, lambda lr: lr[0].join(lr[1], on="id").take_all())[1]
     assert sorted(r["id"] for r in inner) == [4, 5, 6, 7]
     assert all(r["b"] == r["id"] * 100 and r["a"] == r["id"] * 10
                for r in inner)
+
+
+def test_join_reduce_takes_map_outputs_in_input_order():
+    """The port's join hands its reduce each side's map outputs in input
+    order whatever order the maps finish in, so a left or outer join's
+    columns do not depend on timing."""
+    from ray_tpu_torch.data.dataset import _JoinOperator
+    from ray_tpu_torch.data._internal.operators import RefBundle
+
+    op = _JoinOperator("id", "left", "_right", None)
+    left = [RefBundle(f"l{i}") for i in range(3)]
+    right = [RefBundle(f"r{i}") for i in range(2)]
+    for b in left:
+        op.add_left(b)
+    for b in right:
+        op.add_right(b)
+    op.inputs_done = True
+    op._advance_phase()
+    assert op._phase == "map"
+    for b in [right[1], left[2], left[0], right[0], left[1]]:  # finish order
+        op._on_map_done(f"map:{b.block}", b)
+    op._on_all_maps_done()
+    assert op._left_map_count == 3
+    assert op._map_outputs == ["map:l0", "map:l1", "map:l2", "map:r0",
+                               "map:r1"]
 
 
 def test_zip_and_union(clusters):

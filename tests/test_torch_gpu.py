@@ -238,19 +238,19 @@ def test_backward_kernels_match_plain(cuda_device, dtype):
 
 
 def test_fused_backward_is_repeatable(cuda_device):
-    """Two runs of ``flash_bwd`` on the same inputs: dK and dV are the same
-    bits (each block keeps its key tile's sums in registers), dQ, added
-    across blocks in an order that varies, within BWD_TOL of each other."""
-    for case in ((1, 1000, 16, 8, 128), (2, 200, 16, 16, 64)):
+    """Two runs of ``flash_bwd`` on the same inputs give the same bits: dK
+    and dV stay in one block's registers, and dQ's adds across blocks go in
+    a fixed order."""
+    for case in ((1, 1000, 16, 8, 128), (2, 200, 16, 16, 64),
+                 (4, 2048, 16, 8, 128)):
         q, k, v, do = _bwd_inputs(cuda_device, torch.bfloat16, case, seed=3)
-        o, lse = flash_attention_fwd(q, k, v, True)
-        dq1, dk1, dv1 = flash_attention_bwd(q, k, v, o, lse, do, True)
-        dq2, dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do, True)
-        torch.cuda.synchronize()
-        assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
-        atol, rtol, _ = BWD_TOL[torch.bfloat16]
-        torch.testing.assert_close(dq1.float(), dq2.float(), atol=atol,
-                                   rtol=rtol)
+        for causal in (True, False):
+            o, lse = flash_attention_fwd(q, k, v, causal)
+            dq1, dk1, dv1 = flash_attention_bwd(q, k, v, o, lse, do, causal)
+            dq2, dk2, dv2 = flash_attention_bwd(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            assert torch.equal(dq1, dq2)
+            assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -734,8 +734,8 @@ def test_loader_feeds_steps_and_a_checkpoint_on_the_card(cuda_device,
     """The native loader's batches, copied to the card, drive a bf16
     head_dim-64 model through the flash kernels; its state saved after 2
     steps restores onto the card bit for bit, and a fresh bundle resumes
-    from it within TRACED_LOSS_RTOL of the uninterrupted run (the two part
-    only by flash_bwd's reduce-add order)."""
+    from it within TRACED_LOSS_RTOL of the uninterrupted run (every kernel
+    of the step gives the same bits from run to run)."""
     from chip_smoke import TRACED_LOSS_RTOL
     from ray_tpu_torch import ckpt
     from ray_tpu_torch.data import TokenFileLoader, to_device, write_token_file
@@ -862,3 +862,71 @@ def test_device_object_and_device_batches_on_the_card(cuda_device):
                 assert torch.equal(c[k].cpu(), torch.from_numpy(v))
     finally:
         rt.shutdown()
+
+
+def test_channel_round_trips_a_card_bf16_tensor(cuda_device):
+    """A bf16 CUDA tensor written into a shared-memory channel is copied to
+    the host as it is written and read back as a CPU tensor, bit for bit;
+    quantized streaming encodes it on the card."""
+    import uuid
+
+    from ray_tpu_torch.dag.channels import Channel
+
+    name = f"gpu_{uuid.uuid4().hex[:8]}"
+    w = Channel(name, capacity=1 << 24, create=True, depth=2)
+    r = Channel(name, reader_slot=0)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn(2048, 2048, generator=g, device="cuda").to(
+            torch.bfloat16)
+        w.write({"x": x, "t": x[:, :5]}, timeout=30)  # and a strided view
+        got = r.read(timeout=30)
+        for key, want in (("x", x), ("t", x[:, :5])):
+            assert got[key].device.type == "cpu"
+            assert got[key].dtype == torch.bfloat16
+            assert torch.equal(got[key].view(torch.int16),
+                               want.cpu().view(torch.int16))
+        assert torch.equal(got["x"].to(cuda_device), x)
+        w.set_codec("int8")
+        w.write({"x": x.float()}, timeout=30)
+        q = r.read(timeout=30)["x"]
+        assert (q - x.float().cpu()).abs().max().item() < 0.05
+    finally:
+        w.close(unlink=True)
+        r.close()
+
+
+def test_two_stage_pipeline_on_the_card_runs_the_kernels(cuda_device):
+    """A tiny bf16 model (head_dim 64, remat) as a two-stage 1F1B pipeline
+    of ``num_gpus=0.5`` stage actors on the card: finite losses, the hop's
+    activations bf16, and every stage launches the forward, Delta and
+    ``flash_bwd`` kernels."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train.pipeline import PipelineConfig, PipelineTrainer
+
+    cfg = dataclasses.replace(CONFIGS["tiny"], d_model=128, n_heads=2,
+                              n_kv_heads=1, n_layers=2, remat=True)
+    assert cfg.head_dim == 64
+    pipe = PipelineConfig(num_stages=2, num_microbatches=4,
+                          microbatch_size=2, seq_len=128,
+                          step_timeout_s=300.0)
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        trainer = PipelineTrainer(cfg, pipe)
+        try:
+            rt.get([a.kernel_launches.remote(reset=True)
+                    for a in trainer.actors], timeout=300)
+            stats = trainer.train(2)
+            launches = rt.get([a.kernel_launches.remote()
+                               for a in trainer.actors], timeout=300)
+        finally:
+            trainer.shutdown()
+    finally:
+        rt.shutdown()
+    assert all(np.isfinite(s["loss"]) for s in stats)
+    assert stats[0]["activation_bytes_per_mb"] == 2 * 128 * 128 * 2  # bf16
+    for got in launches:
+        for k in ("flash_attention_fwd", "attention_delta",
+                  "flash_attention_bwd"):
+            assert got[k] > 0, launches

@@ -88,6 +88,18 @@ def _imported_roots(path):
         yield mod, line
 
 
+def test_the_walk_covers_the_dag_and_pipeline_packages():
+    """The compiled-graph plane and the pipeline plane are in the walk, each
+    of their modules checked by the two tests below."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    want = {f"ray_tpu_torch/dag/{m}.py"
+            for m in ("__init__", "channels", "executor")}
+    want |= {f"ray_tpu_torch/train/pipeline/{m}.py"
+             for m in ("__init__", "schedule", "partition", "stage",
+                       "controller")}
+    assert want <= rel, sorted(want - rel)
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_imports_no_jax_nor_reference_package(path):

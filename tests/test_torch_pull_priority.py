@@ -73,20 +73,27 @@ def test_priority_upgrade():
     async def main():
         q = PullQueue(slots=1)
         order = []
+        # the first pull keeps the slot until the upgrade is in: on a busy
+        # host the sleeps below can outlast its hold, and "mid" would be
+        # admitted before the upgrade was made
+        upgraded = asyncio.Event()
 
-        async def pull(oid, prio):
+        async def pull(oid, prio, gate=None):
             q.request(oid, prio)
             assert await q.admit(oid)
             order.append(oid)
+            if gate is not None:
+                await gate.wait()
             await asyncio.sleep(0.02)
             q.release(oid)
 
-        hold = asyncio.ensure_future(pull(b"hold", PRIO_ARG))
+        hold = asyncio.ensure_future(pull(b"hold", PRIO_ARG, upgraded))
         await asyncio.sleep(0.01)
         bg = asyncio.ensure_future(pull(b"bg", PRIO_BACKGROUND))
         mid = asyncio.ensure_future(pull(b"mid", PRIO_ARG))
         await asyncio.sleep(0.01)
         q.request(b"bg", PRIO_GET)  # upgrade: a get now needs it
+        upgraded.set()
         await asyncio.gather(hold, bg, mid)
         assert order == [b"hold", b"bg", b"mid"], order
 

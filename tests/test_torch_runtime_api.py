@@ -75,9 +75,17 @@ def test_unported_options_raise_naming_the_roadmap(port_local):
     class A:
         pass
 
-    for make in (lambda: f.bind(), lambda: A.bind()):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make()
+    # DAG authoring is ported: binds build nodes; the device-mesh
+    # transport of a compiled edge is not, and names its ROADMAP item
+    from ray_tpu_torch.dag import ClassNode, FunctionNode
+
+    assert isinstance(f.bind(), FunctionNode)
+    node = A.bind()
+    assert isinstance(node, ClassNode)
+    assert node.with_tensor_transport("object") is node
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md queue 1 item 3"):
+        node.with_tensor_transport("ici")
     # placement groups and the strategy objects are ported: the options
     # take them (a group's strategy sets its fields) and the task schedules
     from ray_tpu_torch._private.ids import PlacementGroupID
