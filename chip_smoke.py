@@ -240,7 +240,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    publish and pulls, the median step beside the reference's, each
    stage's idle and receive-wait share beside the 1F1B bubble bound, the
    activation bytes a microbatch, send and receive seconds a hop, each
-   stage's peak memory, the compiled and eager chains' p50 ms).
+   stage's peak memory, the compiled and eager chains' p50 ms);
+21. rl: the RL library (the ``rl`` path: its nets are MLPs and it
+   launches no kernel, so the kernels line is unchanged). (a) Each
+   learner on the card and on the CPU from the same params (drawn on the
+   CPU from the config's seed) and the same seeded batch, at the JAX
+   defaults' sizes: PPO's default update (8 epochs x 4 minibatches, 32
+   clipped Adam steps on 1024 samples), one IMPALA V-trace step, one
+   double-Q DQN step, one SAC step (128 x 128) on 256 samples with the
+   same noise: every parameter within ``rl_bound`` (fp32 sums over the
+   batch in other orders, each step's rounding), each update's ms on both;
+   (b) a new port cluster: PPO at the JAX defaults (seed 1, 2 runners x 4
+   envs x 128 steps) for tests/test_rl.py's 21 iterations with its
+   learner on the card, its best return past 60 and its env runners never
+   initialising CUDA; (c) a ``LearnerGroup`` of two ``num_gpus=0.5`` PPO
+   learners over gloo on one fixed batch stream, fp32 then int8: ranks
+   bit-equal, fp32 within the bound of one learner on the card, int8's
+   losses within 2 % of fp32's; an ``rl metrics:`` line (env steps/s,
+   sample and update s an iteration, first and best return, the
+   learner's peak memory, each update's ms on card and CPU, the groups'
+   ready and update s).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -5700,6 +5719,296 @@ def phase_pipeline(card: str) -> dict:
     return launches
 
 
+RL_ITERS = 21  # tests/test_rl.py: PPO seed 1, one iteration and 20 more
+RL_RETURN = 60.0  # ... whose episode_return_mean must pass this
+RL_TIMEOUT_S = 300.0  # each cluster call's
+RL_INT8_LOSS = 0.02  # tests/test_quant_comms.py: int8 within 2 % of fp32
+RL_GROUP_STEPS = (3, 6)  # the fp32 and the int8 groups' batches
+# fp32's unit roundoff: a sum of n products in another order moves by at most
+# n u of its terms' magnitude (cuBLAS on the card, MKL/OpenBLAS on the CPU)
+FP32_U = 2.0 ** -24
+
+
+def rl_bound(lr: float, steps: int, n: int, pmax: float) -> float:
+    """How far one parameter may move apart between two devices after
+    ``steps`` Adam steps from the same params and batches: a gradient is a
+    sum over at most ``n`` samples, so its relative gap is at most n u; the
+    step ``lr mu_hat / (sqrt(nu_hat) + eps)`` moves by at most twice its
+    gradient's relative gap (mu's and sqrt(nu)'s), of at most ``lr``; the
+    sum ``p + step`` rounds on each device, within half an ulp (u |p|) of
+    the largest parameter ``pmax`` each; the gaps of the steps add up."""
+    return steps * (lr * 2 * n * FP32_U + 2 * FP32_U * pmax)
+
+
+def rl_batches(seed: int = 0) -> dict:
+    """One seeded batch for each learner, at the JAX defaults' sizes:
+    PPO's 1024 samples (2 runners x 4 envs x 128 steps of CartPole), an
+    IMPALA batch of 64 steps x 4 envs (2 aggregated rollouts), DQN's 64
+    prioritized transitions, SAC's 256 Pendulum transitions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n = 1024
+    ppo = {"obs": rng.standard_normal((n, 4)).astype(f32),
+           "actions": rng.integers(0, 2, n).astype(np.int32),
+           "logp": (np.log(0.5) + 0.1 * rng.standard_normal(n)).astype(f32),
+           "advantages": rng.standard_normal(n).astype(f32),
+           "returns": rng.standard_normal(n).astype(f32)}
+    T, B = 64, 4
+    impala = {"obs": rng.standard_normal((T, B, 4)).astype(f32),
+              "actions": rng.integers(0, 2, (T, B)).astype(np.int32),
+              "behavior_logp": (np.log(0.5) + 0.2 * rng.standard_normal(
+                  (T, B))).astype(f32),
+              "rewards": np.ones((T, B), f32),
+              "dones": (rng.random((T, B)) < 0.05).astype(f32),
+              "last_obs": rng.standard_normal((B, 4)).astype(f32)}
+    n = 64
+    dqn = {"obs": rng.standard_normal((n, 4)).astype(f32),
+           "next_obs": rng.standard_normal((n, 4)).astype(f32),
+           "actions": rng.integers(0, 2, n).astype(np.int32),
+           "rewards": np.ones(n, f32),
+           "dones": (rng.random(n) < 0.1).astype(f32),
+           "weights": rng.uniform(0.2, 1.0, n).astype(f32)}
+    n = 256
+    sac = {"obs": rng.standard_normal((n, 3)).astype(f32),
+           "actions": rng.uniform(-1, 1, (n, 1)).astype(f32),
+           "rewards": -rng.random(n).astype(f32) * 10,
+           "dones": np.zeros(n, f32),
+           "next_obs": rng.standard_normal((n, 3)).astype(f32)}
+    return {"ppo": ppo, "impala": impala, "dqn": dqn, "sac": sac}
+
+
+def _timed(fn, device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rl_learner_parity(card_device: str = "cuda") -> dict:
+    """Each RL learner built twice from the same params (drawn on the CPU
+    from the config's seed), once on ``card_device`` and once on the CPU,
+    updated on the same seeded batch: PPO's default update (8 epochs x 4
+    minibatches = 32 clipped Adam steps on 1024 samples), one IMPALA
+    V-trace step, one double-Q DQN step, one SAC step with the same noise.
+    Raises unless every parameter agrees within ``rl_bound``; returns each
+    learner's gap, bound and update ms on both devices (a second update,
+    after one that warms up)."""
+    from ray_tpu_torch.rl.dqn import DQNConfig, DQNLearner
+    from ray_tpu_torch.rl.impala import IMPALAConfig, _ImpalaLearnerCore
+    from ray_tpu_torch.rl.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rl.sac import SACConfig, SACLearner
+
+    batches = rl_batches()
+    cases = {
+        "ppo": (lambda dev: PPOLearner(PPOConfig(device=dev), 4, 2),
+                32, 1e-3, 1024 // 4),
+        "impala": (lambda dev: _ImpalaLearnerCore(IMPALAConfig(device=dev),
+                                                  4, 2), 1, 1e-3, 64 * 4),
+        "dqn": (lambda dev: DQNLearner(DQNConfig(device=dev), 4, 2),
+                1, 5e-4, 64),
+        "sac": (lambda dev: SACLearner(SACConfig(device=dev), 3, 1),
+                1, 3e-4, 256),
+    }
+    out = {}
+    for name, (make, steps, lr, n) in cases.items():
+        runs = []
+        for dev in (card_device, "cpu"):
+            learner = make(dev)
+            if name == "sac":
+                eps = learner.noise(len(batches["sac"]["obs"]))
+                run = lambda ln=learner, e=eps: ln.step(  # noqa: E731
+                    batches["sac"], *e)
+            else:
+                run = lambda ln=learner: ln.update(  # noqa: E731
+                    dict(batches[name]))
+            run()
+            got = learner.get_state()
+            _, ms = _timed(run, learner.device)
+            runs.append((got, ms))
+        (card_state, card_ms), (cpu_state, cpu_ms) = runs
+        parts = ([k for k in ("actor", "q1", "q2", "q1_target", "q2_target")
+                  if k in cpu_state] or ["params"])
+        pmax = max(float(abs(v).max()) for part in parts
+                   for v in cpu_state[part].values())
+        bound = rl_bound(lr, steps, n, pmax)
+        gap = 0.0
+        for part in parts:
+            for key, want in cpu_state[part].items():
+                gap = max(gap, float(abs(card_state[part][key]
+                                         - want).max()))
+        if "log_alpha" in cpu_state:
+            gap = max(gap, float(abs(card_state["log_alpha"]
+                                     - cpu_state["log_alpha"])))
+        out[name] = {"max_abs_err": gap, "bound": bound, "steps": steps,
+                     "n": n, "card_ms": card_ms, "cpu_ms": cpu_ms}
+        log(f"rl learner {name}: card vs cpu max abs gap {gap:.3g} "
+            f"(bound {bound:.3g} = {steps} steps x (lr {lr} x 2 x {n} "
+            f"samples + 2 x max|p| {pmax:.3g}) x 2^-24); update "
+            f"{card_ms:.2f} ms on the card, {cpu_ms:.2f} ms on the CPU")
+        if not gap <= bound:
+            raise AssertionError(f"rl learner {name}: the card's params part "
+                                 f"from the CPU's by {gap} > {bound}")
+    return out
+
+
+def rl_two_learners(device: str = "cuda") -> dict:
+    """Two PPO learners of ``num_gpus=0.5`` on the card in a LearnerGroup
+    over gloo, on one fixed batch stream (tests/test_rl_multilearner.py's
+    test_two_learners_match_single and tests/test_quant_comms.py's int8
+    parity): the ranks' params bit-equal, fp32 within ``rl_bound`` of one
+    learner on the card after RL_GROUP_STEPS[0] batches, int8's losses
+    within 2 % of fp32's at every batch. The fp32 group, then the int8 one
+    (two groups of two would need two cards). Needs a port cluster."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.rl.learner_group import LearnerGroup
+    from ray_tpu_torch.rl.ppo import PPOConfig, PPOLearner
+
+    cfg = PPOConfig(epochs=2, num_minibatches=4, seed=3, device=device)
+    rng = np.random.default_rng(0)
+    stream = [{k: v[:256] for k, v in rl_batches(
+        int(rng.integers(1 << 30)))["ppo"].items()}
+        for _ in range(RL_GROUP_STEPS[1])]
+
+    def run_group(c, single=None):
+        def factory(rank, world_size, group_name, _c=c):
+            return PPOLearner(_c, 4, 2, world_size=world_size, rank=rank,
+                              group_name=group_name)
+
+        t0 = time.perf_counter()
+        g = LearnerGroup(factory, 2, device=c.device)
+        out = {"ready_s": time.perf_counter() - t0, "losses": [],
+               "num_gpus": g.num_gpus_per_learner}
+        try:
+            t0 = time.perf_counter()
+            for step, batch in enumerate(stream):
+                out["losses"].append(g.update(dict(batch))["loss"])
+                if single is not None and step + 1 == RL_GROUP_STEPS[0]:
+                    out["params_at_compare"] = g.get_params()
+            out["updates_s"] = time.perf_counter() - t0
+            ranks = g.foreach_learner("get_params")
+            for key in ranks[0]:
+                if not np.array_equal(ranks[0][key], ranks[1][key]):
+                    raise AssertionError(f"rl two learners "
+                                         f"{c.grad_compression or 'fp32'}: "
+                                         f"ranks differ at {key}")
+        finally:
+            g.shutdown()
+        return out
+
+    single = PPOLearner(cfg, 4, 2)
+    for batch in stream[:RL_GROUP_STEPS[0]]:
+        single.update(dict(batch))
+    want = single.get_params()
+    fp32 = run_group(cfg, single)
+    int8 = run_group(dataclasses.replace(cfg, grad_compression="int8"))
+    got = fp32["params_at_compare"]
+    gap = max(float(abs(got[k] - want[k]).max()) for k in want)
+    pmax = max(float(abs(v).max()) for v in want.values())
+    bound = rl_bound(cfg.lr, RL_GROUP_STEPS[0] * 8, 256 // 4, pmax)
+    if not gap <= bound:
+        raise AssertionError(f"rl two learners: the fp32 group parts from "
+                             f"one learner by {gap} > {bound}")
+    for lf, lq in zip(fp32["losses"], int8["losses"]):
+        if not abs(lq - lf) <= RL_INT8_LOSS * max(abs(lf), 1e-3):
+            raise AssertionError(f"rl two learners: int8 loss {lq} vs fp32 "
+                                 f"{lf}")
+    log(f"rl two learners: 2 x num_gpus={fp32['num_gpus']} over gloo, "
+        f"ranks bit-equal (fp32 and int8); fp32 group vs one learner max "
+        f"abs gap {gap:.3g} (bound {bound:.3g}); int8 losses "
+        f"{int8['losses']} vs fp32 {fp32['losses']} (within "
+        f"{RL_INT8_LOSS:.0%})")
+    return {"ready_s": [fp32["ready_s"], int8["ready_s"]],
+            "updates_s": [fp32["updates_s"], int8["updates_s"]],
+            "fp32_vs_single_gap": gap, "bound": bound,
+            "losses": {"fp32": fp32["losses"], "int8": int8["losses"]}}
+
+
+def phase_rl(card: str) -> dict:
+    """Phase 21: the RL library (the ``rl`` path: MLPs, no kernel)."""
+    import statistics
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import PPOConfig
+
+    t_phase = time.perf_counter()
+    parity = rl_learner_parity()
+    if rt.is_initialized():
+        rt.shutdown()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)  # 2 runners, then 4 learners of 2 groups
+    metrics = {"init_s": time.perf_counter() - t0}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # earlier phases' leftovers
+        t0 = time.perf_counter()
+        algo = PPOConfig(seed=1).build()
+        metrics["build_s"] = time.perf_counter() - t0
+        try:
+            results = [algo.train() for _ in range(RL_ITERS)]
+            cuda_in_runners = rt.get(
+                [r.cuda_initialized.remote() for r in algo.runners],
+                timeout=RL_TIMEOUT_S)
+        finally:
+            algo.stop()
+        peak = torch.cuda.max_memory_allocated() - base
+        if any(cuda_in_runners):
+            raise AssertionError(f"rl: an env runner initialised CUDA "
+                                 f"({cuda_in_runners})")
+        returns = [r["episode_return_mean"] for r in results]
+        if not max(returns[1:]) > RL_RETURN:
+            raise AssertionError(f"rl: PPO's returns {returns} never pass "
+                                 f"{RL_RETURN}")
+        steady = results[1:]
+        metrics.update({
+            "env_steps_per_s": statistics.median(
+                r["steps_per_sec"] for r in steady),
+            "sample_s": statistics.median(r["sample_s"] for r in steady),
+            "update_s": statistics.median(r["update_s"] for r in steady),
+            "first_sample_s": results[0]["sample_s"],
+            "first_update_s": results[0]["update_s"],
+            "first_return": returns[0], "best_return": max(returns),
+            "learner_peak_mb": peak / 2 ** 20,
+            "iterations": RL_ITERS})
+        metrics["two_learners"] = rl_two_learners()
+    finally:
+        rt.shutdown()
+    metrics["learners"] = parity
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    two = metrics["two_learners"]
+    log("rl metrics: " + json.dumps({
+        "card": card, "ppo_env_steps_per_s": metrics["env_steps_per_s"],
+        "ppo_sample_s": metrics["sample_s"],
+        "ppo_update_s": metrics["update_s"],
+        "ppo_first_sample_s": metrics["first_sample_s"],
+        "ppo_first_update_s": metrics["first_update_s"],
+        "ppo_first_return": metrics["first_return"],
+        "ppo_best_return": metrics["best_return"],
+        "ppo_learner_peak_mb": metrics["learner_peak_mb"],
+        "runners_cuda_initialized": cuda_in_runners,
+        "update_ms": {k: {"card": v["card_ms"], "cpu": v["cpu_ms"]}
+                      for k, v in parity.items()},
+        "card_vs_cpu_gap": {k: v["max_abs_err"] for k, v in parity.items()},
+        "card_vs_cpu_bound": {k: v["bound"] for k, v in parity.items()},
+        "two_learners_ready_s": two["ready_s"],
+        "two_learners_updates_s": two["updates_s"],
+        "two_learners_gap": two["fp32_vs_single_gap"],
+        "init_s": metrics["init_s"], "build_s": metrics["build_s"],
+        "phase_s": metrics["phase_s"]}))
+    return metrics
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -5761,6 +6070,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["pipeline"] = phase_pipeline(dev["card"])
     log(f"pipeline: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_rl(dev["card"])  # MLPs only: no kernel lies on the rl path
+    log(f"rl: {time.perf_counter() - t0:.2f} s")
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",

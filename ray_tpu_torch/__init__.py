@@ -15,7 +15,9 @@ mesh geometry of ``weights``), the train plane on the runtime (``train``:
 ``TorchTrainer``, its controller and worker groups on placement groups,
 ``util.placement_group``), Serve (``serve``: deployments, the controller,
 handles, autoscaling and an HTTP proxy on the standard library), the weight
-plane (``weights``: the versioned weight store and its transports), the GCS
+plane (``weights``: the versioned weight store and its transports), the RL
+library (``rl``: PPO, IMPALA/APPO, DQN, SAC, BC/MARWIL and multi-agent PPO,
+learners on the card, env runners on its numpy environments), the GCS
 KV API and device objects (``experimental``), and the flash-attention
 forward and backward as CUDA kernels with ring and Ulysses attention on them
 (``ops``). Entry points run on the card unless given ``device="cpu"``;
@@ -51,8 +53,8 @@ from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch import exceptions
 
 _SUBMODULES = ("ckpt", "cluster_utils", "collective", "data",
-               "experimental", "llm", "models", "ops", "parallel", "serve",
-               "train", "util", "utils", "weights")
+               "experimental", "llm", "models", "ops", "parallel", "rl",
+               "serve", "train", "util", "utils", "weights")
 
 
 def __getattr__(name):

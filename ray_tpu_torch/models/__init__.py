@@ -1,5 +1,5 @@
-"""Model zoo of the port: the flagship decoder LM (dense + MoE) and the ViT
-classifier. The RL nets are not ported yet (ROADMAP.md queue 1)."""
+"""Model zoo of the port: the flagship decoder LM (dense + MoE), the ViT
+classifier, and the RL library's MLP nets (``actor_critic``)."""
 
 from ray_tpu_torch.models.transformer import (
     CONFIGS,

@@ -11,15 +11,17 @@ the norm scales. For the ViT (``models/vit.py``): lecun_normal (a normal
 truncated at two deviations, std sqrt(1 / fan_in) / 0.8796) for the patch
 embedding, the attention projections and the head, xavier_uniform for the
 MLP, normal(0.02) for the position embedding, zeros for the biases and the
-class token, ones for the norm scales. ``from_jax_opt_state`` carries the
-optimizer's state across, so a JAX run resumes in the port, also from a
+class token, ones for the norm scales. The RL nets (``actor_critic.py``)
+keep flax's paths too and draw their own init. ``from_jax_opt_state``
+carries the optimizer's state across (the LM's AdamW chain and the RL
+learners' Adam), so a JAX run resumes in the port, also from a
 checkpoint the JAX package wrote (``ckpt.restore_tree``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Mapping, Tuple, Union
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -121,15 +123,18 @@ def _vit_law(cfg, key, w, gen):
                                        generator=gen)
 
 
-def from_jax_opt_state(opt_state):
-    """optax's state of the JAX package's ``make_optimizer`` chain (the
-    clip's empty state, then ``ScaleByAdamState(count, mu, nu)``, the weight
-    decay's empty state and the schedule's ``ScaleByScheduleState(count)``),
-    with numpy leaves, as the port's ``OptState``: the moments keyed by the
-    same flax paths, on the CPU, and the step count. The state may be
-    optax's own, or as ``ckpt.restore_tree`` gives it back from a checkpoint
-    the JAX package wrote: the same tuples, with the optax states rebuilt
-    as the named tuples of ``weights.spec.OPTAX_STATES``."""
+def from_jax_opt_state(opt_state, name: Optional[str] = None):
+    """optax's state of an Adam chain, with numpy leaves, as the port's
+    ``OptState``: the moments keyed by the same flax paths, on the CPU, and
+    the step count. The chain is the JAX package's ``make_optimizer`` (the
+    clip's empty state, then ``ScaleByAdamState(count, mu, nu)``, the
+    weight decay's empty state and the schedule's
+    ``ScaleByScheduleState(count)``), or an RL learner's ``adam(lr)``
+    behind an optional ``clip_by_global_norm``. The state may be optax's
+    own, or as ``ckpt.restore_tree`` gives it back from a checkpoint the
+    JAX package wrote: the same tuples, with the optax states rebuilt as
+    the named tuples of ``weights.spec.OPTAX_STATES``. ``name`` keys the
+    moments of a bare-array parameter (SAC's ``log_alpha``)."""
     from ray_tpu_torch.parallel.train import OptState
 
     found = {}
@@ -145,11 +150,20 @@ def from_jax_opt_state(opt_state):
                 walk(child)
 
     walk(opt_state)
-    if set(found) != {"adam", "schedule"}:
-        raise ValueError("not the state of clip_by_global_norm + adamw over a "
-                         f"schedule: found {sorted(found)}")
+    if "adam" not in found:
+        raise ValueError("not the state of an Adam chain: found "
+                         f"{sorted(found)}")
     count = int(np.asarray(found["adam"].count))
-    if int(np.asarray(found["schedule"].count)) != count:
+    if "schedule" in found and int(np.asarray(
+            found["schedule"].count)) != count:
         raise ValueError("the schedule's count differs from Adam's")
-    return OptState(count, from_jax_params(found["adam"].mu),
-                    from_jax_params(found["adam"].nu))
+
+    def moments(tree):
+        if isinstance(tree, Mapping):
+            return from_jax_params(tree)
+        if name is None:
+            raise ValueError("a bare-array parameter's moments need a name")
+        return {name: torch.from_numpy(np.array(tree, copy=True))}
+
+    return OptState(count, moments(found["adam"].mu),
+                    moments(found["adam"].nu))

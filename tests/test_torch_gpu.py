@@ -930,3 +930,40 @@ def test_two_stage_pipeline_on_the_card_runs_the_kernels(cuda_device):
         for k in ("flash_attention_fwd", "attention_delta",
                   "flash_attention_bwd"):
             assert got[k] > 0, launches
+
+
+def test_rl_learners_on_the_card_match_the_cpu(cuda_device, monkeypatch):
+    """Each RL learner (PPO's 32 default Adam steps, IMPALA, DQN, SAC) on
+    the card and on the CPU from the same params and batch: params within
+    chip_smoke.rl_bound (fp32 sums over the batch in other orders, and each
+    step's rounding), with TF32 off as the smoke runs."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    out = chip_smoke.rl_learner_parity("cuda")
+    assert sorted(out) == ["dqn", "impala", "ppo", "sac"]
+    assert all(v["max_abs_err"] <= v["bound"] for v in out.values()), out
+
+
+def test_rl_runners_never_initialise_cuda(cuda_device):
+    """PPO with its learner on the card (the default device) and two env
+    runners on a port cluster: one iteration trains, the learner's params
+    live on the card, and no runner ever initialised CUDA."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import PPOConfig
+
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        algo = PPOConfig(num_env_runners=2, num_envs_per_runner=2,
+                         rollout_length=16, epochs=1).build()
+        try:
+            result = algo.train()
+            assert result["num_env_steps_sampled"] == 2 * 2 * 16
+            assert all(p.is_cuda for p in algo.learner.params.values())
+            assert rt.get([r.cuda_initialized.remote()
+                           for r in algo.runners], timeout=120) == [False] * 2
+        finally:
+            algo.stop()
+    finally:
+        rt.shutdown()

@@ -24,7 +24,10 @@ LAZY_ADAPTERS = {"ray_tpu_torch/llm/tokenizer.py": {"transformers"},
                  "ray_tpu_torch/data/block.py": {"pandas", "pyarrow"},
                  # a pip runtime env runs ``python -m pip install`` in the
                  # env's venv, only for a task or actor that asks for one
-                 "ray_tpu_torch/_private/runtime_env.py": {"pip"}}
+                 "ray_tpu_torch/_private/runtime_env.py": {"pip"},
+                 # an env name the port does not hold goes to gymnasium
+                 # (``envs.make`` raises naming the env where it is missing)
+                 "ray_tpu_torch/rl/envs.py": {"gymnasium"}}
 
 
 def _port_files():
@@ -97,6 +100,19 @@ def test_the_walk_covers_the_dag_and_pipeline_packages():
     want |= {f"ray_tpu_torch/train/pipeline/{m}.py"
              for m in ("__init__", "schedule", "partition", "stage",
                        "controller")}
+    assert want <= rel, sorted(want - rel)
+
+
+def test_the_walk_covers_the_rl_package():
+    """The RL library and its nets are in the walk, each module checked by
+    the two tests below."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    want = {f"ray_tpu_torch/rl/{m}.py"
+            for m in ("__init__", "algorithm", "appo", "dqn", "env_runner",
+                      "envs", "impala", "learner", "learner_group",
+                      "multi_agent", "offline", "optim", "ppo",
+                      "replay_buffer", "sac")}
+    want.add("ray_tpu_torch/models/actor_critic.py")
     assert want <= rel, sorted(want - rel)
 
 
@@ -316,3 +332,57 @@ def test_dataset_pd_and_batch_inference_without_arrow_pandas_or_jax(
         "[(0, 135.0), (1, 145.0), (2, 155.0)]", "[29.0, 28.0]",
         "['u0', 'u1', 'u2']", "30", "[90.0, 290.0, 490.0]", "True", "True",
         "True", "[]", "True", "True", "[]"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the RL library without gymnasium, JAX, flax or optax
+# ---------------------------------------------------------------------------
+
+_RL_BLOCKED = ("gymnasium", "jax", "flax", "optax", "cloudpickle", "ray_tpu")
+
+_RL_SCRIPT = """
+import sys
+import ray_tpu_torch as rt
+from ray_tpu_torch import rl
+from ray_tpu_torch.rl import (algorithm, appo, dqn, env_runner, envs, impala,
+                              learner, learner_group, multi_agent, offline,
+                              optim, ppo, replay_buffer, sac)
+from ray_tpu_torch.models import actor_critic
+print([m for m in sys.modules if m.split(".")[0] in BLOCKED])
+try:
+    envs.make("MountainCar-v0")
+except ImportError as e:
+    print("ImportError", "MountainCar-v0" in str(e), "gymnasium" in str(e))
+rt.init(num_cpus=4, device="cpu")
+algo = rl.PPOConfig(num_env_runners=1, num_envs_per_runner=2,
+                    rollout_length=16, epochs=1, device="cpu").build()
+print(algo.train()["num_env_steps_sampled"])
+print(rt.get(algo.runners[0].cuda_initialized.remote(), timeout=60))
+algo.stop()
+rt.shutdown()
+print([m for m in sys.modules if m.split(".")[0] in BLOCKED])
+"""
+
+
+def test_rl_runs_without_gymnasium_jax_flax_or_optax(tmp_path):
+    """Every RL module imports, and PPO trains one iteration on a port
+    cluster (env runners on the port's CartPole), in processes that cannot
+    import gymnasium, JAX, flax, optax, cloudpickle or the JAX package
+    (shadowed on ``PYTHONPATH`` by modules that raise); none of them is
+    loaded; ``envs.make`` of a name the port does not hold raises an
+    ImportError naming the env and gymnasium."""
+    shim = tmp_path / "shim"
+    shim.mkdir()
+    for name in _RL_BLOCKED:
+        (shim / f"{name}.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    env["PYTHONPATH"] = f"{shim}{os.pathsep}{REPO}"
+    out = subprocess.run(
+        [sys.executable, "-c", f"BLOCKED = {_RL_BLOCKED!r}\n" + _RL_SCRIPT],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[:5] == [
+        "[]", "ImportError True True", "32", "False", "[]"], out.stdout
