@@ -208,7 +208,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    phase 9's, a second stream cancelled after 4 tokens raises
    ``TaskCancelledError`` and the actor answers again; a span recorded in
    the actor is in the driver's ``get_spans()`` and the GCS timeline; the
-   1b's fp32 params (3.54 GB) checkpointed through the object-plane tier
+   1b's fp32 params at 4 of its 16 layers (1.28 GB: the seconds of the
+   host paths below scale with the tree's bytes) checkpointed through the
+   object-plane tier
    (``ObjectPlaneBackend``), evicted locally, restored from the vault
    bit-equal, and the store listed by ``state.list_checkpoints()``; then a
    ``cluster_utils.Cluster`` of two nodes, the card on the second: a
@@ -259,7 +261,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    losses within 2 % of fp32's; an ``rl metrics:`` line (env steps/s,
    sample and update s an iteration, first and best return, the
    learner's peak memory, each update's ms on card and CPU, the groups'
-   ready and update s).
+   ready and update s);
+22. cluster services and tune (the ``tune`` path): a head started by the
+   port's CLI (``start --head --include-dashboard``, a subprocess) whose
+   ``/api/nodes`` shows the card as ``GPU: 1.0``; a job ``POST``ed to the
+   dashboard's ``/api/jobs`` with a ``working_dir`` holding its entrypoint,
+   a ``Tuner`` sweep of 4 learning rates (phase 4's 1e-4 among them) under
+   ASHA (grace 2, reduction 2, max_t 6, loss, min), 2 trials at a time of
+   ``{"CPU": 1, "GPU": 0.5}``, each training the 1b at full width and
+   depth from phase 4's seed, optimizer and batch for up to 6 steps and
+   reporting each loss and its kernels' launches; the job must succeed,
+   every trial's first loss equal phase 4's, the 1e-4 trial's losses lie
+   within TUNE_LOSS_RTOL of phase 4's, each trial launch ``flash_fwd`` 32,
+   ``flash_bwd`` 16 and Delta 16 times a step, stop where ASHA replayed on
+   the logged report stream stops it, and the grid's best be the argmin of
+   the final losses; ``/metrics`` parses as Prometheus text and counts
+   each trial's steps, ``/api/timeline`` holds the ``_run_trial`` tasks,
+   ``/api/health`` and ``/api/goodput`` answer, the agent
+   (``get_node_stats(agent=True)``) lists each trial's worker with an RSS,
+   the CLI's ``status``, ``job list``, ``timeline`` and a 1 s a benchmark
+   ``microbenchmark`` exit 0; SIGINT stops the head and the card's memory
+   comes back; a ``cluster services metrics:`` line (head ready s,
+   submit-to-``RUNNING`` s, each trial's worker-ready s, steps, losses and
+   peak memory, the sweep's wall, the endpoints' and the CLI's seconds, the
+   microbenchmark's rates).
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -4935,7 +4960,9 @@ def phase_pd_batch(card: str, serving: dict) -> dict:
 FT_TIMEOUT_S = 300.0  # each cluster call's
 FT_CANCEL_AFTER = 4  # tokens the cancelled stream yields before the cancel
 FT_CANCEL_TOKENS = 512  # the cancelled stream's budget: it would run ~10 s
-FT_SPILL_STORE = 1 << 30  # (d)'s store: below the 3.54 GB tree
+FT_TREE_LAYERS = 4  # the tree of (c), (d), (e): the 1b's params at 4 of its
+# 16 layers (1.28 GB): the host paths' seconds scale with its bytes
+FT_SPILL_STORE = 1 << 30  # (d)'s store: below the 1.28 GB tree
 FT_STORE_MAX = 8 << 30  # the other stores: at most this, or a third of
 # /dev/shm's free bytes
 FT_CKPT = "ft_1b"  # the object-plane checkpoint's store and vault
@@ -5026,17 +5053,19 @@ class FaultServer:
 
 
 def card_params(seed: int) -> dict:
-    """The 1b's fp32 params from ``seed``, drawn on the card as phase 17
-    draws a version, as numpy on the host; with the pid, the cards and the
-    peak device memory of the process that drew them."""
+    """The 1b's fp32 params at FT_TREE_LAYERS of its layers from ``seed``,
+    drawn on the card as phase 17 draws a version, as numpy on the host;
+    with the pid, the cards and the peak device memory of the process that
+    drew them."""
     import torch
 
     from ray_tpu_torch.llm import LLMConfig
     from ray_tpu_torch.models.convert import init_params
 
+    cfg = dataclasses.replace(LLMConfig(model_id="1b").transformer_config(),
+                              n_layers=FT_TREE_LAYERS)
     params = {k: v.cpu().numpy() for k, v in init_params(
-        LLMConfig(model_id="1b").transformer_config(), seed=seed,
-        device="cuda").items()}
+        cfg, seed=seed, device="cuda").items()}
     return {"params": params, "pid": os.getpid(),
             "cards": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -6009,6 +6038,460 @@ def phase_rl(card: str) -> dict:
     return metrics
 
 
+TUNE_PHASE4_LR = 1e-4  # phase_training's learning rate
+TUNE_LRS = (3e-5, TUNE_PHASE4_LR, 3e-4, 1e-3)
+TUNE_MAX_T = 6  # ASHA: rungs at 2 and 4, every trial stops by step 6
+TUNE_GRACE = 2
+TUNE_RF = 2
+TUNE_CONCURRENT = 2
+TUNE_GPU_SHARE = 0.5  # two trials share the one card
+TUNE_TIMEOUT_S = 600.0  # the job's, and each cluster call's
+# two processes on one card from one state take the same steps: with
+# flash_bwd's dQ adds in a fixed order (``ops/attention.py:dq_counters``)
+# the losses are expected bit-equal to phase 4's; the bound allows what
+# phase 16 allows a worker (the first equal, the rest within
+# CKPT_LOSS_RTOL)
+TUNE_LOSS_RTOL = CKPT_LOSS_RTOL
+TUNE_BENCH_S = 1.0  # the CLI microbenchmark's seconds a benchmark
+TUNE_FREE_SLACK = 1 << 30  # card memory the phase may leave held at its end
+
+# the job's entrypoint: a Tuner sweep whose trials train the 1b on the card
+# and whose ASHA logs every decision it takes, in the hub's order
+TUNE_ENTRY = r'''
+import json
+import os
+import time
+
+import ray_tpu_torch as rt
+from ray_tpu_torch import tune
+from ray_tpu_torch.tune import ASHAScheduler
+
+CFG = json.loads(os.environ["TUNE_SMOKE_CONFIG"])
+
+
+class LoggedASHA(ASHAScheduler):
+    """ASHA that appends each trial's launch and each decision to a file."""
+
+    def __init__(self, log_path, **kw):
+        ASHAScheduler.__init__(self, **kw)
+        self.log_path = log_path
+
+    def _log(self, rec):
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def register_trial(self, trial_id, config):
+        self._log({"trial_id": trial_id, "registered_at": time.time()})
+
+    def on_result(self, trial_id, metrics):
+        decision = ASHAScheduler.on_result(self, trial_id, metrics)
+        self._log({"trial_id": trial_id, "t": metrics["training_iteration"],
+                   "loss": metrics["loss"], "decision": decision})
+        return decision
+
+
+def trainable(config):
+    import importlib
+    import os
+    import time
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+    from ray_tpu_torch.util.metrics import publish_metrics
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    started_at = time.time()
+    # the driver's settings (phase_device), so products round alike
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    torch.cuda.mem_get_info()  # makes this process's context
+    cuda_init_s = time.perf_counter() - t
+    _build.build_all(["flash_fwd", "flash_bwd"])
+    bundle = TrainStepBundle(CONFIGS[CFG["model"]], device="cuda",
+                             optimizer=make_optimizer(
+                                 learning_rate=config["lr"],
+                                 warmup_steps=CFG["warmup_steps"]))
+    params, opt = bundle.init(seed=CFG["seed"])
+    batch = bundle.make_batch(np.random.default_rng(CFG["batch_seed"]),
+                              CFG["batch"], CFG["seq"])
+    torch.cuda.synchronize()
+    setup = {"pid": os.getpid(), "started_at": started_at,
+             "ready_at": time.time(), "cuda_init_s": cuda_init_s,
+             "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    counters = (att.flash_attention_fwd, att.attention_delta,
+                att.flash_attention_bwd, att.flash_attention_bwd_dq,
+                att.flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for t in range(1, CFG["max_t"] + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = bundle.step(params, opt, batch)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        publish_metrics()  # the step histograms, for /metrics
+        tune.report({"loss": losses[-1], "training_iteration": t,
+                     "losses": list(losses), "step_s": list(step_s),
+                     "launches": {c.__name__: c.launches for c in counters},
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     **setup})
+    return {}
+
+
+rt.init(log_to_driver=False)
+fit_started_at = time.time()
+grid = tune.Tuner(
+    trainable, param_space={"lr": tune.grid_search(CFG["lrs"])},
+    tune_config=tune.TuneConfig(
+        metric="loss", mode="min",
+        max_concurrent_trials=CFG["concurrent"],
+        scheduler=LoggedASHA(CFG["log"], metric="loss", mode="min",
+                             max_t=CFG["max_t"], grace_period=CFG["grace"],
+                             reduction_factor=CFG["rf"])),
+    resources_per_trial={"CPU": 1.0, "GPU": CFG["gpu_share"]}).fit()
+wall_s = time.time() - fit_started_at
+best = grid.get_best_result()
+print("TUNE_RESULT " + json.dumps({
+    "fit_started_at": fit_started_at, "wall_s": wall_s,
+    "best": best.trial_id, "best_config": best.config,
+    "trials": [{"trial_id": r.trial_id, "config": r.config,
+                "metrics": r.metrics, "error": r.error,
+                "stopped_early": r.stopped_early} for r in grid.results]}),
+      flush=True)
+rt.shutdown()
+'''
+
+
+def http_get(address: str, path: str):
+    """(body, content type, seconds) of one GET to the dashboard."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://{address}{path}",
+                                timeout=TUNE_TIMEOUT_S) as r:
+        body = r.read().decode()
+        ctype = r.headers.get("Content-Type", "")
+    return body, ctype, time.perf_counter() - t0
+
+
+def parse_prometheus(text: str) -> list:
+    """(name, labels, value) of every sample line of a Prometheus text
+    exposition; raises on a line that is not one."""
+    import re
+
+    line_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"')
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        if m is None:
+            raise AssertionError(f"/metrics: not a sample line: {line!r}")
+        out.append((m.group(1), dict(label_re.findall(m.group(2) or "")),
+                    float(m.group(3))))
+    return out
+
+
+def smoke_cli(address_file: str, *args, timeout: float = 300.0):
+    """One run of the port's CLI against the phase's head: its stdout and
+    seconds; raises unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--address-file",
+         address_file, *args], capture_output=True, text=True,
+        timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)}: exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def replay_asha(records: list) -> dict:
+    """The logged report stream through a fresh ASHAScheduler of the
+    sweep's settings: raises where a decision differs from the logged one;
+    each trial's step of its first STOP."""
+    from ray_tpu_torch.tune import ASHAScheduler
+
+    sched = ASHAScheduler(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                          grace_period=TUNE_GRACE, reduction_factor=TUNE_RF)
+    stops = {}
+    for rec in records:
+        if "decision" not in rec:
+            continue
+        got = sched.on_result(rec["trial_id"], {
+            "loss": rec["loss"], "training_iteration": rec["t"]})
+        if got != rec["decision"]:
+            raise AssertionError(f"ASHA replayed {got} for {rec}")
+        if got == "STOP":
+            stops.setdefault(rec["trial_id"], rec["t"])
+    return stops
+
+
+def phase_cluster_services(card: str, training: dict) -> dict:
+    """Phase 22: a head started by the port's CLI with the dashboard; a job
+    submitted over its REST runs an ASHA sweep whose trials train the 1b on
+    the card; the cluster is read back through the dashboard, the state API
+    and the CLI; SIGINT stops the head and gives the card back. Returns the
+    kernels' launches summed over the trials."""
+    import gc
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.util import state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    free_before, total = torch.cuda.mem_get_info()
+    cfg = CONFIGS[TRAIN_CONFIG]
+    per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+                "attention_delta": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+    want = training["loss"]
+    metrics = {"card": card, "free_bytes_before": free_before,
+               "total_bytes": total}
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    address_file = os.path.join(root, "head_address")
+    # (a) the head, through the CLI, with the dashboard
+    t0 = time.perf_counter()
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--address-file",
+         address_file, "start", "--head", "--include-dashboard",
+         "--dashboard-port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    connected = False
+    try:
+        dashboard, lines = None, []
+        while dashboard is None:
+            line = head.stdout.readline()
+            if not line or time.perf_counter() - t0 > TUNE_TIMEOUT_S:
+                raise AssertionError("the head did not start: "
+                                     + "".join(lines)[-2000:])
+            lines.append(line)
+            if line.startswith("dashboard at http://"):
+                dashboard = line.split("http://", 1)[1].strip()
+        metrics["head_ready_s"] = time.perf_counter() - t0
+        body, _, _ = http_get(dashboard, "/api/nodes")
+        gpus = [n["total_resources"].get("GPU") for n in json.loads(body)
+                if n["alive"]]
+        if gpus != [1.0]:
+            raise AssertionError(f"/api/nodes: GPU {gpus}, want [1.0]")
+        with open(address_file) as f:
+            gcs_address = f.read().strip()
+        rt.init(address=gcs_address, log_to_driver=False)
+        connected = True
+
+        # (b) the job: its working_dir holds the entrypoint
+        work = os.path.join(root, "work")
+        os.makedirs(work)
+        with open(os.path.join(work, "tune_entry.py"), "w") as f:
+            f.write(TUNE_ENTRY)
+        log_path = os.path.join(root, "asha.jsonl")
+        config = {"model": TRAIN_CONFIG, "seed": 0, "batch_seed": 0,
+                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "warmup_steps": 1,
+                  "lrs": list(TUNE_LRS), "max_t": TUNE_MAX_T,
+                  "grace": TUNE_GRACE, "rf": TUNE_RF,
+                  "concurrent": TUNE_CONCURRENT,
+                  "gpu_share": TUNE_GPU_SHARE, "log": log_path}
+        payload = json.dumps({
+            "entrypoint": f"{sys.executable} tune_entry.py",
+            "runtime_env": {"working_dir": work, "env_vars": {
+                "TUNE_SMOKE_CONFIG": json.dumps(config)}}}).encode()
+        t_submit = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://{dashboard}/api/jobs", data=payload, method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=TUNE_TIMEOUT_S) as r:
+            sid = json.loads(r.read())["submission_id"]
+        metrics["submit_s"] = time.perf_counter() - t_submit
+        node = [n for n in state.list_nodes() if n["alive"]][0]
+        rss, status = {}, None
+        while status not in ("SUCCEEDED", "FAILED", "STOPPED"):
+            if time.perf_counter() - t_submit > TUNE_TIMEOUT_S:
+                raise AssertionError(f"job {sid} still {status}")
+            status = json.loads(http_get(dashboard,
+                                         f"/api/jobs/{sid}")[0])["status"]
+            if status != "PENDING" and "submit_to_running_s" not in metrics:
+                metrics["submit_to_running_s"] = \
+                    time.perf_counter() - t_submit
+            # the agent's view of the trials' workers while they run
+            for w in state.get_node_stats(node["address"],
+                                          agent=True)["agent"]["workers"]:
+                rss[w["pid"]] = max(rss.get(w["pid"], 0.0), w["rss_mb"])
+            time.sleep(0.5)
+        metrics["job_s"] = time.perf_counter() - t_submit
+        logs, _, _ = http_get(dashboard, f"/api/jobs/{sid}/logs")
+        if status != "SUCCEEDED":
+            raise AssertionError(f"job {sid} {status}: {logs[-3000:]}")
+
+        # (c) the results against phase 4 and the replayed decisions
+        result = json.loads(next(
+            line for line in logs.splitlines()
+            if line.startswith("TUNE_RESULT "))[len("TUNE_RESULT "):])
+        with open(log_path) as f:
+            records = [json.loads(line) for line in f]
+        stops = replay_asha(records)
+        registered = {r["trial_id"]: r["registered_at"] for r in records
+                      if "registered_at" in r}
+        trials = result["trials"]
+        if len(trials) != len(TUNE_LRS) or any(t["error"] for t in trials):
+            raise AssertionError(f"trials: {[t['error'] for t in trials]}")
+        launches = dict.fromkeys(per_step, 0)
+        first_gaps, reported = {}, {}
+        for t in trials:
+            m, tid = t["metrics"], t["trial_id"]
+            losses, n = m["losses"], len(m["losses"])
+            first_gaps[tid] = abs(losses[0] - want[0])
+            if losses[0] != want[0]:
+                raise AssertionError(f"{tid}: first loss {losses[0]} is not "
+                                     f"phase 4's {want[0]}")
+            stream = [(r["t"], r["loss"]) for r in records
+                      if r.get("trial_id") == tid and "t" in r]
+            if stream != list(zip(range(1, n + 1), losses)):
+                raise AssertionError(f"{tid}: the hub saw {stream}, the "
+                                     f"trial reported {losses}")
+            if stops.get(tid) != n or not t["stopped_early"]:
+                raise AssertionError(f"{tid} ran {n} steps; the replayed "
+                                     f"ASHA stops it at {stops.get(tid)}")
+            if m["launches"] != {k: v * n for k, v in per_step.items()}:
+                raise AssertionError(f"{tid} launched {m['launches']} in {n}"
+                                     f" steps, want {per_step} a step")
+            for k in launches:
+                launches[k] += m["launches"][k]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{tid}: losses {losses}")
+            reported[tid] = {
+                "lr": t["config"]["lr"], "steps": n, "losses": losses,
+                "pid": m["pid"], "cards": m["cards"],
+                "worker_ready_s": m["ready_at"] - registered[tid],
+                "setup_in_worker_s": m["ready_at"] - m["started_at"],
+                "cuda_init_s": m["cuda_init_s"],
+                "step_s": m["step_s"], "peak_bytes": m["peak_bytes"]}
+        lr_trial = next(tid for tid, r in reported.items()
+                        if r["lr"] == TUNE_PHASE4_LR)
+        got = reported[lr_trial]["losses"]
+        worst = rel_distance(got, want[:len(got)])
+        if worst > TUNE_LOSS_RTOL:
+            raise AssertionError(f"the lr {TUNE_PHASE4_LR} trial's "
+                                 f"losses {got} part from phase 4's {want} by "
+                                 f"{worst} (relative), beyond {TUNE_LOSS_RTOL}")
+        best = min(reported, key=lambda tid: reported[tid]["losses"][-1])
+        if result["best"] != best:
+            raise AssertionError(f"the grid's best {result['best']}, the "
+                                 f"argmin of the final losses {best}")
+        unsampled = [r["pid"] for r in reported.values()
+                     if not rss.get(r["pid"], 0.0) > 0]
+        if unsampled:
+            raise AssertionError(f"the agent never listed trial workers "
+                                 f"{unsampled} with an RSS")
+        metrics.update(trials=reported, sweep_wall_s=result["wall_s"],
+                       best=best, first_loss_gaps=first_gaps,
+                       lr_trial_max_rel_gap=worst, loss_rtol=TUNE_LOSS_RTOL,
+                       trial_worker_rss_mb={r["pid"]: rss[r["pid"]]
+                                            for r in reported.values()},
+                       launches=launches)
+        log(f"cluster services: job {sid} SUCCEEDED; {len(trials)} trials "
+            f"stopped at {[r['steps'] for r in reported.values()]} as the "
+            f"replayed ASHA decides; first losses equal phase 4's (gaps "
+            f"{sorted(set(first_gaps.values()))}), the lr "
+            f"{TUNE_PHASE4_LR} trial within {worst:.3g}; launches "
+            f"{launches}; peaks "
+            f"{[r['peak_bytes'] for r in reported.values()]} [{card}]")
+
+        # (d) the cluster read back
+        latency = {}
+        body, ctype, latency["/metrics"] = http_get(dashboard, "/metrics")
+        samples = parse_prometheus(body)
+        steps_by_pid = {}
+        for r in reported.values():
+            steps_by_pid[r["pid"]] = steps_by_pid.get(r["pid"], 0) + r["steps"]
+        for pid, steps in steps_by_pid.items():
+            counted = sum(v for name, labels, v in samples
+                          if name == "ray_tpu_train_step_seconds_count"
+                          and labels.get("pid") == str(pid))
+            if counted != steps:
+                raise AssertionError(f"/metrics counts {counted} steps of "
+                                     f"pid {pid}, whose trials ran {steps}")
+        body, _, latency["/api/timeline"] = http_get(
+            dashboard, "/api/timeline?limit=5000")
+        runs = [e for e in json.loads(body)["traceEvents"]
+                if e.get("cat") == "task" and "_run_trial" in e["name"]]
+        if len(runs) < len(trials):
+            raise AssertionError(f"/api/timeline holds {len(runs)} "
+                                 f"_run_trial slices for {len(trials)} trials")
+        for path in ("/api/health", "/api/goodput", "/api/summary",
+                     f"/api/jobs/{sid}"):
+            body, ctype, latency[path] = http_get(dashboard, path)
+            json.loads(body)
+            if "application/json" not in ctype:
+                raise AssertionError(f"{path}: {ctype}")
+        cli_s = {}
+        out, cli_s["status"] = smoke_cli(address_file, "status")
+        if json.loads(out)["num_nodes"] != 1:
+            raise AssertionError(f"cli status: {out}")
+        out, cli_s["job list"] = smoke_cli(address_file, "job", "list")
+        if sid not in [j["submission_id"] for j in json.loads(out)]:
+            raise AssertionError(f"cli job list: {out[:2000]}")
+        trace = os.path.join(root, "timeline.json")
+        out, cli_s["timeline"] = smoke_cli(address_file, "timeline",
+                                           "--from-gcs", "--out", trace)
+        out, cli_s["microbenchmark"] = smoke_cli(
+            address_file, "microbenchmark", "--duration", str(TUNE_BENCH_S))
+        bench = {}
+        for line in out.splitlines():
+            row = json.loads(line)
+            bench[row["name"]] = row["rate_per_s"]
+            if "GB_per_s" in row:
+                bench[row["name"] + "_GB_per_s"] = row["GB_per_s"]
+        metrics.update(endpoint_s=latency, cli_s=cli_s, microbenchmark=bench,
+                       prometheus_samples=len(samples),
+                       timeline_run_trial_slices=len(runs))
+    finally:
+        if connected:
+            rt.shutdown()
+        # (e) SIGINT, and the card given back
+        t0 = time.perf_counter()
+        head.send_signal(signal.SIGINT)
+        code = head.wait(timeout=120)
+        metrics["head_stop_s"] = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+    if code != 0:
+        raise AssertionError(f"the head exited {code} on SIGINT")
+    deadline = time.perf_counter() + 60
+    while True:
+        free = torch.cuda.mem_get_info()[0]
+        alive = [r["pid"] for r in reported.values()
+                 if not process_gone(r["pid"])]
+        if free >= free_before - TUNE_FREE_SLACK and not alive:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"after the head's stop {free} bytes free "
+                                 f"(before the phase {free_before}); trial "
+                                 f"workers alive: {alive}")
+        time.sleep(0.5)
+    metrics.update(free_bytes_after=free, phase_s=time.perf_counter()
+                   - phase_t0)
+    log("cluster services metrics: " + json.dumps(metrics))
+    return launches
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -6025,54 +6508,55 @@ def check_losses(label: str, got, want, first_equal: bool = True,
 
 
 def main() -> int:
-    dev = phase_device()
-    phase_build()
-    fwd = phase_kernels(dev["card"])
-    bwd = phase_bwd_kernels(dev["card"])
-    d64 = phase_d64_kernels(dev["card"])
+    seconds = {}  # each phase's, in order
+
+    def timed(label: str, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[label] = time.perf_counter() - t0
+        log(f"{label}: {seconds[label]:.2f} s")
+        return out
+
+    dev = timed("device", phase_device)
+    card = dev["card"]
+    timed("build", phase_build)
+    fwd = timed("kernels", phase_kernels, card)
+    bwd = timed("backward kernels", phase_bwd_kernels, card)
+    d64 = timed("d64 kernels", phase_d64_kernels, card)
     paths = {}
-    paths["training"], training = phase_training(dev["card"])
-    phase_moe_layer(dev["card"])
-    paths["moe_training"], _ = phase_training(dev["card"], MOE_CONFIG,
-                                              "moe training")
-    paths["vit_training"] = phase_vit_training(dev["card"])
-    serving = phase_serving(dev["card"])
+    paths["training"], training = timed("training", phase_training, card)
+    timed("moe layer", phase_moe_layer, card)
+    paths["moe_training"], _ = timed("moe training", phase_training, card,
+                                     MOE_CONFIG, "moe training")
+    paths["vit_training"] = timed("vit training", phase_vit_training, card)
+    serving = timed("serving", phase_serving, card)
     serve_launches = serving["launches"]
-    paths.update(phase_parallel(dev["card"]))
-    t0 = time.perf_counter()
-    paths["tensor_parallel"], tp = phase_tensor_parallel(dev["card"])
-    log(f"tensor parallel: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["seq_parallel"], sp = phase_seq_parallel(dev["card"])
-    phase_expert_parallel(dev["card"])
-    log(f"seq and expert parallel: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["traced_training"] = phase_traced_training(dev["card"])
-    log(f"traced training: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["checkpointed_training"] = phase_checkpointed_training(dev["card"])
-    log(f"checkpointed training: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["runtime_serving"] = phase_runtime_serving(dev["card"], serving)
-    log(f"runtime serving: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["runtime_training"] = phase_runtime_training(dev["card"], training)
-    log(f"runtime training: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["serve"] = phase_serve_weights(dev["card"], serving)
-    log(f"serve and weights: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths.update(phase_pd_batch(dev["card"], serving))
-    log(f"pd and batch inference: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["runtime_restart"] = phase_runtime_faults(dev["card"], serving)
-    log(f"runtime faults: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    paths["pipeline"] = phase_pipeline(dev["card"])
-    log(f"pipeline: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_rl(dev["card"])  # MLPs only: no kernel lies on the rl path
-    log(f"rl: {time.perf_counter() - t0:.2f} s")
+    paths.update(timed("parallel", phase_parallel, card))
+    paths["tensor_parallel"], tp = timed("tensor parallel",
+                                         phase_tensor_parallel, card)
+    paths["seq_parallel"], sp = timed("seq parallel", phase_seq_parallel,
+                                      card)
+    timed("expert parallel", phase_expert_parallel, card)
+    paths["traced_training"] = timed("traced training",
+                                     phase_traced_training, card)
+    paths["checkpointed_training"] = timed(
+        "checkpointed training", phase_checkpointed_training, card)
+    paths["runtime_serving"] = timed("runtime serving",
+                                     phase_runtime_serving, card, serving)
+    paths["runtime_training"] = timed("runtime training",
+                                      phase_runtime_training, card, training)
+    paths["serve"] = timed("serve and weights", phase_serve_weights, card,
+                           serving)
+    paths.update(timed("pd and batch inference", phase_pd_batch, card,
+                       serving))
+    paths["runtime_restart"] = timed("runtime faults", phase_runtime_faults,
+                                     card, serving)
+    paths["pipeline"] = timed("pipeline", phase_pipeline, card)
+    # MLPs only: no kernel lies on the rl path
+    timed("rl", phase_rl, card)
+    paths["tune"] = timed("cluster services and tune",
+                          phase_cluster_services, card, training)
+    log("phase seconds: " + json.dumps(seconds))
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
                "flash_bwd_delta": "attention_delta",
@@ -6112,7 +6596,7 @@ def main() -> int:
             **({"d64_shapes": d64[name]} if name in d64 else {}),
             **({"tensor_parallel_shapes": tp[name]} if name in tp else {}),
             **({"seq_parallel_shapes": sp[name]} if name in sp else {})})
-    log(dev["card"])
+    log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": dev["report"]}))
     return 0

@@ -17,8 +17,11 @@ mesh geometry of ``weights``), the train plane on the runtime (``train``:
 handles, autoscaling and an HTTP proxy on the standard library), the weight
 plane (``weights``: the versioned weight store and its transports), the RL
 library (``rl``: PPO, IMPALA/APPO, DQN, SAC, BC/MARWIL and multi-agent PPO,
-learners on the card, env runners on its numpy environments), the GCS
-KV API and device objects (``experimental``), and the flash-attention
+learners on the card, env runners on its numpy environments), Tune
+(``tune``: the Tuner, its searchers and schedulers), job submission
+(``job``), the dashboard's head and node agent (``dashboard``), the CLI
+(``scripts.cli``), the GCS KV API and device objects (``experimental``),
+and the flash-attention
 forward and backward as CUDA kernels with ring and Ulysses attention on them
 (``ops``). Entry points run on the card unless given ``device="cpu"``;
 ``init`` starts a cluster whose raylet advertises the host's cards as the
@@ -52,9 +55,10 @@ from ray_tpu_torch.object_ref import ObjectRef
 from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch import exceptions
 
-_SUBMODULES = ("ckpt", "cluster_utils", "collective", "data",
-               "experimental", "llm", "models", "ops", "parallel", "rl",
-               "serve", "train", "util", "utils", "weights")
+_SUBMODULES = ("ckpt", "cluster_utils", "collective", "dashboard", "data",
+               "experimental", "job", "llm", "models", "ops", "parallel",
+               "rl", "scripts", "serve", "train", "tune", "util", "utils",
+               "weights")
 
 
 def __getattr__(name):

@@ -187,8 +187,6 @@ _NOT_PORTED = {
     "device channels":
         "queue 1 item 3, device channels and the XLA reshard tier "
         "(ray_tpu/dag/device_channel.py:IciTransfer)",
-    "the dashboard":
-        "queue 1 item 6, cluster services (ray_tpu/dashboard/)",
     "client mode": "queue 1 item 6, utilities (ray_tpu/util/client/)",
     "the XLA reshard tier":
         "queue 1 item 3, device channels and the XLA reshard tier "

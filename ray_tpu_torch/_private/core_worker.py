@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import task_events
 from ray_tpu_torch._private.async_util import spawn
-from ray_tpu_torch._private.common import ActorOptions, TaskOptions, TaskSpec, not_ported
+from ray_tpu_torch._private.common import ActorOptions, TaskOptions, TaskSpec
 from ray_tpu_torch._private.config import RAY_CONFIG
 from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_store import SegmentCache, pack_blob, plan_layout, read_blob, write_blob, ShmSegment
@@ -3082,9 +3082,31 @@ class CoreWorker:
             else:
                 self._cancelled_pending.add(req["task_id"])
             return wire.dumps({"status": "ok"})
-        if method in ("ProfileStacks", "ProfileMemory"):
-            # stack sampling and memory profiles live in dashboard/agent.py
-            raise not_ported("the dashboard")
+        if method == "ProfileStacks":
+            # py-spy-role stack sampling (dashboard/agent.py); runs in a
+            # thread so the event loop keeps serving while sampling
+            req = wire.loads(payload) or {}
+            from ray_tpu_torch.dashboard.agent import sample_stacks
+
+            out = await asyncio.get_event_loop().run_in_executor(
+                None, sample_stacks,
+                float(req.get("duration_s", 2.0)),
+                float(req.get("interval_ms", 10.0)))
+            return wire.dumps(out)
+        if method == "ProfileMemory":
+            req = wire.loads(payload) or {}
+            if not hasattr(self, "_mem_profiler"):
+                from ray_tpu_torch.dashboard.agent import MemoryProfiler
+
+                self._mem_profiler = MemoryProfiler()
+            action = req.get("action", "snapshot")
+            if action == "start":
+                out = self._mem_profiler.start(int(req.get("frames", 16)))
+            elif action == "stop":
+                out = self._mem_profiler.stop()
+            else:
+                out = self._mem_profiler.snapshot(int(req.get("top", 25)))
+            return wire.dumps(out)
         if method == "Ping":
             return wire.dumps({"status": "ok", "pid": os.getpid()})
         if method == "GetDeviceObject":

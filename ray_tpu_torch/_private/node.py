@@ -100,10 +100,23 @@ class NodeSupervisor:
 
     def start_dashboard(self, host: str = "127.0.0.1",
                         port: Optional[int] = None) -> str:
-        """The JAX runtime launches its dashboard head here."""
-        from ray_tpu_torch._private.common import not_ported
-
-        raise not_ported("the dashboard")
+        """Launch the dashboard-lite head HTTP server (reference:
+        dashboard/head.py started by services.py on the head node)."""
+        assert self.gcs_address
+        addr_file = os.path.join(self.session_dir, "dashboard_address")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.dashboard.head",
+             "--gcs-address", self.gcs_address,
+             "--host", host, "--port", str(port or 0),
+             "--log-dir", self.log_dir,
+             "--address-file", addr_file],
+            stdout=self._log("dashboard_out"), stderr=subprocess.STDOUT,
+            env=self._child_env(),
+        )
+        self.processes.append(proc)
+        self.dashboard_address = _wait_for_file(addr_file, proc=proc,
+                                                what="dashboard")
+        return self.dashboard_address
 
     def kill_gcs(self):
         """Hard-kill the GCS process (fault-injection for FT tests)."""

@@ -38,7 +38,6 @@ from typing import Dict, List, Optional, Set, Tuple
 from ray_tpu_torch._private.common import (
     NodeInfo,
     label_match,
-    not_ported,
     resources_add,
     resources_ge,
     resources_sub,
@@ -1037,8 +1036,14 @@ class Raylet:
     async def _rpc_GetNodeStats(self, req, conn):
         agent_stats = {}
         if req.get("agent"):
-            # the per-node agent sample lives in dashboard/agent.py
-            raise not_ported("the dashboard")
+            # per-node agent sample (reference: dashboard agent reporter):
+            # a /proc walk of every worker, off the loop
+            if not hasattr(self, "_agent"):
+                from ray_tpu_torch.dashboard.agent import NodeAgent
+
+                self._agent = NodeAgent()
+            agent_stats = await asyncio.get_event_loop().run_in_executor(
+                None, self._agent.collect, list(self.workers.keys()))
         return {
             "agent": agent_stats,
             "node_id": self.node_id.hex(),
@@ -1057,7 +1062,17 @@ class Raylet:
     async def _rpc_ProfileWorker(self, req, conn):
         """Route a profiling request to one of this node's workers
         (reference: dashboard ReporterService.GetTraceback / py-spy RPC)."""
-        raise not_ported("the dashboard")
+        pid = req.get("pid")
+        w = self.workers.get(pid)
+        if w is None or not w.address:
+            return {"status": "not_found",
+                    "pids": sorted(self.workers.keys())}
+        method = "ProfileMemory" if req.get("kind") == "memory" \
+            else "ProfileStacks"
+        out = wire.loads(await w.client.call(
+            method, wire.dumps(req.get("args") or {}),
+            timeout=float(req.get("timeout", 60.0))))
+        return {"status": "ok", "pid": pid, "profile": out}
 
     # ------------------------------------------------------------------
     # placement group bundles (reference: placement_group_resource_manager.cc)

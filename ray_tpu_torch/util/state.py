@@ -2,17 +2,15 @@
 (reference: python/ray/util/state/api.py list_* :790-1304, backed by the
 GCS instead of a dashboard process).
 
-Every function the port's GCS or its KV backs is here. Those that reach
-the dashboard's per-node agent (``get_node_stats(agent=True)``,
-``profile_worker``) raise ``NotImplementedError`` naming the ROADMAP item
-that ports the dashboard."""
+Every function the port's GCS or its KV backs is here; the per-node agent
+(``get_node_stats(agent=True)``, ``profile_worker``) is the dashboard's,
+``dashboard/agent.py``, hosted by the raylet and the workers."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch._private import wire
-from ray_tpu_torch._private.common import not_ported
 
 
 def _state() -> Dict[str, Any]:
@@ -148,12 +146,9 @@ def get_timeline(job_id: Optional[str] = None,
 
 
 def get_node_stats(node_address: str, agent: bool = False) -> Dict[str, Any]:
-    """Raylet-side stats; agent=True would add the per-node agent sample
-    (node cpu/mem/load + per-worker cpu/rss, reference: dashboard
-    modules/reporter), which lives in the dashboard the port does not
-    have yet."""
-    if agent:
-        raise not_ported("the dashboard")
+    """Raylet-side stats; agent=True adds the per-node agent sample (node
+    cpu/mem/load + per-worker cpu/rss, reference: dashboard
+    modules/reporter)."""
     from ray_tpu_torch._private import worker as worker_mod
 
     core = worker_mod.global_worker()
@@ -169,9 +164,21 @@ def get_node_stats(node_address: str, agent: bool = False) -> Dict[str, Any]:
 def profile_worker(node_address: str, pid: int, kind: str = "stacks",
                    **args) -> Dict[str, Any]:
     """Profile one worker process on a node (reference: `ray stack` /
-    dashboard py-spy + memray integration). The profilers live in the
-    dashboard's agent, which the port does not have yet."""
-    raise not_ported("the dashboard")
+    dashboard py-spy + memray integration). kind="stacks" samples folded
+    call stacks; kind="memory" drives the tracemalloc profiler with
+    args={"action": "start"|"snapshot"|"stop", ...}."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    core = worker_mod.global_worker()
+    client = core._raylet_client(node_address)
+    timeout = float(args.pop("timeout", 60.0))
+
+    async def _call():
+        return wire.loads(await client.call("ProfileWorker", wire.dumps({
+            "pid": pid, "kind": kind, "args": args, "timeout": timeout,
+        }), timeout=timeout + 10.0))
+
+    return core._run(_call(), timeout + 15.0)
 
 
 def list_dataset_stats() -> List[Dict[str, Any]]:

@@ -163,8 +163,9 @@ def test_stats_visible_via_state_api(clusters):
 
 def test_state_api_reads_the_gcs(clusters):
     """Every state function the port's GCS backs answers in the shape the
-    JAX one does on its cluster; those that reach the dashboard's agent
-    raise naming the ROADMAP."""
+    JAX one does on its cluster, the dashboard's agent too: its node sample
+    carries the node id and each worker's RSS, and a worker's profile
+    returns its stacks."""
     import ray_tpu.util.state as jstate
 
     from ray_tpu_torch.util import state as pstate
@@ -194,7 +195,17 @@ def test_state_api_reads_the_gcs(clusters):
     stats = pstate.get_node_stats(node["address"])
     assert stats["node_id"] == node["node_id"]
     assert pstate.summarize_cluster()["num_nodes"] == 1
-    for call in (lambda: pstate.get_node_stats(node["address"], agent=True),
-                 lambda: pstate.profile_worker(node["address"], 1)):
-        with pytest.raises(NotImplementedError, match="the dashboard"):
-            call()
+    sampled = pstate.get_node_stats(node["address"], agent=True)
+    assert sampled["node_id"] == node["node_id"]
+    workers = sampled["agent"]["workers"]
+    assert workers and all(w["rss_mb"] > 0 for w in workers)
+    jnode = jax_side(lambda: [n for n in jstate.list_nodes()
+                              if n["alive"]][0])
+    jsampled = jax_side(lambda: jstate.get_node_stats(jnode["address"],
+                                                      agent=True))
+    assert set(sampled["agent"]) == set(jsampled["agent"])
+    assert set(workers[0]) == set(jsampled["agent"]["workers"][0])
+    prof = pstate.profile_worker(node["address"], workers[0]["pid"],
+                                 duration_s=0.3, interval_ms=5.0)
+    assert prof["status"] == "ok" and prof["profile"]["samples"] > 0
+    assert prof["profile"]["folded"], prof

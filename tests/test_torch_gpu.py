@@ -967,3 +967,60 @@ def test_rl_runners_never_initialise_cuda(cuda_device):
             algo.stop()
     finally:
         rt.shutdown()
+
+
+def test_two_trial_sweep_of_the_1b_on_the_card(cuda_device):
+    """A ``Tuner`` sweep of the 1b at 2 of its layers (full width, bf16),
+    two ``{"CPU": 1, "GPU": 0.5}`` trials at once on the card: both trials
+    train from one seed and batch, so their first losses are equal and
+    finite, and each launches the forward (twice a layer: remat), Delta and
+    ``flash_bwd`` kernels once a layer a step. (The trainable is local, so
+    it travels by value.)"""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+
+    def trainable(config):
+        import dataclasses
+        import importlib
+
+        import numpy as np
+
+        from ray_tpu_torch import tune
+        from ray_tpu_torch.models import CONFIGS
+        from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+
+        att = importlib.import_module("ray_tpu_torch.ops.attention")
+        cfg = dataclasses.replace(CONFIGS["1b"], n_layers=2)
+        bundle = TrainStepBundle(cfg, optimizer=make_optimizer(
+            learning_rate=config["lr"], warmup_steps=1))
+        params, opt = bundle.init(seed=0)
+        batch = bundle.make_batch(np.random.default_rng(0), 2, 512)
+        counters = (att.flash_attention_fwd, att.attention_delta,
+                    att.flash_attention_bwd)
+        for c in counters:
+            c.launches = 0
+        losses = []
+        for t in (1, 2, 3):
+            params, opt, loss = bundle.step(params, opt, batch)
+            losses.append(loss.item())
+            tune.report({"loss": losses[-1], "losses": list(losses),
+                         "training_iteration": t,
+                         "launches": [c.launches for c in counters]})
+        return {}
+
+    rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        grid = tune.Tuner(
+            trainable, param_space={"lr": tune.grid_search([1e-4, 1e-3])},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=2),
+            resources_per_trial={"CPU": 1.0, "GPU": 0.5}).fit()
+    finally:
+        rt.shutdown()
+    assert [r.error for r in grid.results] == [None, None]
+    firsts = {r.metrics["losses"][0] for r in grid.results}
+    assert len(firsts) == 1 and np.isfinite(firsts.pop())
+    for r in grid.results:
+        assert len(r.metrics["losses"]) == 3
+        assert r.metrics["launches"] == [2 * 2 * 3, 2 * 3, 2 * 3]

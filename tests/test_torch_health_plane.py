@@ -3,19 +3,17 @@ on ``ray_tpu_torch``: metrics time-series history (two downsample tiers),
 the GCS task timeline (Perfetto golden), the stuck/straggler health
 monitor, built-in hot-path spans (train step + serve request with ZERO
 manual instrumentation), obs fork-safety, and the off-loop task-event read
-handoff.
-
-The JAX file's two tests that read the dashboard's HTTP endpoints
-(``/api/health`` with the CLI, and ``/api/metrics/history``) wait for the
-dashboard's port; where the JAX train-and-serve test reads the dashboard's
-``/metrics`` and ``/api/timeline``, this one reads the GCS tables they
-render."""
+handoff, the dashboard's ``/metrics``, ``/api/timeline``, ``/api/health``
+(with the CLI's ``health``) and ``/api/metrics/history``."""
 
 import asyncio
 import json
 import os
+import subprocess
+import sys
 import threading
 import time
+import urllib.request
 
 import pytest
 
@@ -41,7 +39,8 @@ def health_cluster():
     old = {k: os.environ.get(k) for k in _FAST_ENV}
     os.environ.update(_FAST_ENV)
     tracing._enabled = None  # re-read the flag
-    worker = ray_tpu_torch.init(num_cpus=4, device="cpu")
+    worker = ray_tpu_torch.init(num_cpus=4, include_dashboard=True,
+                                device="cpu")
     yield worker
     ray_tpu_torch.shutdown()
     for k, v in old.items():
@@ -60,6 +59,11 @@ def _wait_for(predicate, timeout=30, interval=0.5):
             return out
         time.sleep(interval)
     return predicate()
+
+
+def _http_json(address, path):
+    with urllib.request.urlopen(f"http://{address}{path}", timeout=30) as r:
+        return json.loads(r.read().decode())
 
 
 def _payload(t, node, metrics):
@@ -392,9 +396,8 @@ def test_fork_resets_inherited_obs_buffers():
 
 def test_train_and_serve_builtin_spans(health_cluster, tmp_path):
     """One train step + one serve request, ZERO manual instrumentation:
-    the built-in spans and histograms must reach the GCS (its metrics
-    table, which the JAX dashboard's ``/metrics`` renders) and the chrome
-    trace and the GCS timeline."""
+    the built-in spans and histograms must land in /metrics and the
+    chrome trace."""
     tracing.clear()
 
     # --- one REAL train step through the library path ---
@@ -441,33 +444,31 @@ def test_train_and_serve_builtin_spans(health_cluster, tmp_path):
     names = {e["name"] for e in json.load(open(out))["traceEvents"]}
     assert {"train.step", "serve.execute"} <= names
 
-    # the GCS metrics table: the built-in histograms ship via the
-    # auto-flush loops (train histograms live in THIS driver process:
-    # force one publish instead of waiting out the flush interval)
+    # /metrics: the built-in histograms ship via the auto-flush loops
+    # (train histograms live in THIS driver process: force one publish
+    # instead of waiting out the flush interval)
     from ray_tpu_torch.util.metrics import publish_metrics
 
     publish_metrics()
+    address = health_cluster.node_supervisor.dashboard_address
 
     def _metrics():
-        have = {}
-        for payload in state._kv_namespace_dump("metrics").values():
-            for name, m in payload.get("metrics", {}).items():
-                if m["data"]:
-                    have[name] = m["kind"]
-        want = {"ray_tpu.train.step_seconds": "histogram",
-                "ray_tpu.train.fwd_bwd_seconds": "histogram",
-                "ray_tpu.serve.execute_seconds": "histogram",
-                "ray_tpu.serve.queue_seconds": "histogram",
-                "ray_tpu.serve.requests": "counter"}
-        return have if all(have.get(k) == v for k, v in want.items()) \
-            else None
+        with urllib.request.urlopen(f"http://{address}/metrics",
+                                    timeout=30) as r:
+            body = r.read().decode()
+        want = ("ray_tpu_train_step_seconds_bucket",
+                "ray_tpu_train_fwd_bwd_seconds_count",
+                "ray_tpu_serve_execute_seconds_bucket",
+                "ray_tpu_serve_queue_seconds_count",
+                "ray_tpu_serve_requests")
+        return body if all(w in body for w in want) else None
 
-    assert _wait_for(_metrics, timeout=40) is not None, \
-        "built-in hot-path histograms missing"
+    body = _wait_for(_metrics, timeout=40)
+    assert body is not None, "built-in hot-path histograms missing"
 
-    # the GCS timeline: the same spans and the task slices in ONE trace
+    # /api/timeline: the same spans and the task slices in ONE trace
     def _timeline():
-        trace = state.get_timeline()
+        trace = _http_json(address, "/api/timeline")
         names = {e["name"] for e in trace["traceEvents"]}
         return trace if "train.step" in names else None
 
@@ -476,3 +477,119 @@ def test_train_and_serve_builtin_spans(health_cluster, tmp_path):
     events = trace["traceEvents"]
     assert any(e.get("cat") == "task" for e in events)  # task slices
     serve.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# cluster: health endpoint + CLI flag injected pathologies
+# ---------------------------------------------------------------------------
+
+
+def test_health_endpoint_and_cli_flag_injected_pathology(health_cluster):
+    from ray_tpu_torch._private import worker as worker_mod
+
+    core = worker_mod.global_worker()
+    now = time.time()
+    events = []
+    for i in range(5):
+        t = now - 300 + i
+        events += [
+            {"task_id": f"hok{i:02d}", "job_id": "healthj",
+             "state": "RUNNING", "ts": t, "name": "inject_stuck_fn"},
+            {"task_id": f"hok{i:02d}", "job_id": "healthj",
+             "state": "FINISHED", "ts": t + 0.1, "name": "inject_stuck_fn"},
+        ]
+    events.append({"task_id": "hvictim", "job_id": "healthj",
+                   "state": "RUNNING", "ts": now - 300,
+                   "name": "inject_stuck_fn", "node": "nodeS"})
+    core._run(core._gcs_call("AddTaskEvents", {"events": events}))
+
+    # straggler raylet: synthetic per-node metric snapshots (one outlier)
+    from ray_tpu_torch._private import wire
+
+    for node, lag in (("fakeA", 0.01), ("fakeB", 0.02), ("fakeC", 9.0)):
+        core._run(core._gcs_call("KVPut", {
+            "ns": "metrics", "key": f"proc_fake_{node}",
+            "value": wire.dumps(_payload(time.time(), node, {
+                "ray_tpu_raylet_loop_lag_seconds": {
+                    "kind": "gauge", "description": "d",
+                    "data": {"{}": lag}}}))}))
+
+    address = health_cluster.node_supervisor.dashboard_address
+    # flagged within one scan interval (1 s here); ?scan=1 forces one NOW
+    health = _http_json(address, "/api/health?scan=1")
+    kinds = {f["kind"]: f for f in health["findings"]}
+    assert health["status"] in ("warning", "error")
+    assert "stuck_task" in kinds, health
+    assert kinds["stuck_task"]["name"] == "inject_stuck_fn"
+    assert "straggler_node" in kinds, health
+    assert kinds["straggler_node"]["node"] == "fakeC"
+
+    # the periodic scanner also picks it up without ?scan (one interval)
+    periodic = _wait_for(
+        lambda: (lambda h: h if h["findings"] else None)(
+            _http_json(address, "/api/health")), timeout=15)
+    assert periodic and periodic["scan_count"] >= 1
+
+    # util.state surface
+    health2 = state.cluster_health()
+    assert any(f["kind"] == "stuck_task" for f in health2["findings"])
+
+    # ray-tpu health CLI (a real subprocess driver)
+    gcs_address = health_cluster.node_supervisor.gcs_address
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--address",
+         gcs_address, "health", "--scan"],
+        capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "stuck_task" in out.stdout
+    assert "straggler_node" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# cluster: metrics history endpoint serves both tiers
+# ---------------------------------------------------------------------------
+
+
+def test_metrics_history_endpoint_two_tiers(health_cluster):
+    address = health_cluster.node_supervisor.dashboard_address
+
+    # raylet gauges flush every 2 s here; the 0.5 s sampler then has
+    # points, and the 2 s rollup tier fills shortly after
+    def _names():
+        names = _http_json(address, "/api/metrics/history")
+        return names if "ray_tpu_raylet_lease_queue_depth" in names else None
+
+    assert _wait_for(_names, timeout=40), "no metric names recorded"
+
+    def _raw():
+        h = _http_json(
+            address, "/api/metrics/history"
+                     "?name=ray_tpu_raylet_lease_queue_depth&tier=raw")
+        return h if len(h["points"]) >= 2 else None
+
+    raw = _wait_for(_raw, timeout=30)
+    assert raw and raw["tier"] == "raw"
+    assert all("value" in p and "ts" in p for p in raw["points"])
+
+    def _rollup():
+        h = _http_json(
+            address, "/api/metrics/history"
+                     "?name=ray_tpu_raylet_lease_queue_depth&tier=rollup")
+        return h if h["points"] else None
+
+    roll = _wait_for(_rollup, timeout=30)
+    assert roll and roll["tier"] == "rollup"
+    assert {"value", "min", "max", "n_raw"} <= set(roll["points"][-1])
+
+    # the window parameter picks the tier automatically
+    auto = _http_json(
+        address, "/api/metrics/history"
+                 "?name=ray_tpu_raylet_lease_queue_depth&window=86400")
+    assert auto["tier"] == "rollup"
+
+    # util.state surface reads the same series
+    assert "ray_tpu_raylet_lease_queue_depth" in state.metrics_history()
+    s = state.metrics_history("ray_tpu_raylet_lease_queue_depth",
+                              tier="raw")
+    assert s["points"]

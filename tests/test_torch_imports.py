@@ -386,3 +386,76 @@ def test_rl_runs_without_gymnasium_jax_flax_or_optax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split("\n")[:5] == [
         "[]", "ImportError True True", "32", "False", "[]"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# Tune, jobs, the dashboard, the CLI and the microbenchmark without aiohttp,
+# psutil, cloudpickle, pandas, requests, grpc or JAX
+# ---------------------------------------------------------------------------
+
+_SERVICES_BLOCKED = ("aiohttp", "psutil", "cloudpickle", "pandas", "requests",
+                     "grpc", "jax", "ray_tpu")
+
+_SERVICES_SCRIPT = """
+import json, sys, time, urllib.request
+import ray_tpu_torch as rt
+from ray_tpu_torch import dashboard, job, tune
+from ray_tpu_torch.scripts import cli
+from ray_tpu_torch._private import microbenchmark
+print([m for m in sys.modules if m.split(".")[0] in BLOCKED])
+w = rt.init(num_cpus=4, include_dashboard=True, device="cpu")
+addr = w.node_supervisor.dashboard_address
+with urllib.request.urlopen(f"http://{addr}/api/summary", timeout=30) as r:
+    print(json.loads(r.read())["num_nodes"])
+
+def trainable(config):
+    import sys
+    for t in (1, 2):
+        tune.report({"score": config["x"] * t, "training_iteration": t})
+    return {"loaded": [m for m in sys.modules if m.split(".")[0] in BLOCKED]}
+
+grid = tune.Tuner(trainable, param_space={"x": tune.grid_search([1, 2])},
+                  tune_config=tune.TuneConfig(metric="score")).fit()
+print(grid.get_best_result().config, [r.metrics["loaded"] for r in grid.results])
+try:
+    grid.get_dataframe()
+except ImportError as e:
+    print("needs pandas" in str(e))
+req = urllib.request.Request(
+    f"http://{addr}/api/jobs", method="POST",
+    data=json.dumps({"entrypoint": "python -c 'print(41 + 1)'"}).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    sid = json.loads(r.read())["submission_id"]
+client = job.JobSubmissionClient()
+print(client.wait_until_finished(sid, timeout=120),
+      client.get_job_logs(sid).strip())
+print([m for m in sys.modules if m.split(".")[0] in BLOCKED])
+rt.shutdown()
+"""
+
+
+def test_cluster_services_run_without_aiohttp_psutil_or_jax(tmp_path):
+    """Tune, jobs, the dashboard head and agent, the CLI and the
+    microbenchmark import, a head with the dashboard answers over HTTP, a
+    two-trial sweep runs and a job submitted through the REST succeeds, in
+    processes (driver, GCS, raylet, dashboard, workers, the job) that
+    cannot import aiohttp, psutil, cloudpickle, pandas, requests, grpc or
+    the JAX package (shadowed on ``PYTHONPATH`` by modules that raise);
+    ``get_dataframe`` raises ImportError naming pandas."""
+    shim = tmp_path / "shim"
+    shim.mkdir()
+    for name in _SERVICES_BLOCKED:
+        (shim / f"{name}.py").write_text(
+            f"raise ImportError('{name} is blocked in this test')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    env["PYTHONPATH"] = f"{shim}{os.pathsep}{REPO}"
+    out = subprocess.run(
+        [sys.executable, "-c",
+         f"BLOCKED = {_SERVICES_BLOCKED!r}\n" + _SERVICES_SCRIPT],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[:6] == [
+        "[]", "1", "{'x': 2} [[], []]", "True", "SUCCEEDED 42", "[]"], \
+        out.stdout

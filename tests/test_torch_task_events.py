@@ -3,14 +3,13 @@
 task_event_buffer.cc -> GcsTaskManager -> `ray summary tasks`;
 trace-context propagation through the TaskSpec), and a worker's spans
 shipped to the GCS: the driver's ``get_spans()`` and the GCS timeline hold
-an actor's span.
-
-The JAX file's two tests that read the dashboard's HTTP endpoints
-(``/metrics`` and ``/api/tasks``) wait for the dashboard's port."""
+an actor's span; the always-on metrics flusher read through the
+dashboard's ``/metrics``, and its ``/api/tasks`` endpoints."""
 
 import json
 import os
 import time
+import urllib.request
 
 import pytest
 
@@ -23,7 +22,8 @@ def traced_cluster():
     ray_tpu_torch.shutdown()
     os.environ["RAY_TPU_ENABLE_TRACING"] = "1"
     tracing._enabled = None  # re-read the flag
-    worker = ray_tpu_torch.init(num_cpus=4, device="cpu")
+    worker = ray_tpu_torch.init(num_cpus=4, include_dashboard=True,
+                                device="cpu")
     yield worker
     ray_tpu_torch.shutdown()
     os.environ.pop("RAY_TPU_ENABLE_TRACING", None)
@@ -282,6 +282,67 @@ def test_actor_span_reaches_driver_spans_and_timeline(traced_cluster):
     assert events and events[0]["pid"] == pid
     assert events[0]["args"]["tag"] == "probe"
     ray_tpu_torch.kill(a)
+
+
+# ---------------------------------------------------------------------------
+# always-on metrics flusher
+# ---------------------------------------------------------------------------
+
+
+def test_metrics_autoflush_to_dashboard(traced_cluster):
+    from ray_tpu_torch.util.metrics import Counter
+
+    c = Counter("obs_autoflush_probe", "test counter")
+    c.inc(3.0)
+
+    address = traced_cluster.node_supervisor.dashboard_address
+    assert address
+
+    def _scrape():
+        with urllib.request.urlopen(f"http://{address}/metrics",
+                                    timeout=30) as r:
+            body = r.read().decode()
+        return body if "obs_autoflush_probe" in body else None
+
+    # no publish_metrics() call anywhere: the flusher loop ships it
+    body = _wait_for(_scrape, timeout=40)
+    assert body is not None, "registry never appeared in /metrics"
+    assert "obs_autoflush_probe 3.0" in body or \
+        'obs_autoflush_probe{' in body
+
+    # built-in instruments ride along: task latency histograms (tasks ran
+    # in earlier tests of this module) with proper bucket series
+    assert "ray_tpu_task_e2e_seconds" in body
+    assert "ray_tpu_task_exec_seconds_bucket" in body
+    assert 'le="+Inf"' in body
+    # raylet-side gauges are flushed by the raylet's own loop
+    assert "ray_tpu_object_store_bytes" in body
+    assert "ray_tpu_raylet_lease_queue_depth" in body
+
+
+def test_dashboard_tasks_endpoints(traced_cluster):
+    @ray_tpu_torch.remote
+    def dash_probe():
+        return 1
+
+    assert ray_tpu_torch.get(dash_probe.remote(), timeout=60) == 1
+    address = traced_cluster.node_supervisor.dashboard_address
+
+    def _tasks():
+        with urllib.request.urlopen(
+                f"http://{address}/api/tasks?name=dash_probe",
+                timeout=30) as r:
+            out = json.loads(r.read().decode())
+        return out if any(t["state"] == "FINISHED" for t in out) else None
+
+    tasks = _wait_for(_tasks)
+    assert tasks, "no FINISHED dash_probe in /api/tasks"
+    with urllib.request.urlopen(f"http://{address}/api/tasks/summary",
+                                timeout=30) as r:
+        summ = json.loads(r.read().decode())
+    probe_counts = next((v for k, v in summ["per_function"].items()
+                         if k.endswith("dash_probe")), {})
+    assert probe_counts.get("FINISHED", 0) >= 1, summ
 
 
 def test_set_enabled_override_survives_racing_env_read():

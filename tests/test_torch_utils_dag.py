@@ -1,9 +1,8 @@
-"""The port's DAG authoring and channels through the runtime, on the CPU: a
-mirror of the four DAG and channel tests of ``tests/test_utils_dag.py``
-(function graphs, a compiled actor graph read with ``get``, a seqlock
-round trip and a channel read in another process). The file's other tests
-(``ActorPool``, ``Queue``, metrics, the state API, the microbenchmarks)
-mirror utilities the port does not have yet."""
+"""The port's utilities, DAG authoring and channels through the runtime, on
+the CPU: a mirror of ``tests/test_utils_dag.py`` (``ActorPool``, ``Queue``,
+function graphs, a compiled actor graph read with ``get``, a seqlock round
+trip, a channel read in another process, metrics, the state API and the
+microbenchmark's ``timeit``), each test asserting what its twin asserts."""
 
 import time
 import uuid
@@ -98,3 +97,73 @@ def test_channel_cross_process(cluster):
     writer.write({"value": 41})
     assert ray_tpu_torch.get(ref, timeout=60) == 42
     writer.close(unlink=True)
+
+
+def test_actor_pool(cluster):
+    from ray_tpu_torch.util import ActorPool
+
+    @ray_tpu_torch.remote(num_cpus=0.5)
+    class Worker:
+        def double(self, x):
+            return x * 2
+
+    pool = ActorPool([Worker.remote() for _ in range(2)])
+    out = pool.map(lambda a, v: a.double.remote(v), list(range(8)))
+    assert sorted(out) == [i * 2 for i in range(8)]
+
+
+def test_queue(cluster):
+    from ray_tpu_torch.util import Queue
+
+    q = Queue()
+    q.put({"a": 1})
+    q.put({"a": 2})
+    assert q.qsize() == 2
+    assert q.get()["a"] == 1
+    assert not q.empty()
+    q.shutdown()
+
+
+def test_metrics(cluster):
+    from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram, scrape_metrics
+
+    c = Counter("test_requests", tag_keys=("route",))
+    c.inc(2, {"route": "/a"})
+    c.inc(3, {"route": "/a"})
+    g = Gauge("test_depth")
+    g.set(7)
+    h = Histogram("test_latency", boundaries=[1, 10])
+    h.observe(0.5)
+    h.observe(50)
+    snap = scrape_metrics()
+    assert list(snap["test_requests"]["data"].values())[0] == 5
+    assert list(snap["test_depth"]["data"].values())[0] == 7
+
+
+def test_state_api(cluster):
+    from ray_tpu_torch.util import state
+
+    @ray_tpu_torch.remote
+    class Marker:
+        def ping(self):
+            return 1
+
+    m = Marker.options(name="state_marker").remote()
+    ray_tpu_torch.get(m.ping.remote(), timeout=60)
+    actors = state.list_actors(state_filter="ALIVE")
+    assert any(a["name"] == "state_marker" for a in actors)
+    summary = state.summarize_cluster()
+    assert summary["num_nodes"] == 1
+    ray_tpu_torch.kill(m)
+
+
+def test_microbenchmark_smoke(cluster):
+    from ray_tpu_torch._private.microbenchmark import timeit
+
+    @ray_tpu_torch.remote(num_cpus=0.2)
+    def f():
+        return 1
+
+    row = timeit("smoke", lambda: (ray_tpu_torch.get(f.remote(), timeout=60), 1)[1],
+                 duration=0.5)
+    assert row["rate_per_s"] > 1
