@@ -142,32 +142,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (``ray_tpu_torch.init(num_cpus=4)``, the card as ``GPU``) with one
    ``num_gpus=1`` worker (``ScalingConfig(use_gpu=True)``) and
    ``FailureConfig(max_failures=1)``; the loop (``runtime_training_loop``,
-   sent by value) builds phase 4's 1b bundle (seed 0) on the worker's card
-   and trains on phase 4's batch for 6 steps, reporting each step's loss,
-   seconds and kernel launches (counted in the worker: the
-   ``runtime_training`` path); after step 3 a report carries a
-   ``Checkpoint`` directory of the whole 10.63 GB state; the first worker
+   sent by value) builds phase 4's 1b bundle (seed 0) at full width and 4
+   of its 16 layers on the worker's card and trains on phase 4's batch for
+   6 steps, reporting each step's loss, seconds and kernel launches
+   (counted in the worker: the ``runtime_training`` path); after step 3 a
+   report carries a ``Checkpoint`` directory of the whole 3.84 GB state
+   (the phase's host seconds scale with its bytes); the first worker
    ``os._exit``s after step 4 once that checkpoint is committed, the
    controller re-forms the group in a fresh process that resumes from step
    3. Checks: one re-form (the controller's goodput ``reforms``), two pids,
    each worker's ``CUDA_VISIBLE_DEVICES`` a card, the card at least 90 %
-   free as the second worker starts, step 1's loss equal to phase 4's and
-   every step within CKPT_LOSS_RTOL of it, the kernels' launches a step as
-   phase 4's in each incarnation; a ``runtime training metrics:`` line
-   (time to the first report, each group's formation, the worker's median
-   step beside phase 4's, the report's round trip, the checkpointed
+   free as the second worker starts, step 1's loss equal to the same 6
+   steps' at the same depth in the driver (``cut_training_reference``) and
+   every step within CKPT_LOSS_RTOL of it, the kernels' launches a step
+   those of 4 layers in each incarnation; a ``runtime training metrics:``
+   line (time to the first report, each group's formation, the worker's
+   median step beside the reference's, the report's round trip, the checkpointed
    report's pause and the commit, the controller's ``reform_downtime``,
    the restore and host-to-device seconds, the whole fit);
 17. serve and weights: a new port cluster whose object store is sized
    from ``/dev/shm`` (the version spills to disk where it does not fit), a
    detached ``WeightStore``, the HTTP proxy, and ``build_openai_app`` of
-   the 1b at full width and depth (seed 0, the default ``EngineConfig``)
-   on two replicas of ``num_gpus=0.5`` each, bound to shares of the one
-   card; phase 9's 12 greedy requests over HTTP, one at a time, 32 new
-   tokens each, equal token for token (ids, text and finish reason) to an
-   in-process ``LLMServer`` answering them the same way; then 4 client
-   threads keep sending requests while the driver publishes seed-1 weights
-   as version 1 (``WeightStore.publish``, 3.54 GB of fp32) and
+   the 1b at full width and 4 of its 16 layers (seed 0, the default
+   ``EngineConfig``) on two replicas of ``num_gpus=0.5`` each, bound to
+   shares of the one card; phase 9's 12 greedy requests over HTTP, one at
+   a time, 32 new tokens each, equal token for token (ids, text and finish
+   reason) to an in-process ``LLMServer`` at the same depth answering them
+   the same way; then 4 client threads keep sending requests while the
+   driver publishes seed-1 weights as version 1 (``WeightStore.publish``,
+   1.28 GB of fp32) and
    ``handle.broadcast("update_weights", ...)`` makes each replica pull
    them, build its compute copies on the card and swap them in between
    steps: both acknowledge version 1, no request fails and more than 20
@@ -184,8 +187,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    worker, the default ``EngineConfig``) with one prefill and one decode
    worker of ``num_gpus=0.5`` each; a prefill reply seen by the driver is
    a ``DeviceObjectMarker``; phase 9's 12 greedy prompts, one at a time,
-   32 new tokens each, equal token for token to phase 17's in-process
-   serving, each request's KV pulled once by the decode worker from the
+   32 new tokens each, equal token for token to an in-process
+   ``LLMServer`` of the whole 1b answering them one at a time
+   (``in_process_answers``), each request's KV pulled once by the decode worker from the
    prefill worker; the prefill worker's ``flash_fwd`` launches above 0 and
    the decode worker's 0 (the ``pd`` path); then ``build_llm_processor``
    of the 1b over ``from_items`` of the same prompts in 3 blocks: 12 rows
@@ -200,7 +204,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 19. runtime faults: a new port cluster with tracing on in every process;
    a ``num_gpus=1`` actor of the 1b at full width and depth (seed 0) with
    ``max_restarts=1`` answers phase 9's 12 greedy prompts at once, 32
-   tokens each, token for token as phase 17's in-process serving; killed
+   tokens each, token for token as phase 18's in-process serving; killed
    with ``kill(actor, no_restart=False)``, it comes back on a detected
    card once the old worker has exited and answers again the same way,
    its ``flash_fwd`` launches above 0 (the ``runtime_restart`` path); one
@@ -284,7 +288,38 @@ Phases, each of which raises (and so exits non-zero) on failure:
    comes back; a ``cluster services metrics:`` line (head ready s,
    submit-to-``RUNNING`` s, each trial's worker-ready s, steps, losses and
    peak memory, the sweep's wall, the endpoints' and the CLI's seconds, the
-   microbenchmark's rates).
+   microbenchmark's rates);
+23. autoscaler and client (the ``autoscaled_serving`` path): a host
+   process (``AUTOSCALE_HOST``) starts a port ``cluster_utils.Cluster``
+   whose head advertises ``{"CPU": 4, "GPU": 0}``, an ``Autoscaler`` over
+   ``FakeMultiNodeProvider`` with one node type ``gpu_worker`` of ``{"CPU":
+   2, "GPU": 1}`` (at most one node: a second would bind the same card),
+   idle timeout 5 s, polled every 0.5 s, and ``start_client_server``; this
+   process reaches it only through ``ray_tpu_torch.init(address=
+   "ray-tpu://...")``: a ``util.multiprocessing.Pool`` maps phase 9's 12
+   prompts through the port's tokenizer as CPU tasks, every id list equal
+   to the driver's own; a ``num_gpus=1`` actor (``RuntimeServer``, sent by
+   value from the client) pends until the autoscaler launches exactly one
+   ``gpu_worker``, builds phase 9's 1b ``LLMServer`` at full width and
+   depth there on the card and answers phase 9's 12 greedy requests in one
+   call, token for token as phase 9 did, its ``flash_fwd`` launches
+   (counted in the actor) equal to phase 9's; ``nodes()`` seen from the
+   client shows the new node's ``GPU: 1.0`` and its ``ray.io/node-type``;
+   once the actor is killed the autoscaler drains and terminates the idle
+   node, the provider holds none, only the head is alive and the card's
+   used memory (``nvidia-smi``) comes back within 1 GiB; an ``autoscaler
+   client metrics:`` line (connect s, the Pool map's s, creation to launch,
+   to registration and to a ready actor, the requests' wall and decode
+   tokens/s beside phase 9's, kill to termination, the actor's peak
+   memory, the card); every process the phase started is gone within
+   ``AUTOSCALE_GONE_S`` of the host's exit (the terminated node's raylet
+   is killed, so its forked workers exit only once they find it gone;
+   ``processes_gone_s``).
+
+Every process the script starts inherits ``CHIP_SMOKE_RUN`` in its
+environment. At the end, passed or failed, the script waits for those
+still alive and kills any left after ``STRAGGLER_GRACE_S`` (named on
+standard error), so it leaves no process running.
 
 Delta's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
@@ -428,10 +463,78 @@ TRAIN_STEPS, TRAIN_WARMUP = 7, 2  # steps on one batch; the first 2 untimed
 VIT_CONFIG, VIT_BATCH, VIT_STEPS = "vit-b16-224", 64, 30
 PROMPT_LENS = (20, 100, 300, 700, 1200, 1900) * 2
 OUT_DIR = "chiprun_out"  # long reports (the profiler's table) go here
+# Every process the script starts inherits RUN_MARK=<this run's token>;
+# a phase's own processes RUN_MARK=<token>/<path>.
+RUN_MARK = "CHIP_SMOKE_RUN"
+STRAGGLER_GRACE_S = 30.0  # at the end, before the script kills what is left
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def started_processes(mark: str) -> list:
+    """``(pid, command line)`` of every live process, this one excepted,
+    whose environment holds ``RUN_MARK`` at ``mark`` or below it: what the
+    script (or one of its phases) started, orphans included."""
+    needle = f"{RUN_MARK}={mark}".encode()
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat", "rb") as f:
+                if f.read().rsplit(b")", 1)[1].split()[0] == b"Z":
+                    continue
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+            if not any(v == needle or v.startswith(needle + b"/")
+                       for v in env):
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except (OSError, IndexError):
+            continue  # exited meanwhile, or not ours to read
+        found.append((int(entry), cmd))
+    return found
+
+
+def wait_started_processes(mark: str, timeout_s: float) -> list:
+    """Wait up to ``timeout_s`` for every process under ``mark`` to exit;
+    returns those left."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        left = started_processes(mark)
+        if not left or time.perf_counter() > deadline:
+            return left
+        time.sleep(0.2)
+
+
+def stop_started_processes() -> None:
+    """At the script's end: wait for every process it started, then kill
+    any left. Named on standard error, so the last line of standard output
+    stays the result."""
+    import signal
+
+    mark = os.environ.get(RUN_MARK)
+    if not mark:
+        return
+    left = wait_started_processes(mark, STRAGGLER_GRACE_S)
+    if not left:
+        return
+    print(f"chip_smoke: {len(left)} processes still running "
+          f"{STRAGGLER_GRACE_S:.0f} s after the end, killed: {left}",
+          file=sys.stderr, flush=True)
+    for pid, _ in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    left = wait_started_processes(mark, 10.0)
+    if left:
+        print(f"chip_smoke: still running after SIGKILL: {left}",
+              file=sys.stderr, flush=True)
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1787,7 +1890,8 @@ def phase_serving(card: str) -> dict:
     log("serving metrics: " + json.dumps(serving))
     return {"launches": launches, "prompts": prompts,
             "token_ids": [res["token_ids"] for res, _ in answered],
-            "decode_tokens_per_s": serving["decode_tokens_per_s"]}
+            "decode_tokens_per_s": serving["decode_tokens_per_s"],
+            "wall_s": wall}
 
 
 def check_prefill_logits(engine, prompts) -> None:
@@ -3984,7 +4088,9 @@ class RuntimeServer:
         return {"token_ids": [res["token_ids"] for res in answered],
                 "launches": launches, "wall_s": wall, "metrics": metrics,
                 "decode_tokens_per_s":
-                    metrics["decode_tokens"] / metrics["decode_s"]}
+                    metrics["decode_tokens"] / metrics["decode_s"],
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated()}
 
 
 def percentile(values, q: float) -> float:
@@ -4134,6 +4240,7 @@ class RuntimeProbe:
 
 
 RT_TRAIN_STEPS, RT_TRAIN_CKPT_AFTER, RT_TRAIN_CRASH_AFTER = 6, 3, 4
+RT_TRAIN_LAYERS = 4  # of the 1b's 16: the checkpoint's bytes set the time
 RT_TRAIN_FREE_SHARE = 0.9  # of the card's memory free as a worker starts
 RT_TRAIN_FLUSH_S = "1"  # the runtime's metrics and goodput flush, seconds
 
@@ -4141,9 +4248,9 @@ RT_TRAIN_FLUSH_S = "1"  # the runtime's metrics and goodput flush, seconds
 def runtime_training_loop(config):
     """Phase 16's train loop, run by ``TorchTrainer`` in a worker that
     holds the card. It crosses to the worker by value, so it imports what it
-    uses and takes everything else from ``config``: phase 4's 1b bundle
-    (full width and depth, ``init(seed)``, phase 4's optimizer) on phase
-    4's batch; ``config["steps"]`` steps, each reported with its loss,
+    uses and takes everything else from ``config``: phase 4's 1b bundle at
+    full width and ``config["n_layers"]`` of its layers (``init(seed)``,
+    phase 4's optimizer) on phase 4's batch; ``config["steps"]`` steps, each reported with its loss,
     seconds and the kernels' launches in this process so far (counted from
     0 at the loop's start) and logged to ``config["log"]``; after step
     ``ckpt_after`` a report with a ``Checkpoint`` directory holding the
@@ -4151,6 +4258,7 @@ def runtime_training_loop(config):
     the first incarnation, ``os._exit(1)`` after step ``crash_after`` once
     that checkpoint's manifest is committed. A resumed incarnation loads
     the state from ``get_checkpoint()`` and takes the remaining steps."""
+    import dataclasses
     import json
     import os
     import shutil
@@ -4191,7 +4299,8 @@ def runtime_training_loop(config):
             "kernel_libs_s": time.perf_counter() - t,
             "kernel_nvcc_s": sum(b.seconds for b in built.values()),
             "group_formation": dict(getattr(ctx, "group_formation", {}))}
-    cfg = CONFIGS[config["model"]]
+    cfg = dataclasses.replace(CONFIGS[config["model"]],
+                              n_layers=config["n_layers"])
     t = time.perf_counter()
     bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
         learning_rate=config["learning_rate"],
@@ -4291,13 +4400,47 @@ def cluster_goodput(job: str) -> dict:
     return jobs.get(job, {})
 
 
+def cut_training_reference(layers: int, steps: int) -> dict:
+    """Phase 4's run (seed 0, batch seed 0, lr 1e-4 with a warm-up of 1) at
+    full width and ``layers`` of the 1b's layers, in this process: the
+    reference of a phase that trains the cut 1b elsewhere. Its losses by
+    step and its median step after the first."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import CONFIGS
+    from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
+
+    cfg = dataclasses.replace(CONFIGS[TRAIN_CONFIG], n_layers=layers)
+    bundle = TrainStepBundle(cfg, device="cuda", optimizer=make_optimizer(
+        learning_rate=1e-4, warmup_steps=1))
+    params, opt_state = bundle.init(seed=0)
+    batch = bundle.make_batch(np.random.default_rng(0), TRAIN_BATCH,
+                              TRAIN_SEQ)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt_state, loss = bundle.step(params, opt_state, batch)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t)
+    del bundle, params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest = sorted(times[1:])
+    return {"loss": losses, "step_s_median": rest[len(rest) // 2]}
+
+
 def phase_runtime_training(card: str, training: dict) -> dict:
     """Phase 16: ``TorchTrainer.fit()`` on the port's runtime trains the 1b
-    at full width and depth in one ``num_gpus=1`` worker (the
-    ``runtime_training`` path): the worker dies after step 4, the controller
-    re-forms the group in a fresh process, which resumes from the checkpoint
-    of step 3. Held against phase 4's uninterrupted steps (``training``:
-    its losses and median step)."""
+    at full width and RT_TRAIN_LAYERS of its layers in one ``num_gpus=1``
+    worker (the ``runtime_training`` path): the worker dies after step 4,
+    the controller re-forms the group in a fresh process, which resumes
+    from the checkpoint of step 3. Held against the same steps at the same
+    depth uninterrupted in this process (``cut_training_reference``);
+    phase 4's full-depth median step (``training``) is logged beside."""
     import gc
     import shutil
     import tempfile
@@ -4310,17 +4453,22 @@ def phase_runtime_training(card: str, training: dict) -> dict:
                                      TorchTrainer)
     from ray_tpu_torch.util.accelerators import detect_gpu_ids
 
-    cfg = CONFIGS[TRAIN_CONFIG]
+    cfg = dataclasses.replace(CONFIGS[TRAIN_CONFIG], n_layers=RT_TRAIN_LAYERS)
     state_bytes = 3 * 4 * cfg.num_params()
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reference = cut_training_reference(RT_TRAIN_LAYERS, RT_TRAIN_STEPS)
+    reference_s = time.perf_counter() - t0
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     free = shutil.disk_usage(root).free
     # the checkpoint's directory, the store's chunks and the directory the
     # controller materializes at the restart
     need = int(3.1 * state_bytes)
-    metrics = {"card": card, "config": TRAIN_CONFIG, "batch": TRAIN_BATCH,
+    metrics = {"card": card, "config": TRAIN_CONFIG,
+               "n_layers": RT_TRAIN_LAYERS, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "state_bytes": state_bytes,
+               "reference_s": reference_s,
                "disk_free_bytes": free,
                "driver_allocated_bytes": torch.cuda.memory_allocated()}
     saved_env = os.environ.get("RAY_TPU_METRICS_FLUSH_INTERVAL_S")
@@ -4337,7 +4485,8 @@ def phase_runtime_training(card: str, training: dict) -> dict:
             trainer = TorchTrainer(
                 runtime_training_loop,
                 train_loop_config={
-                    "model": TRAIN_CONFIG, "seed": 0, "batch_seed": 0,
+                    "model": TRAIN_CONFIG, "n_layers": RT_TRAIN_LAYERS,
+                    "seed": 0, "batch_seed": 0,
                     "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
                     "learning_rate": 1e-4, "warmup_steps": 1,
                     "steps": RT_TRAIN_STEPS,
@@ -4393,18 +4542,19 @@ def phase_runtime_training(card: str, training: dict) -> dict:
     if share < RT_TRAIN_FREE_SHARE:
         raise AssertionError(f"the second worker found {share:.3f} of the "
                              "card free: the first one's memory was held")
-    want = training["loss"][:RT_TRAIN_STEPS]
+    want = reference["loss"]
     losses = {r["step"]: [] for r in rows}
     for r in rows:
         losses[r["step"]].append(r["loss"])
     if first[0]["loss"] != want[0]:
-        raise AssertionError(f"step 1's loss {first[0]['loss']} is not phase "
-                             f"4's {want[0]}")
+        raise AssertionError(f"step 1's loss {first[0]['loss']} is not the "
+                             f"same-depth reference's {want[0]}")
     worst = max(abs(r["loss"] - want[r["step"] - 1]) / abs(want[r["step"] - 1])
                 for r in rows)
     if not worst <= CKPT_LOSS_RTOL:
-        raise AssertionError(f"losses {losses} part from phase 4's {want} by "
-                             f"{worst} (relative), beyond {CKPT_LOSS_RTOL}")
+        raise AssertionError(f"losses {losses} part from the same-depth "
+                             f"reference's {want} by {worst} (relative), "
+                             f"beyond {CKPT_LOSS_RTOL}")
     per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
                 "attention_delta": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
@@ -4426,7 +4576,8 @@ def phase_runtime_training(card: str, training: dict) -> dict:
     ckpt_row = next(r for r in first if "ckpt_report_s" in r)
     crash_row = first[-1]
     metrics.update({
-        "losses": losses, "phase4_losses": want, "max_rel_loss_err": worst,
+        "losses": losses, "reference_losses": want,
+        "max_rel_loss_err": worst,
         "loss_rtol": CKPT_LOSS_RTOL,
         "fit_to_first_report_s": first[0]["reported_at"] - fit_at,
         "fit_to_loop_start_s": first[0]["started_at"] - fit_at,
@@ -4443,6 +4594,7 @@ def phase_runtime_training(card: str, training: dict) -> dict:
         "step_s_median": median([r["step_s"] for inc in (first, second)
                                  for r in inc[1:]]),
         "step_s": [r["step_s"] for r in rows],
+        "reference_step_s_median": reference["step_s_median"],
         "phase4_step_s_median": training["step_s_median"],
         "report_rtt_s_median": median([r["report_s"] for r in rows
                                        if "report_s" in r]),
@@ -4466,7 +4618,8 @@ def phase_runtime_training(card: str, training: dict) -> dict:
         "goodput_buckets": ledger.get("buckets")})
     log(f"runtime training: fit {metrics['fit_s']:.2f} s, one re-form "
         f"(pids {pids}), resumed from step {RT_TRAIN_CKPT_AFTER}; losses "
-        f"within {worst:.3g} of phase 4's; launches {launches} [{card}]")
+        f"within {worst:.3g} of the {RT_TRAIN_LAYERS}-layer reference's; "
+        f"launches {launches} [{card}]")
     log("runtime training metrics: " + json.dumps(metrics))
     return launches
 
@@ -4482,6 +4635,7 @@ SERVE_STORE_MAX = 16 << 30  # the object store: at most this, or half of
 #                             /dev/shm's free bytes
 SERVE_TIMEOUT_S = 600.0  # each cluster call's and HTTP request's
 SERVE_AFTER_ACK_S = 3.0  # the clients go on this long after the acks
+SERVE_LAYERS = 4  # of the 1b's 16: the version's bytes set the swap's time
 
 
 def shm_bytes() -> dict:
@@ -4511,28 +4665,38 @@ def http_complete(port: int, name: str, prompt: str, max_tokens: int
             "latency_s": time.perf_counter() - t0}
 
 
-_IN_PROCESS = {}  # (seed, prompts) -> in_process_answers' answers
+_IN_PROCESS = {}  # (seed, prompts, layers) -> in_process_answers' answers
 
 
-def in_process_answers(seed: int, prompts) -> list:
-    """Phase 17's reference: an ``LLMServer`` in this process on the card
-    (the 1b, weights from ``seed``) answering the prompts one at a time,
+def in_process_answers(seed: int, prompts, n_layers: int = 0) -> list:
+    """The reference of phases 17 to 19: an ``LLMServer`` in this process on
+    the card (the 1b at full width, at ``n_layers`` of its layers where
+    given, weights from ``seed``) answering the prompts one at a time,
     after one warm-up round, as the HTTP rounds send them. Kept for the
     later phases that hold their answers to the same reference."""
-    key = (seed, tuple(prompts))
+    key = (seed, tuple(prompts), n_layers)
     if key not in _IN_PROCESS:
-        _IN_PROCESS[key] = _in_process_answers(seed, prompts)
+        _IN_PROCESS[key] = _in_process_answers(seed, prompts, n_layers)
     return _IN_PROCESS[key]
 
 
-def _in_process_answers(seed: int, prompts) -> list:
+def llm_config(n_layers: int = 0, **kwargs):
+    """The 1b's ``LLMConfig``, cut to ``n_layers`` of its layers where
+    given."""
+    from ray_tpu_torch.llm import LLMConfig
+
+    overrides = {"n_layers": n_layers} if n_layers else {}
+    return LLMConfig(model_id="1b", model_overrides=overrides, **kwargs)
+
+
+def _in_process_answers(seed: int, prompts, n_layers: int) -> list:
     import gc
 
     import torch
 
-    from ray_tpu_torch.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.llm import LLMServer
 
-    server = LLMServer(LLMConfig(model_id="1b"), seed=seed, device="cuda")
+    server = LLMServer(llm_config(n_layers), seed=seed, device="cuda")
 
     async def one(prompt, max_tokens):
         return await server.completions(prompt, max_tokens=max_tokens)
@@ -4560,7 +4724,9 @@ def check_answers(label: str, got: list, want: list) -> None:
 
 
 def phase_serve_weights(card: str, serving: dict) -> dict:
-    """Phase 17: Serve and the weight plane on the port's runtime."""
+    """Phase 17: Serve and the weight plane on the port's runtime, the 1b
+    at full width and SERVE_LAYERS of its layers, held against in-process
+    serving at the same depth."""
     import gc
     import threading
 
@@ -4568,23 +4734,23 @@ def phase_serve_weights(card: str, serving: dict) -> dict:
 
     import ray_tpu_torch as rt
     from ray_tpu_torch import serve
-    from ray_tpu_torch.llm import LLMConfig, build_openai_app
+    from ray_tpu_torch.llm import build_openai_app
     from ray_tpu_torch.models.convert import init_params
     from ray_tpu_torch.weights import WeightStore
 
     gc.collect()
     torch.cuda.empty_cache()
     prompts = serving["prompts"]
-    metrics = {"card": card}
+    metrics = {"card": card, "n_layers": SERVE_LAYERS}
     t0 = time.perf_counter()
-    want0 = in_process_answers(0, prompts)
-    want1 = in_process_answers(1, prompts)
+    want0 = in_process_answers(0, prompts, SERVE_LAYERS)
+    want1 = in_process_answers(1, prompts, SERVE_LAYERS)
     if [w["token_ids"] for w in want0] == [w["token_ids"] for w in want1]:
         raise AssertionError("seeds 0 and 1 answer alike: the swap would "
                              "not show")
     metrics["in_process_rounds_s"] = time.perf_counter() - t0
-    cfg = LLMConfig(model_id="1b", num_replicas=SERVE_REPLICAS,
-                    ray_actor_options={"num_gpus": SERVE_GPU_SHARE})
+    cfg = llm_config(SERVE_LAYERS, num_replicas=SERVE_REPLICAS,
+                     ray_actor_options={"num_gpus": SERVE_GPU_SHARE})
     # the version to publish: seed 1's fp32 weights, drawn on the card as
     # in-process serving draws them, then on the host
     t0 = time.perf_counter()
@@ -6492,6 +6658,311 @@ def phase_cluster_services(card: str, training: dict) -> dict:
     return launches
 
 
+AUTOSCALE_TIMEOUT_S = 600.0  # each client call's, and the host's start
+AUTOSCALE_IDLE_S = 5.0  # gpu_worker's idle_timeout_s
+AUTOSCALE_INTERVAL_S = 0.5  # the autoscaler's poll
+AUTOSCALE_MEMORY_SLACK = 1 << 30  # card memory the phase may leave held
+AUTOSCALE_EVENT = "autoscaler event: "
+# the phase's processes' exit after the host's: the terminated node's
+# forked workers poll for its raylet for several seconds before they exit
+AUTOSCALE_GONE_S = 60.0
+# Phase 23's host process: a port cluster whose head has no card, the
+# autoscaler over the fake multi-node provider (one node type holding the
+# card, at most one node: a second would bind the same card), and the
+# client proxy. It prints one AUTOSCALE_EVENT line (JSON, with the host's
+# time.time()) for each provider call and each node's registration, and
+# stops its autoscaler, driver and cluster on SIGTERM.
+AUTOSCALE_HOST = r"""
+import json
+import signal
+import sys
+import threading
+import time
+
+import ray_tpu_torch
+from ray_tpu_torch.autoscaler import (Autoscaler, ClusterConfig,
+                                      FakeMultiNodeProvider, NodeTypeConfig)
+from ray_tpu_torch.autoscaler.autoscaler import PROVIDER_ID_LABEL
+from ray_tpu_torch.cluster_utils import Cluster
+from ray_tpu_torch.util.client import start_client_server
+
+CFG = json.loads(sys.argv[1])
+
+
+def event(kind, **fields):
+    print("%s%s" % (CFG["prefix"], json.dumps(
+        {"event": kind, "t": time.time(), **fields})), flush=True)
+
+
+class Provider(FakeMultiNodeProvider):
+    def create_nodes(self, node_type, count):
+        event("launch", node_type=node_type.name, count=count)
+        nodes = super().create_nodes(node_type, count)
+        event("launched", nodes=[n.node_id for n in nodes])
+        return nodes
+
+    def terminate_node(self, node):
+        event("terminate", node=node.node_id)
+        super().terminate_node(node)
+        event("terminated", node=node.node_id,
+              non_terminated=len(self.non_terminated_nodes()))
+
+
+def watch(provider, stop):
+    seen = set()
+    while not stop.is_set():
+        alive = {n["labels"].get(PROVIDER_ID_LABEL) for n in
+                 ray_tpu_torch.nodes() if n["alive"]}
+        for node in provider.non_terminated_nodes():
+            if node.node_id in alive and node.node_id not in seen:
+                seen.add(node.node_id)
+                event("registered", node=node.node_id)
+        stop.wait(0.1)
+
+
+def sigterm(*_):
+    raise KeyboardInterrupt
+
+
+signal.signal(signal.SIGTERM, sigterm)
+cluster = Cluster(head_node_args={"resources": {"CPU": 4.0, "GPU": 0.0}})
+stop = threading.Event()
+scaler = None
+try:
+    ray_tpu_torch.init(address=cluster.address)
+    provider = Provider(cluster)
+    config = ClusterConfig(node_types={"gpu_worker": NodeTypeConfig(
+        "gpu_worker", {"CPU": 2.0, "GPU": 1.0}, min_workers=0,
+        max_workers=1)}, idle_timeout_s=CFG["idle_timeout_s"])
+    scaler = Autoscaler(config, provider, cluster.address)
+    scaler.start(interval_s=CFG["interval_s"])
+    threading.Thread(target=watch, args=(provider, stop),
+                     daemon=True).start()
+    start_client_server(port=0, host="127.0.0.1")
+except KeyboardInterrupt:
+    pass
+finally:
+    stop.set()
+    if scaler is not None:
+        scaler.stop()
+    ray_tpu_torch.shutdown()
+    cluster.shutdown()
+    event("stopped")
+"""
+
+
+def encode_prompt(prompt: str) -> list:
+    """Phase 23's Pool work item: a prompt's ids under the port's tokenizer
+    (phase 9's engine default, ``byte``)."""
+    from ray_tpu_torch.llm.tokenizer import get_tokenizer
+
+    return get_tokenizer("byte").encode(prompt)
+
+
+def card_memory_used() -> int:
+    """Bytes in use on card 0, every process's, as ``nvidia-smi`` reads
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,"
+         "nounits", "--id=0"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+    return int(out.splitlines()[0]) << 20
+
+
+def phase_autoscaled_serving(card: str, serving: dict) -> dict:
+    """Phase 23: a driver outside the cluster, through a ``ray-tpu://``
+    client only, maps phase 9's prompts through a ``Pool`` and asks for a
+    ``num_gpus=1`` actor that the card-less head cannot place; the
+    autoscaler adds the node that holds the card, the actor serves phase
+    9's requests there, and once it is killed the idle node goes. Returns
+    the actor's kernel launches (the ``autoscaled_serving`` path)."""
+    import gc
+    import threading
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.multiprocessing import Pool
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    used_before = card_memory_used()
+    metrics = {"card": card, "card_used_bytes_before": used_before,
+               "idle_timeout_s": AUTOSCALE_IDLE_S,
+               "interval_s": AUTOSCALE_INTERVAL_S}
+    mark = f"{os.environ.get(RUN_MARK, os.getpid())}/autoscaled_serving"
+    host = subprocess.Popen(
+        [sys.executable, "-c", AUTOSCALE_HOST, json.dumps({
+            "prefix": AUTOSCALE_EVENT, "idle_timeout_s": AUTOSCALE_IDLE_S,
+            "interval_s": AUTOSCALE_INTERVAL_S})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, RUN_MARK: mark})
+    lines, events = [], []
+    listening = threading.Event()
+
+    def read():
+        for line in host.stdout:
+            lines.append(line)
+            if line.startswith(AUTOSCALE_EVENT):
+                events.append(json.loads(line[len(AUTOSCALE_EVENT):]))
+            elif "listening on" in line:
+                listening.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+
+    def wait_event(kind: str, timeout: float) -> dict:
+        deadline = time.perf_counter() + timeout
+        while True:
+            found = [e for e in events if e["event"] == kind]
+            if found:
+                return found[0]
+            if host.poll() is not None or time.perf_counter() > deadline:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"no {kind!r} event from the host; its output: "
+                             + "".join(lines)[-3000:])
+
+    connected = False
+    try:
+        if not listening.wait(AUTOSCALE_TIMEOUT_S):
+            raise AssertionError("the host never served clients: "
+                                 + "".join(lines)[-3000:])
+        metrics["host_ready_s"] = time.perf_counter() - phase_t0
+        address = "ray-tpu://" + next(
+            ln for ln in lines if "listening on" in ln).strip().rsplit(
+                " ", 1)[1]
+        t0 = time.perf_counter()
+        rt.init(address=address)
+        connected = True
+        metrics["connect_s"] = time.perf_counter() - t0
+        if rt.cluster_resources().get("GPU", 0.0) != 0.0:
+            raise AssertionError(f"the head advertises "
+                                 f"{rt.cluster_resources()}: want no GPU")
+
+        # (a) a Pool over CPU tasks, through the proxy
+        prompts = serving["prompts"]
+        want_ids = [encode_prompt(p) for p in prompts]
+        t0 = time.perf_counter()
+        with Pool() as pool:
+            got_ids = pool.map(encode_prompt, prompts)
+        metrics["pool_map_s"] = time.perf_counter() - t0
+        if got_ids != want_ids:
+            raise AssertionError("the Pool's encodings part from the "
+                                 "driver's own")
+        log(f"autoscaler client: connected in {metrics['connect_s']:.3f} s; "
+            f"a Pool mapped {len(prompts)} prompts in "
+            f"{metrics['pool_map_s']:.2f} s, every id list equal")
+
+        # (b) the actor the head cannot place: the autoscaler adds the node
+        server_cls = rt.remote(num_gpus=1)(RuntimeServer)
+        created_at = time.time()
+        t0 = time.perf_counter()
+        server = server_cls.remote()
+        rt.get(server.ready.remote(), timeout=AUTOSCALE_TIMEOUT_S)
+        metrics["create_to_ready_s"] = time.perf_counter() - t0
+        launch = wait_event("launch", 5)
+        metrics["create_to_launch_s"] = launch["t"] - created_at
+        metrics["create_to_registered_s"] = \
+            wait_event("registered", 5)["t"] - created_at
+        launches = [e for e in events if e["event"] == "launch"]
+        if [(e["node_type"], e["count"]) for e in launches] != \
+                [("gpu_worker", 1)]:
+            raise AssertionError(f"the autoscaler launched {launches}")
+        nodes = [n for n in rt.nodes() if n["alive"]]
+        added = [n for n in nodes
+                 if n["labels"].get("ray.io/node-type") == "gpu_worker"]
+        if len(nodes) != 2 or len(added) != 1 or \
+                added[0]["total_resources"].get("GPU") != 1.0:
+            raise AssertionError(f"the client sees nodes {nodes}")
+        bound = rt.get(server.cards.remote(), timeout=AUTOSCALE_TIMEOUT_S)
+        log(f"autoscaler client: gpu_worker launched "
+            f"{metrics['create_to_launch_s']:.2f} s after the actor's "
+            f"creation, registered at "
+            f"{metrics['create_to_registered_s']:.2f} s, the actor ready at "
+            f"{metrics['create_to_ready_s']:.2f} s on card {bound!r}")
+
+        out = rt.get(server.serve.remote(prompts),
+                     timeout=AUTOSCALE_TIMEOUT_S)
+        if out["token_ids"] != serving["token_ids"]:
+            differ = [i for i, (a, b) in enumerate(zip(
+                out["token_ids"], serving["token_ids"])) if a != b]
+            raise AssertionError(f"the autoscaled actor's greedy answers "
+                                 f"{differ} part from the serving phase's")
+        if out["launches"]["flash_attention_fwd"] != serving["launches"]:
+            raise AssertionError(
+                f"flash_fwd launched {out['launches']['flash_attention_fwd']}"
+                f" times in the actor, {serving['launches']} in the serving "
+                f"phase")
+        metrics.update(
+            serve_wall_s=out["wall_s"],
+            decode_tokens_per_s=out["decode_tokens_per_s"],
+            in_process_decode_tokens_per_s=serving["decode_tokens_per_s"],
+            in_process_wall_s=serving["wall_s"],
+            actor_max_memory_allocated_bytes=out[
+                "max_memory_allocated_bytes"],
+            flash_fwd_launches=out["launches"]["flash_attention_fwd"],
+            cuda_visible_devices=bound)
+        log(f"autoscaler client: {len(out['token_ids'])} answers equal the "
+            f"serving phase's token for token; flash_fwd launches "
+            f"{out['launches']['flash_attention_fwd']}")
+
+        # (c) the idle node goes
+        killed_at = time.time()
+        rt.kill(server)
+        gone = wait_event("terminated", AUTOSCALE_IDLE_S + 60)
+        metrics["kill_to_terminated_s"] = gone["t"] - killed_at
+        if gone["non_terminated"] != 0:
+            raise AssertionError(f"the provider still holds "
+                                 f"{gone['non_terminated']} nodes")
+        alive = [n for n in rt.nodes() if n["alive"]]
+        if len(alive) != 1 or not alive[0]["is_head"]:
+            raise AssertionError(f"alive after the scale-down: {alive}")
+    finally:
+        if connected:
+            rt.shutdown()
+        t0 = time.perf_counter()
+        host.terminate()
+        try:
+            code = host.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            host.kill()
+            code = host.wait(timeout=60)
+        reader.join(timeout=10)
+        metrics["host_stop_s"] = time.perf_counter() - t0
+        # the host's cluster is gone; the workers of the node it terminated
+        # exit once they find its raylet gone
+        t0 = time.perf_counter()
+        left = wait_started_processes(mark, AUTOSCALE_GONE_S)
+        metrics["processes_gone_s"] = time.perf_counter() - t0
+    if code != 0 or not any(e["event"] == "stopped" for e in events):
+        raise AssertionError(f"the host exited {code}: "
+                             + "".join(lines)[-3000:])
+    if left:
+        raise AssertionError(f"{len(left)} of the phase's processes still "
+                             f"run {AUTOSCALE_GONE_S:.0f} s after the "
+                             f"host's exit: {left}")
+    deadline = time.perf_counter() + 60
+    while True:
+        used = card_memory_used()
+        if used <= used_before + AUTOSCALE_MEMORY_SLACK:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{used} bytes used on the card after the "
+                                 f"phase, {used_before} before")
+        time.sleep(0.5)
+    metrics.update(card_used_bytes_after=used,
+                   phase_s=time.perf_counter() - phase_t0)
+    log(f"autoscaler client: the idle node terminated "
+        f"{metrics['kill_to_terminated_s']:.2f} s after the kill; only the "
+        f"head alive; the card's used memory back to {used >> 20} MiB "
+        f"(before {used_before >> 20} MiB); every process of the phase gone "
+        f"{metrics['processes_gone_s']:.2f} s after the host's exit [{card}]")
+    log("autoscaler client metrics: " + json.dumps(metrics))
+    return out["launches"]
+
+
 def rel_distance(got, want) -> float:
     """The largest ``|got - want| / |want|`` over the steps."""
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -6556,6 +7027,9 @@ def main() -> int:
     timed("rl", phase_rl, card)
     paths["tune"] = timed("cluster services and tune",
                           phase_cluster_services, card, training)
+    paths["autoscaled_serving"] = timed("autoscaler and client",
+                                        phase_autoscaled_serving, card,
+                                        serving)
     log("phase seconds: " + json.dumps(seconds))
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
@@ -6603,4 +7077,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
+    try:
+        code = main()
+    finally:
+        stop_started_processes()
+    sys.exit(code)

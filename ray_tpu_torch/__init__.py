@@ -55,10 +55,10 @@ from ray_tpu_torch.object_ref import ObjectRef
 from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch import exceptions
 
-_SUBMODULES = ("ckpt", "cluster_utils", "collective", "dashboard", "data",
-               "experimental", "job", "llm", "models", "ops", "parallel",
-               "rl", "scripts", "serve", "train", "tune", "util", "utils",
-               "weights")
+_SUBMODULES = ("autoscaler", "ckpt", "cluster_utils", "collective",
+               "dashboard", "data", "experimental", "job", "llm", "models",
+               "ops", "parallel", "rl", "scripts", "serve", "train", "tune",
+               "util", "utils", "weights")
 
 
 def __getattr__(name):

@@ -187,7 +187,6 @@ _NOT_PORTED = {
     "device channels":
         "queue 1 item 3, device channels and the XLA reshard tier "
         "(ray_tpu/dag/device_channel.py:IciTransfer)",
-    "client mode": "queue 1 item 6, utilities (ray_tpu/util/client/)",
     "the XLA reshard tier":
         "queue 1 item 3, device channels and the XLA reshard tier "
         "(ray_tpu/weights/transport.py:jax_reshard)",

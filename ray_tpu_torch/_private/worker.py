@@ -299,9 +299,21 @@ def init(
         if address and (address.startswith("ray-tpu://")
                         or address.startswith("ray_tpu://")):
             # client mode: thin external client -> in-cluster proxy
-            from ray_tpu_torch._private.common import not_ported
+            # (reference: ray:// via python/ray/util/client)
+            import logging as _logging
 
-            raise not_ported("client mode")
+            unsupported = {"runtime_env": runtime_env, "num_cpus": num_cpus,
+                           "num_gpus": num_gpus, "resources": resources,
+                           "local_mode": local_mode or None}
+            dropped = [k for k, v in unsupported.items() if v]
+            if dropped:
+                _logging.getLogger("ray_tpu_torch").warning(
+                    "client mode ignores init() options %s — set them on "
+                    "the cluster/proxy side", dropped)
+            from ray_tpu_torch.util.client.client import ClientWorker
+
+            _global_worker = ClientWorker(address, namespace=namespace)
+            return _global_worker
         if local_mode:
             if runtime_env and runtime_env.get("env_vars"):
                 import os

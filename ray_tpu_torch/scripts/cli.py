@@ -11,7 +11,7 @@ starts) and ``--device`` on the commands that start a cluster (``start``
 and ``microbenchmark``): ``cuda`` (the default) advertises the cards the
 host has and fails without one, ``cpu`` advertises none unless
 ``--resources`` names ``GPU``. The address file lives in the port's
-session root; ``--client-server-port`` raises until client mode is ported.
+session root.
 """
 
 from __future__ import annotations
@@ -28,10 +28,6 @@ def cmd_start(args):
     """Start a head node that outlives this command (ray start --head)."""
     from ray_tpu_torch._private.node import NodeSupervisor
 
-    if args.client_server_port:
-        from ray_tpu_torch._private.common import not_ported
-
-        raise not_ported("client mode")
     resources = json.loads(args.resources) if args.resources else {}
     if args.num_cpus is not None:
         resources["CPU"] = float(args.num_cpus)
@@ -56,11 +52,32 @@ def cmd_start(args):
     if args.include_dashboard:
         dash = supervisor.start_dashboard(port=args.dashboard_port)
         print(f"dashboard at http://{dash}", flush=True)
+    if args.client_server_port:
+        import threading
+
+        import ray_tpu_torch
+        from ray_tpu_torch.util.client import start_client_server
+
+        ray_tpu_torch.init(address=address)
+
+        def _serve_clients():
+            try:
+                start_client_server(port=args.client_server_port)
+            except Exception as e:  # surface bind failures
+                print(f"client server FAILED: {e}", file=sys.stderr,
+                      flush=True)
+
+        threading.Thread(target=_serve_clients, daemon=True).start()
+        print(f"client endpoint: ray-tpu://<this-host>:"
+              f"{args.client_server_port} (watch for the 'listening on' "
+              "line)", flush=True)
     print("press Ctrl-C to stop", flush=True)
     try:
         signal.pause()
     except KeyboardInterrupt:
         pass
+    if args.client_server_port:
+        ray_tpu_torch.shutdown()  # the proxy's driver, before its cluster
     supervisor.stop()
 
 

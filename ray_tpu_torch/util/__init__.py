@@ -8,7 +8,8 @@ API over the GCS (``state``: nodes, actors, tasks, timelines, goodput and
 the Dataset's stats), and structured cluster events (``events``). Metrics,
 spans, events and the goodput ledger ship to the GCS inside the port's
 runtime. ``ActorPool`` and ``Queue`` are the JAX package's, on the port's
-actors."""
+actors, as are ``multiprocessing`` (the ``Pool`` shim over cluster tasks)
+and ``client`` (the ``ray-tpu://`` proxy and its thin client)."""
 
 from __future__ import annotations
 

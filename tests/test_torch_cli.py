@@ -173,9 +173,9 @@ def test_cli_drives_a_head_with_the_dashboard(tmp_path):
         assert head.wait(timeout=60) == 0
 
 
-def test_start_without_a_card_fails_and_client_mode_raises(tmp_path):
+def test_start_without_a_card_fails(tmp_path):
     """``start`` on the default ``--device cuda`` exits 1 on a host without
-    a card; ``--client-server-port`` raises the not-ported error."""
+    a card, before it writes an address file."""
     from ray_tpu_torch.util.accelerators import num_gpus_on_host
 
     if num_gpus_on_host():
@@ -184,7 +184,49 @@ def test_start_without_a_card_fails_and_client_mode_raises(tmp_path):
     out = _cli("start", "--head", address_file=address_file, check=False,
                timeout=60)
     assert out.returncode == 1 and "--device cpu" in out.stderr
-    out = _cli("start", "--device", "cpu", "--client-server-port", "5555",
-               address_file=address_file, check=False, timeout=60)
-    assert out.returncode != 0 and "client mode" in out.stderr
     assert not os.path.exists(address_file)
+
+
+def test_start_serves_a_client_endpoint(tmp_path):
+    """``start --device cpu --client-server-port P`` serves ``ray-tpu://``
+    on P: a client in this process reaches the head's cluster through it,
+    and SIGINT stops the head cleanly."""
+    import socket
+
+    import ray_tpu_torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    address_file = str(tmp_path / "head_address")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAY_TPU_TORCH_")}
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--address-file",
+         address_file, "start", "--head", "--device", "cpu", "--num-cpus",
+         "2", "--client-server-port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            line = head.stdout.readline()
+            lines.append(line)
+            if "listening on" in line or head.poll() is not None:
+                break
+        assert "listening on" in lines[-1], "".join(lines)
+        ray_tpu_torch.shutdown()
+        ray_tpu_torch.init(address=f"ray-tpu://127.0.0.1:{port}")
+        try:
+            @ray_tpu_torch.remote
+            def double(x):
+                return 2 * x
+
+            assert ray_tpu_torch.get(double.remote(21), timeout=120) == 42
+            assert ray_tpu_torch.cluster_resources()["CPU"] == 2.0
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        head.send_signal(signal.SIGINT)
+        assert head.wait(timeout=60) == 0, head.stdout.read()[-3000:]

@@ -189,8 +189,32 @@ def test_init_needs_a_card_unless_told_cpu(monkeypatch):
     assert not ray_tpu_torch.is_initialized()
 
 
-def test_client_mode_raises_naming_the_roadmap():
+def test_client_mode_connects_and_runs_a_task(tmp_path):
+    """``init(address="ray-tpu://...")`` installs the client worker: the
+    public API reaches a cluster through its proxy process."""
+    from test_torch_client_mode import start_host, stop_host
+
+    from ray_tpu_torch.util.client.client import ClientWorker
+
     ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="client mode"):
-        ray_tpu_torch.init(address="ray-tpu://127.0.0.1:1")
+    proc, address = start_host(tmp_path, num_cpus=2)
+    try:
+        worker = ray_tpu_torch.init(address=address)
+        assert isinstance(worker, ClientWorker)
+        assert ray_tpu_torch.is_initialized()
+
+        @ray_tpu_torch.remote
+        def pid_plus(x):
+            import os
+
+            return os.getpid() + x
+
+        import os
+
+        got = ray_tpu_torch.get(pid_plus.remote(1), timeout=120)
+        assert got - 1 not in (os.getpid(), proc.pid)
+        assert ray_tpu_torch.cluster_resources()["CPU"] == 2.0
+    finally:
+        ray_tpu_torch.shutdown()
+        stop_host(proc)
     assert not ray_tpu_torch.is_initialized()
