@@ -181,7 +181,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    metrics:`` line (replicas ready, HTTP latency and the engine's TTFT,
    decode tokens/s, publish and each replica's pull and swap, the
    broadcast's acknowledgement, requests answered during the swap and
-   dropped, each replica's peak memory, ``/dev/shm``, the card);
+   dropped, each replica's peak memory, ``/dev/shm``, the card); then the
+   port's gRPC ingress (``serve/grpc_ingress.py`` on the port's own
+   HTTP/2) started in its detached actor: the 12 requests through
+   ``ServeGrpcClient.call`` to the same deployment, equal to in-process
+   serving of the seed-1 weights token for token, and streamed through
+   ``ServeGrpcClient.stream`` from a small generator deployment
+   (``GrpcStreamer``) that asks the 1b deployment for each answer in turn,
+   every chunk equal as well and the first in before half the stream's
+   wall; the replicas' counts, set to 0 before the gRPC rounds and read
+   after them, are the ``serve_grpc`` path (``flash_fwd`` above 0); a
+   ``serve grpc:`` line (the proxy's start seconds, the gRPC p50 and max
+   latency beside the HTTP round's for the same requests, the stream's
+   first chunk and wall); the proxy actor is killed with the phase;
 18. pd and batch inference: a new port cluster; ``build_pd_openai_app``
    of the 1b at full width and depth (seed-0 weights drawn in each
    worker, the default ``EngineConfig``) with one prefill and one decode
@@ -4636,6 +4648,7 @@ SERVE_STORE_MAX = 16 << 30  # the object store: at most this, or half of
 SERVE_TIMEOUT_S = 600.0  # each cluster call's and HTTP request's
 SERVE_AFTER_ACK_S = 3.0  # the clients go on this long after the acks
 SERVE_LAYERS = 4  # of the 1b's 16: the version's bytes set the swap's time
+GRPC_STREAM_NAME = "grpc_stream"  # phase 17's streaming deployment
 
 
 def shm_bytes() -> dict:
@@ -4721,6 +4734,99 @@ def check_answers(label: str, got: list, want: list) -> None:
                 f"{w['token_ids'][:8]}... ({w['finish_reason']})")
     if len(got) != len(want):
         raise AssertionError(f"{label}: {len(got)} of {len(want)} answered")
+
+
+def grpc_complete(client, name: str, prompt: str, max_tokens: int) -> dict:
+    """One greedy completion through the gRPC ingress, as
+    ``http_complete`` reads one over HTTP."""
+    t0 = time.perf_counter()
+    result = client.call(name, {"prompt": prompt, "max_tokens": max_tokens,
+                                "return_token_ids": True},
+                         timeout=SERVE_TIMEOUT_S)
+    choice = result["choices"][0]
+    return {"token_ids": choice["token_ids"], "text": choice["text"],
+            "finish_reason": choice["finish_reason"],
+            "latency_s": time.perf_counter() - t0}
+
+
+class GrpcStreamer:
+    """Phase 17's streaming deployment: asks the 1b deployment for each
+    prompt's answer in turn and yields each as it comes (its blocking calls
+    run off the replica's loop)."""
+
+    def __init__(self, llm_name: str):
+        self._llm_name = llm_name
+
+    async def answers(self, body):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.serve.api import DeploymentHandle
+
+        handle = DeploymentHandle(self._llm_name)
+
+        def answer(prompt):
+            result = rt.get(handle.remote({
+                "prompt": prompt, "max_tokens": body["max_tokens"],
+                "return_token_ids": True}), timeout=body["timeout"])
+            choice = result["choices"][0]
+            return {k: choice[k] for k in ("token_ids", "text",
+                                           "finish_reason")}
+
+        for prompt in body["prompts"]:
+            yield await asyncio.to_thread(answer, prompt)
+
+
+def serve_grpc_round(handle, name: str, prompts, want: list) -> tuple:
+    """Phase 17's gRPC rounds: the proxy started, the prompts answered one
+    at a time through ``ServeGrpcClient.call`` and streamed through
+    ``GrpcStreamer``, each held against ``want``; the replicas' launch
+    counts set to 0 before and read after. Returns (launches, metrics)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.grpc_ingress import (ServeGrpcClient,
+                                                  start_grpc_proxy)
+
+    serve.run(serve.deployment(
+        GrpcStreamer, name=GRPC_STREAM_NAME,
+        ray_actor_options={"num_cpus": 0.1}).bind(name),
+        name=GRPC_STREAM_NAME)
+    handle.broadcast("kernel_launches", reset=True, timeout=SERVE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    port = start_grpc_proxy()
+    start_s = time.perf_counter() - t0
+    client = ServeGrpcClient(f"127.0.0.1:{port}")
+    try:
+        got = [grpc_complete(client, name, p, SERVE_TOKENS) for p in prompts]
+        check_answers("gRPC, seed 1", got, want)
+        t0 = time.perf_counter()
+        chunks, first_s = [], None
+        for chunk in client.stream(
+                GRPC_STREAM_NAME, {"prompts": list(prompts),
+                                   "max_tokens": SERVE_TOKENS,
+                                   "timeout": SERVE_TIMEOUT_S},
+                method="answers", timeout=SERVE_TIMEOUT_S):
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            chunks.append(chunk)
+        stream_s = time.perf_counter() - t0
+        check_answers("gRPC stream, seed 1", chunks, want)
+        if not first_s < stream_s / 2:
+            raise AssertionError(f"the stream's first chunk came at "
+                                 f"{first_s:.3f} s of {stream_s:.3f} s")
+    finally:
+        client.close()
+        rt.kill(rt.get_actor("serve_grpc_proxy"))
+        serve.delete(GRPC_STREAM_NAME)
+    launches = handle.broadcast("kernel_launches", timeout=SERVE_TIMEOUT_S)
+    fwd = [c["flash_attention_fwd"] for c in launches]
+    if not all(n > 0 for n in fwd):
+        raise AssertionError(f"flash_fwd launches by replica over gRPC {fwd}")
+    lat = sorted(g["latency_s"] for g in got)
+    metrics = {"grpc_proxy_start_s": start_s,
+               "grpc_latency_p50_s": percentile(lat, 0.5),
+               "grpc_latency_max_s": lat[-1],
+               "grpc_stream_first_chunk_s": first_s,
+               "grpc_stream_s": stream_s, "grpc_flash_fwd_launches": fwd}
+    return {k: sum(c[k] for c in launches) for k in launches[0]}, metrics
 
 
 def phase_serve_weights(card: str, serving: dict) -> dict:
@@ -4856,6 +4962,25 @@ def phase_serve_weights(card: str, serving: dict) -> dict:
             f" {len(got1)} HTTP answers equal in-process serving of seed 1 "
             f"token for token; flash_fwd launches by replica {fwd}")
 
+        launched = {k: sum(c[k] for c in launches) for k in launches[0]}
+        grpc_launched, grpc_metrics = serve_grpc_round(handle, name,
+                                                       prompts, want1)
+        http_lat = sorted(g["latency_s"] for g in got1)
+        log(f"serve grpc: proxy started in "
+            f"{grpc_metrics['grpc_proxy_start_s']:.3f} s; {len(prompts)} "
+            f"gRPC answers and {len(prompts)} streamed chunks equal "
+            f"in-process serving of seed 1 token for token; latency p50 "
+            f"{grpc_metrics['grpc_latency_p50_s']:.4f} s, max "
+            f"{grpc_metrics['grpc_latency_max_s']:.4f} s over gRPC, p50 "
+            f"{percentile(http_lat, 0.5):.4f} s, max {http_lat[-1]:.4f} s "
+            f"over HTTP for the same requests; the stream's first chunk at "
+            f"{grpc_metrics['grpc_stream_first_chunk_s']:.3f} s of "
+            f"{grpc_metrics['grpc_stream_s']:.3f} s; flash_fwd launches by "
+            f"replica {grpc_metrics['grpc_flash_fwd_launches']} [{card}]")
+        metrics.update(grpc_metrics,
+                       http_seed1_latency_p50_s=percentile(http_lat, 0.5),
+                       http_seed1_latency_max_s=http_lat[-1])
+
         engines = handle.broadcast("engine_metrics", timeout=SERVE_TIMEOUT_S)
         memory = handle.broadcast("memory_stats", timeout=SERVE_TIMEOUT_S)
         lat = sorted(g["latency_s"] for g in got0 + got1)
@@ -4876,13 +5001,12 @@ def phase_serve_weights(card: str, serving: dict) -> dict:
             dropped=len(failures),
             peak_memory_bytes=[m["max_allocated_bytes"] for m in memory],
             flash_fwd_launches=fwd)
-        launched = {k: sum(c[k] for c in launches) for k in launches[0]}
         serve.shutdown()
         store.shutdown()
     finally:
         rt.shutdown()
     log("serve weights metrics: " + json.dumps(metrics))
-    return launched
+    return {"serve": launched, "serve_grpc": grpc_launched}
 
 
 PD_GPU_SHARE = 0.5  # the prefill and the decode worker share the one card
@@ -7016,8 +7140,8 @@ def main() -> int:
                                      phase_runtime_serving, card, serving)
     paths["runtime_training"] = timed("runtime training",
                                       phase_runtime_training, card, training)
-    paths["serve"] = timed("serve and weights", phase_serve_weights, card,
-                           serving)
+    paths.update(timed("serve and weights", phase_serve_weights, card,
+                       serving))
     paths.update(timed("pd and batch inference", phase_pd_batch, card,
                        serving))
     paths["runtime_restart"] = timed("runtime faults", phase_runtime_faults,

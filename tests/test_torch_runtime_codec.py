@@ -1,5 +1,6 @@
 """The port's runtime codecs against the JAX runtime's, with no cluster: the
-pure-Python msgpack against the ``msgpack`` package, ``wire`` in both
+runtime's native msgpack and its pure-Python plain version against the
+``msgpack`` package and each other, ``wire`` in both
 directions, IDs and the object store's blob layout, the by-value pickler
 with ``cloudpickle`` and ``msgpack`` blocked, tensors through the object
 serializer, and GPU detection from the environment."""
@@ -25,6 +26,7 @@ from ray_tpu.weights.plan import TransferEdge as JaxTransferEdge
 from ray_tpu.weights.spec import MeshSpec as JaxMeshSpec
 from ray_tpu_torch._private import common, ids, object_store, wire
 from ray_tpu_torch._private import msgpack as port_msgpack
+from ray_tpu_torch._private import msgpack_plain, native_build
 from ray_tpu_torch._private import serialization
 from ray_tpu_torch.util import accelerators
 from ray_tpu_torch.weights.plan import TransferEdge
@@ -79,6 +81,100 @@ def test_msgpack_matches_the_package_byte_for_byte(value):
     assert got == want
     decoded = msgpack.unpackb(want, raw=False, strict_map_key=False)
     assert port_msgpack.unpackb(want) == decoded
+
+
+@settings(max_examples=300, deadline=None)
+@given(_values)
+def test_plain_msgpack_matches_the_package_byte_for_byte(value):
+    want = msgpack.packb(_as(value, msgpack.ExtType), use_bin_type=True)
+    assert msgpack_plain.packb(_as(value, msgpack_plain.ExtType)) == want
+    decoded = msgpack.unpackb(want, raw=False, strict_map_key=False)
+    assert msgpack_plain.unpackb(want) == decoded
+
+
+@settings(max_examples=300, deadline=None)
+@given(_values | st.tuples(_values, _values) | st.binary(max_size=64))
+def test_native_msgpack_equals_the_plain_codec(value):
+    """The runtime's codec (``csrc/msgpack.cc``) packs what the plain one
+    packs, and reads any bytes (well formed or not) to the same value or the
+    same error."""
+    if isinstance(value, tuple):
+        value = tuple(_as(v, port_msgpack.ExtType) for v in value)
+    else:
+        value = _as(value, port_msgpack.ExtType)
+    if isinstance(value, bytes) and value[:1] == b"\xff":
+        blob = value[1:]  # arbitrary bytes to read
+    else:
+        blob = msgpack_plain.packb(value)
+        assert port_msgpack.packb(value) == blob
+        assert port_msgpack.packb(bytearray(blob)) == \
+            msgpack_plain.packb(bytearray(blob))
+    outcomes = []
+    for codec in (port_msgpack, msgpack_plain):
+        try:
+            outcomes.append(("ok", codec.unpackb(blob)))
+        except Exception as e:
+            outcomes.append((type(e), str(e)))
+    assert outcomes[0] == outcomes[1]
+
+
+def _nest(depth):
+    value = 0
+    for _ in range(depth):
+        value = [value]
+    return value
+
+
+@pytest.mark.parametrize("value", [
+    2 ** 64, -(2 ** 63) - 1, object(), "\ud800", {"k": {1, 2}},
+    _nest(512), _nest(513), memoryview(b"abc")[::2], 1.5, True, None,
+    (1, "a", b"b"), {1: [2, {3: 4}]}])
+def test_native_msgpack_packs_and_refuses_as_the_plain_codec(value):
+    outcomes = []
+    for codec in (port_msgpack, msgpack_plain):
+        try:
+            outcomes.append(("ok", codec.packb(value)))
+        except Exception as e:
+            outcomes.append((type(e), str(e)))
+    assert outcomes[0] == outcomes[1]
+
+
+@pytest.mark.parametrize("blob", [
+    b"\xc1", b"\x92\x01", b"\x01\x02", b"\xdd\xff\xff\xff\xff\x01",
+    b"\xdf\xff\xff\xff\xff", b"\xa3ab", b"\xa2\xff\xfe",
+    b"\x81\x91\x01\x02", b"\xd4\xff\x00", b"\xc7\x01\x80\x00",
+    b"\xca\x3f\xc0\x00\x00", b"\xcb", b"", b"\x91" * 200 + b"\x00"],
+    ids=lambda blob: blob[:6].hex() or "empty")
+def test_native_msgpack_reads_and_refuses_as_the_plain_codec(blob):
+    outcomes = []
+    for codec in (port_msgpack, msgpack_plain):
+        try:
+            outcomes.append(("ok", codec.unpackb(blob)))
+        except Exception as e:
+            outcomes.append((type(e), str(e)))
+    assert outcomes[0] == outcomes[1]
+    hooked = [codec.unpackb(b"\xd4\x05\x07", ext_hook=lambda c, d: (c, d))
+              for codec in (port_msgpack, msgpack_plain)]
+    assert hooked == [(5, b"\x07")] * 2
+
+
+def test_the_runtime_runs_the_native_codec_and_a_failed_build_raises(
+        tmp_path, monkeypatch):
+    """rpc and wire frame through the extension module, built into
+    ``build/ray_tpu_torch/`` under its source's hash; a source that does not
+    compile raises instead of falling back to the plain codec."""
+    from ray_tpu_torch._private import rpc
+
+    assert rpc.msgpack is port_msgpack and wire.msgpack is port_msgpack
+    port_msgpack.packb(0)
+    native = port_msgpack._native
+    assert type(native.packb).__name__ == "builtin_function_or_method"
+    assert os.path.dirname(native.__file__) == native_build.BUILD_DIR
+    bad = tmp_path / "broken.cc"
+    bad.write_text("#include <Python.h>\nint broken( {\n")
+    monkeypatch.setattr(native_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native_build.load_extension(str(bad), "broken")
 
 
 # every width's edges: fixint, 8, 16, 32 and 64 bits, signed and unsigned

@@ -523,6 +523,12 @@ _DRIVER = textwrap.dedent("""
         headers={"Content-Type": "application/json"})
     out = json.loads(urllib.request.urlopen(req, timeout=60).read())
     print(out["result"]["y"], out["result"]["loaded"])
+    from ray_tpu_torch.serve.grpc_ingress import (ServeGrpcClient,
+                                                  start_grpc_proxy)
+    client = ServeGrpcClient(f"127.0.0.1:{start_grpc_proxy()}")
+    out = client.call("m", {"x": 4}, timeout=60)
+    print(out["y"], out["loaded"])
+    client.close()
     print([n for n in BLOCKED if n in sys.modules])
     serve.shutdown()
     rt.shutdown()
@@ -532,9 +538,10 @@ _DRIVER = textwrap.dedent("""
 def test_serve_and_weights_without_aiohttp_grpc_cloudpickle_or_jax(
         tmp_path):
     """A deployment behind the HTTP proxy takes a bf16-encoded weight version
-    by broadcast, in a cluster whose driver, GCS, raylet and workers cannot
-    import aiohttp, grpc, cloudpickle, msgpack or the JAX package (shadowed
-    on ``PYTHONPATH`` by modules that raise)."""
+    by broadcast and answers through the gRPC ingress too, in a cluster
+    whose driver, GCS, raylet and workers cannot import aiohttp, grpc,
+    cloudpickle, msgpack or the JAX package (shadowed on ``PYTHONPATH`` by
+    modules that raise)."""
     shim = tmp_path / "shim"
     shim.mkdir()
     for name in _BLOCKED:
@@ -548,4 +555,4 @@ def test_serve_and_weights_without_aiohttp_grpc_cloudpickle_or_jax(
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
         timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.split("\n")[:3] == ["True", "8.0 []", "[]"]
+    assert out.stdout.split("\n")[:4] == ["True", "8.0 []", "8.0 []", "[]"]

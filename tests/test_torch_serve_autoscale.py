@@ -356,12 +356,22 @@ def test_prefix_routing_policy_sticks(cluster):
 
     handle = serve.run(KV.bind(), name="kv").options(routing_policy="prefix")
     prompts = [{"prompt": f"conversation-{i}: tell me more"}
-               for i in range(6)]
+               for i in range(48)]
     first = [ray_tpu_torch.get(handle.remote(p), timeout=T) for p in prompts]
     for _ in range(3):
         assert [ray_tpu_torch.get(handle.remote(p), timeout=T)
                 for p in prompts] == first
-    assert len(set(first)) > 1
+    # the spread, with no room for chance: each key lands on the replica a
+    # ring over the handle's own replicas names (the ids are random, so in
+    # some layouts a ring puts every key on one replica)
+    pids = handle.broadcast("__call__", {}, timeout=T)
+    replicas = list(handle._replicas)
+    ring = port_autoscale.ConsistentHashRing(replicas)
+    owners = [ring.lookup(handle._router().key_of(p)) for p in prompts]
+    want = [pids[next(i for i, r in enumerate(replicas) if r is owner)]
+            for owner in owners]
+    assert first == want
+    assert len(set(first)) == len({id(owner) for owner in owners})
     h2 = loads_trusted(dumps(handle))
     assert h2._routing_policy == "prefix"
     with pytest.raises(ValueError):
