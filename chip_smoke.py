@@ -18,20 +18,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    library as a yardstick only); the backward at the 1b training shape, at
    350m's head dims and at ragged S: bf16 ``flash_bwd`` (dQ, dK, dV in one
    kernel, what training runs), the bf16 dK/dV kernel and dQ kernel on
-   their own, the fp32 pair, and ``flash_bwd_delta`` (Delta), with
+   their own, the fp32 pair, and the prep ``flash_bwd_prep`` (Delta, and
+   the dQ accumulator and counters cleared, exactly zero also over NaN
+   and -1) beside the earlier Delta kernel ``flash_bwd_delta``, with
    ``flash_bwd`` timed in turns with the dK/dV kernel, the earlier
    ``mma.sync`` pair (``mma_ms``), the whole bf16 backward as
-   ``flash_attention_bwd`` runs it (``backward_ms``: Delta, zeros, kernel,
-   cast) and the library's backward (``library_ms``);
+   ``flash_attention_bwd`` runs it (``backward_ms``: prep, kernel, cast)
+   and the library's backward (``library_ms``); the prep timed against
+   the earlier design (``flash_bwd_delta`` and the two ``torch.zeros``)
+   over PREP_ROUNDS rounds in turns, through the wrapper, as C-entry
+   launches back to back and replayed from a CUDA graph, beside vecdot and
+   vecdot with the zeros (``time_prep``);
 4. training: ``TrainStepBundle`` at the 1b config's full width and depth
    (random weights from a seed) takes steps on one batch of 4 x 2048
    tokens; the loss must fall, the kernels must launch 2 x n_layers
-   (forward and remat) and n_layers (``flash_bwd`` and Delta; the pair
+   (forward and remat) and n_layers (``flash_bwd`` and the prep; the pair
    never) times a step, and one step's loss and gradients are held against
    the same step with plain attention; step time, tokens/s, MFU, peak
    memory, and where a step's device time goes (``torch.profiler``);
-5. head_dim-64 kernels: the forward and the whole bf16 backward (Delta and
-   ``flash_bwd``) against plain at the MoE and ViT training shapes, moe-1b
+5. head_dim-64 kernels: the forward and the whole bf16 backward (the prep
+   and ``flash_bwd``) against plain at the MoE and ViT training shapes, moe-1b
    (4 x 2048, 16 query and 16 KV heads, causal) and ViT-B/16 (64 images x
    197 tokens, 12 heads, full), each timed beside its bound and the
    library's call;
@@ -52,7 +58,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    at 224 x 224) with ``make_optimizer``: the loss must fall below a
    quarter of ln 4 and the batch be fitted, where the head alone trained
    the same way stays above it, the kernels launch once a layer each
-   (forward, Delta, ``flash_bwd``), one step's logits and gradients are
+   (forward, the prep, ``flash_bwd``), one step's logits and gradients are
    held against plain attention; step time, images/s, peak memory;
 9. serving: ``LLMServer`` over ``TorchLLMEngine`` at the 1b config's full
    width (random weights from a seed, default engine geometry) answers
@@ -251,7 +257,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    clip; 3 steps whose losses, gradient norms at steps 0 and 1, and each
    stage's params after the last step lie within the bounds derived from
    the reference (PIPE_*'s notes), and each stage's ``flash_fwd``,
-   ``flash_bwd`` and Delta launches (counted in the stage: the
+   ``flash_bwd`` and prep launches (counted in the stage: the
    ``pipeline`` path) equal to its layers' count a microbatch; before it,
    a compiled graph of three host actors whose values equal the eager
    chain's; a ``pipeline metrics:`` line (stages ready, the seeding's
@@ -289,7 +295,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    reporting each loss and its kernels' launches; the job must succeed,
    every trial's first loss equal phase 4's, the 1e-4 trial's losses lie
    within TUNE_LOSS_RTOL of phase 4's, each trial launch ``flash_fwd`` 32,
-   ``flash_bwd`` 16 and Delta 16 times a step, stop where ASHA replayed on
+   ``flash_bwd`` 16 and the prep 16 times a step, stop where ASHA replayed on
    the logged report stream stops it, and the grid's best be the argmin of
    the final losses; ``/metrics`` parses as Prometheus text and counts
    each trial's steps, ``/api/timeline`` holds the ``_run_trial`` tasks,
@@ -333,9 +339,10 @@ environment. At the end, passed or failed, the script waits for those
 still alive and kills any left after ``STRAGGLER_GRACE_S`` (named on
 standard error), so it leaves no process running.
 
-Delta's rows, and the forward's at each rank's shape, also carry the
+The prep's rows, and the forward's at each rank's shape, also carry the
 kernel's time without the wrapper's host path: 20 launches of the C entry
-back to back, and the same replayed from a CUDA graph (``time_launches``).
+back to back, and the same replayed from a CUDA graph (``time_launches``,
+``time_prep``).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, so the comparisons with the plain versions do not count.
@@ -345,12 +352,17 @@ is the sum over the paths it lies on, ``launches_by_path`` splits it; its
 times are at the serving shape for the forward, with ``flash_fwd_mma``'s as
 ``mma_ms`` and the training shape's under ``train_shape``, and at the
 training shape for the backward, ``flash_bwd`` with ``backward_ms`` and
-``mma_ms``; ``d64_shapes`` holds the forward's, ``flash_bwd``'s and
-Delta's at the MoE and ViT shapes, ``tensor_parallel_shapes`` theirs at
-each rank's shape of phase 11, ``seq_parallel_shapes`` at each ring block
-of phase 12); the last line is ``{"ok": true,
-"device": {...}}``. With no card, or outside a checkout of the repository,
-it prints no result and exits non-zero.
+``mma_ms``, the prep with the earlier design's times beside its own
+(``earlier_*``), its min and spread, ``back_to_back_ms`` and ``graph_ms``,
+``vecdot_ms`` and ``vecdot_zeros_ms``; ``d64_shapes`` holds the
+forward's, ``flash_bwd``'s, the prep's and the earlier Delta kernel's at
+the MoE and ViT shapes, ``tensor_parallel_shapes`` theirs at each rank's
+shape of phase 11, ``seq_parallel_shapes`` at each ring block of phase
+12; the earlier Delta kernel ``flash_bwd_delta`` has no wrapper, and its
+launches are its C entry's, counted in ``_launch`` and read through
+``launch_counts`` like the wrappers'; every path wants them 0); the last
+line is ``{"ok": true, "device": {...}}``. With no card, or outside a
+checkout of the repository, it prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -589,10 +601,16 @@ def bwd_bound(kernel, B, H, KVH, D, S, causal, itemsize):
     K^T, dO V^T, dS K (6 D); the same reads, writes dq. flash_bwd_dkv: K
     Q^T, V dO^T, P^T dO, dS^T Q (8 D); the same reads, writes dk and dv.
     flash_bwd_delta: rowsum(dO * O), 2 D FLOPs a row; reads o and dO, writes
-    Delta."""
+    Delta. flash_bwd_prep: the same, and writes the fp32 dQ accumulator
+    (rows x D) and its int32 counters (one a 64-row q tile of each (b, h))
+    as zeros."""
     rows = B * H * S
     if kernel == "flash_bwd_delta":
         return roofline(2.0 * D * rows, 2 * rows * D * itemsize + rows * 4)
+    if kernel == "flash_bwd_prep":
+        counters = B * H * -(-S // 64)
+        return roofline(2.0 * D * rows, 2 * rows * D * itemsize + rows * 4
+                        + rows * D * 4 + counters * 4)
     products = {"flash_bwd": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[kernel]
     flops = 2.0 * products * D * _pairs(S, causal) * B * H
     reads = B * S * (2 * H + 2 * KVH) * D * itemsize + 2 * rows * 4
@@ -797,14 +815,16 @@ def phase_bwd_kernels(card: str) -> dict:
     """The backward kernels against the plain backward on the same inputs
     (the forward kernel's o and lse, a random dO), at BWD_SHAPES and the
     ragged BWD_RAGGED, causal and full: bf16 ``flash_bwd`` (through
-    ``flash_attention_bwd``), the bf16 dK/dV kernel and the bf16 dQ kernel
-    (``flash_bwd_dq``, the earlier design) on their own, the fp32 pair, and
-    ``flash_bwd_delta`` (Delta) against its plain version. Then their times
-    at the training shape. Returns the entries of the kernels line."""
+    ``flash_attention_bwd``: the prep, then ``flash_bwd``), the bf16 dK/dV
+    kernel and the bf16 dQ kernel (``flash_bwd_dq``, the earlier design) on
+    their own, the fp32 pair, and the prep ``flash_bwd_prep`` (Delta, the
+    accumulator and counters cleared) and the earlier Delta kernel
+    ``flash_bwd_delta`` against their plain versions (``check_prep``). Then
+    their times at the training shape. Returns the entries of the kernels
+    line."""
     import torch
 
     from ray_tpu_torch.ops.attention import (attention_delta,
-                                             attention_delta_plain,
                                              bwd_products, bwd_softmax_grads,
                                              flash_attention_bwd,
                                              flash_attention_bwd_dkv,
@@ -815,6 +835,7 @@ def phase_bwd_kernels(card: str) -> dict:
     worst = {"flash_bwd": {"dq": 0.0, "dk": 0.0, "dv": 0.0},
              "flash_bwd_dq": {"dq": 0.0},
              "flash_bwd_dkv": {"dk": 0.0, "dv": 0.0},
+             "flash_bwd_prep": {"delta": 0.0},
              "flash_bwd_delta": {"delta": 0.0}}
     entries = {}
     for (B, H, KVH, D, S) in BWD_SHAPES + BWD_RAGGED:
@@ -851,11 +872,11 @@ def phase_bwd_kernels(card: str) -> dict:
                 torch.cuda.synchronize()
                 where = (f"B={B} S={S} H={H} KVH={KVH} D={D} {name:8s} "
                          f"causal={int(causal)}")
-                err = compare("flash_bwd_delta", "delta", delta,
-                              attention_delta_plain(o, do), DELTA_TOL, where,
-                              None)
-                worst["flash_bwd_delta"]["delta"] = max(
-                    worst["flash_bwd_delta"]["delta"], err["max_abs"])
+                prep = check_prep(o, do, where)
+                for kernel, key in (("flash_bwd_prep", "delta"),
+                                    ("flash_bwd_delta", "earlier_delta")):
+                    worst[kernel]["delta"] = max(worst[kernel]["delta"],
+                                                 prep[key]["max_abs"])
                 # the plain backward on the same o, lse and Delta, and the
                 # same products on absolute values (the tolerance's M)
                 p, ds = bwd_softmax_grads(q, k, v, do, lse, delta, causal)
@@ -886,9 +907,10 @@ def time_bwd(q, k, v, do, card) -> dict:
     rounds (median of each): the ``flash_bwd`` kernel alone, the dK/dV
     kernel, the earlier ``mma.sync`` pair (``flash_bwd_dq`` and
     ``flash_bwd_dkv_mma``, checked against plain here first), the whole bf16
-    backward as ``flash_attention_bwd`` runs it (Delta, zeros, kernel,
-    cast), the Delta kernel, and the library's backward, which computes its
-    own Delta; then the plain backward and the plain Delta once."""
+    backward as ``flash_attention_bwd`` runs it (prep, kernel, cast), and
+    the library's backward, which computes its own Delta; then the plain
+    backward once, and the prep against the earlier design
+    (``prep_entries``)."""
     import importlib
 
     import torch
@@ -943,12 +965,8 @@ def time_bwd(q, k, v, do, card) -> dict:
         "mma": mma,
         "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
                                                     True),
-        "flash_bwd_delta": lambda: att.attention_delta(o, do),
         "library": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                retain_graph=True),
-        # Delta's yardstick: one library call on o and dO; it rounds its
-        # output to bf16, where the kernel writes fp32
-        "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
     }
     times = {name: [] for name in runs}
     for r in range(TIME_ROUNDS):
@@ -958,8 +976,6 @@ def time_bwd(q, k, v, do, card) -> dict:
     ms["plain"] = cuda_time_ms(
         lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do, True), 5,
         warmup=1)
-    ms["plain_delta"] = cuda_time_ms(
-        lambda: att.attention_delta_plain(o, do), 20)
     # the earlier pair's dQ kernel alone, for its own entry
     ms["flash_bwd_dq"] = cuda_time_ms(lambda: att._launch(
         "flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq), True), 20)
@@ -967,11 +983,10 @@ def time_bwd(q, k, v, do, card) -> dict:
         log(f"time at {TRAIN_SHAPE} bf16 causal: {name} rounds {t} median "
             f"{ms[name]:.4f} ms [{card}]")
     entries = {}
-    for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq",
-                   "flash_bwd_delta"):
+    for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
         bound, by = bwd_bound(kernel, B, H, KVH, D, S, True, q.element_size())
         t = ms[kernel]
-        plain = ms["plain_delta" if kernel == "flash_bwd_delta" else "plain"]
+        plain = ms["plain"]
         entries[kernel] = {"ms": t, "plain_ms": plain, "bound_ms": bound,
                            "bound_by": by, "library_ms": None}
         log(f"time {kernel} at the training shape {TRAIN_SHAPE} bf16 causal:"
@@ -982,37 +997,35 @@ def time_bwd(q, k, v, do, card) -> dict:
     # a part of it, so they get it for reference
     for kernel in ("flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
         entries[kernel]["library_ms"] = ms["library"]
-    entries["flash_bwd_delta"]["library_ms"] = ms["library_delta"]
-    entries["flash_bwd_delta"].update(time_delta_launches(
-        o, do, card, f"at the training shape {TRAIN_SHAPE}"))
     entries["flash_bwd"].update(backward_ms=ms["backward"],
                                 mma_ms=ms["mma"])
     log(f"time bf16 backward at {TRAIN_SHAPE} causal: flash_attention_bwd "
-        f"(Delta + zeros + flash_bwd + cast) {ms['backward']:.4f} ms; "
+        f"(prep + flash_bwd + cast) {ms['backward']:.4f} ms, "
+        f"{ms['backward'] - ms['flash_bwd']:.4f} ms beyond flash_bwd alone; "
         f"library (sdpa backward) {ms['library']:.4f} ms; the earlier "
-        f"mma.sync pair {ms['mma']:.4f} ms; plain {ms['plain']:.4f} ms; "
-        f"Delta's library call (vecdot, bf16 out) "
-        f"{ms['library_delta']:.4f} ms [{card}]")
+        f"mma.sync pair {ms['mma']:.4f} ms; plain {ms['plain']:.4f} ms "
+        f"[{card}]")
+    where = f"at the training shape {TRAIN_SHAPE} bf16"
+    entries.update(prep_entries(o, do, check_prep(o, do, where), card,
+                                where))
     return entries
 
 
-def kernel_counters():
-    """Every kernel wrapper's launch counter, by wrapper name."""
-    from ray_tpu_torch.ops.attention import (attention_delta,
-                                             flash_attention_bwd,
-                                             flash_attention_bwd_dkv,
-                                             flash_attention_bwd_dq,
-                                             flash_attention_fwd)
+def kernel_launches(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count, by wrapper name, and the earlier
+    Delta kernel's (``flash_bwd_delta``, counted where its C entry is
+    launched: no wrapper owns it); set to 0 after reading when ``reset``."""
+    from ray_tpu_torch.ops.attention import launch_counts
 
-    return (flash_attention_fwd, attention_delta, flash_attention_bwd,
-            flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    return launch_counts(reset)
 
 
 def check_attention(q, k, v, do, causal: bool, where: str):
-    """The forward kernel, Delta and the whole bf16 backward (Delta and
-    ``flash_bwd``) at one shape against their plain versions on the same
-    inputs (TOL, BWD_TOL, DELTA_TOL; ``compare`` raises beyond them).
-    Returns the kernels' o, lse and Delta, and the errors by output."""
+    """The forward kernel, the prep (``check_prep``) and the whole bf16
+    backward (the prep and ``flash_bwd``) at one shape against their plain
+    versions on the same inputs (TOL, BWD_TOL, DELTA_TOL; ``compare``
+    raises beyond them). Returns the kernels' o, lse and Delta, and the
+    errors by output."""
     import importlib
 
     import torch
@@ -1028,9 +1041,7 @@ def check_attention(q, k, v, do, causal: bool, where: str):
                          where, pv)
             for key, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref))}
     del o_ref, lse_ref, pv
-    errs["delta"] = compare("flash_bwd_delta", "delta", delta,
-                            att.attention_delta_plain(o, do), DELTA_TOL,
-                            where, None)
+    errs.update(check_prep(o, do, where))
     p, ds = att.bwd_softmax_grads(q, k, v, do, lse, delta, causal)
     ref = [x.to(q.dtype) for x in att.bwd_products(p, ds, q, k, do)]
     mag = att.bwd_products(p, ds.abs(), q.abs(), k.abs(), do.abs())
@@ -1050,16 +1061,18 @@ def phase_d64_kernels(card: str) -> dict:
     inputs (TOL, BWD_TOL, DELTA_TOL); then, timed in turns over
     TIME_ROUNDS rounds (median of each): the forward kernel and the
     library's forward, ``flash_bwd`` alone, the backward as
-    ``flash_attention_bwd`` runs it (Delta, zeros, kernel, cast), the Delta
-    kernel and the library's backward; the plain versions once. Returns
-    each kernel's entries by shape name."""
+    ``flash_attention_bwd`` runs it (prep, kernel, cast) and the library's
+    backward; the plain versions once; and the prep against the earlier
+    design (``prep_entries``). Returns each kernel's entries by shape
+    name."""
     import importlib
 
     import torch
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    out = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    out = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_prep": {},
+           "flash_bwd_delta": {}}
     for name, ((B, H, KVH, D, S), causal) in D64_SHAPES.items():
         q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device="cuda",
                                    dtype=torch.bfloat16)
@@ -1076,12 +1089,9 @@ def phase_d64_kernels(card: str) -> dict:
         ms["plain_bwd"] = cuda_time_ms(
             lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                   causal), 5, warmup=1)
-        ms["plain_delta"] = cuda_time_ms(
-            lambda: att.attention_delta_plain(o, do), 20)
         shape = {"shape": [B, S, H, KVH, D], "causal": causal}
         fb, fby = flash_bound(B, H, KVH, D, S, causal, 2)
         bb, bby = bwd_bound("flash_bwd", B, H, KVH, D, S, causal, 2)
-        db, dby = bwd_bound("flash_bwd_delta", B, H, KVH, D, S, causal, 2)
         out["flash_fwd"][name] = {
             **shape, "ms": ms["flash_fwd"], "plain_ms": ms["plain_fwd"],
             "library_ms": ms["library_fwd"], "bound_ms": fb, "bound_by": fby,
@@ -1092,12 +1102,9 @@ def phase_d64_kernels(card: str) -> dict:
             "bound_ms": bb, "bound_by": bby,
             "max_abs_err": max(errs[key]["max_abs"]
                                for key in ("dq", "dk", "dv"))}
-        out["flash_bwd_delta"][name] = {
-            **shape, "ms": ms["flash_bwd_delta"],
-            "plain_ms": ms["plain_delta"], "library_ms": ms["library_delta"],
-            "bound_ms": db, "bound_by": dby,
-            "max_abs_err": errs["delta"]["max_abs"],
-            **time_delta_launches(o, do, card, f"d64 {where}")}
+        for kernel, e in prep_entries(o, do, errs, card,
+                                      f"d64 {where}").items():
+            out[kernel][name] = {**shape, **e}
         for key, t in times.items():
             log(f"time d64 {where}: {key} rounds {t} median {ms[key]:.4f} "
                 f"ms [{card}]")
@@ -1108,9 +1115,7 @@ def phase_d64_kernels(card: str) -> dict:
             f"bound {bb:.4f} ms ({bby}), {100 * bb / ms['flash_bwd']:.1f}% "
             f"of bound; whole bf16 backward {ms['backward']:.4f} ms, sdpa "
             f"backward {ms['library_bwd']:.4f} ms, plain "
-            f"{ms['plain_bwd']:.4f} ms; Delta {ms['flash_bwd_delta']:.4f} "
-            f"ms, bound {db:.4f} ms ({dby}), library (vecdot, bf16 out) "
-            f"{ms['library_delta']:.4f} ms [{card}]")
+            f"{ms['plain_bwd']:.4f} ms [{card}]")
         del q, k, v, do, o, lse, delta
     return out
 
@@ -1134,19 +1139,11 @@ def time_launches(lib: str, fn: str, tensors, causal: bool, card: str,
     import torch
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
-
-    def burst():
-        for _ in range(LAUNCH_BURST):
-            att._launch(lib, fn, tensors, causal)
-
+    burst = launch_burst(lambda: att._launch(lib, fn, tensors, causal))
     result = {"back_to_back_ms": cuda_time_ms(burst, 5) / LAUNCH_BURST,
               "graph_ms": None}
     try:
-        graph = torch.cuda.CUDAGraph()
-        burst()  # warm the launch path outside the capture
-        torch.cuda.synchronize()
-        with torch.cuda.graph(graph):
-            burst()
+        graph = burst_graph(burst)
         result["graph_ms"] = cuda_time_ms(graph.replay, 5) / LAUNCH_BURST
     except RuntimeError as e:
         log(f"time {fn} {where}: no CUDA graph ({e})")
@@ -1156,28 +1153,248 @@ def time_launches(lib: str, fn: str, tensors, causal: bool, card: str,
     return result
 
 
-def time_delta_launches(o, do, card: str, where: str) -> dict:
-    """``time_launches`` of Delta (``flash_bwd_delta``) on o and dO."""
+def launch_burst(launch):
+    """LAUNCH_BURST calls of ``launch`` in a row."""
+    def burst():
+        for _ in range(LAUNCH_BURST):
+            launch()
+    return burst
+
+
+def burst_graph(burst):
+    """``burst`` captured once in a CUDA graph, after one run outside the
+    capture that warms its launch path; raises RuntimeError if it cannot
+    be captured."""
     import torch
 
-    B, S, H, _ = o.shape
-    out = torch.empty((B * H, S), dtype=torch.float32, device=o.device)
-    return time_launches("flash_bwd", "flash_bwd_delta", (o, do, out), False,
-                         card, where)
+    graph = torch.cuda.CUDAGraph()
+    burst()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        burst()
+    return graph
+
+
+# The prep's timings: at least 20 rounds a way, in turns with the earlier
+# design and the yardsticks
+PREP_ROUNDS = 20
+
+
+def check_prep(o, do, where: str) -> dict:
+    """The prep (``attention_bwd_prep``: one ``flash_bwd_prep`` launch)
+    against its plain version on the same o and dO: Delta within DELTA_TOL
+    and the dQ accumulator and counters exactly zero, both from the
+    wrapper's fresh buffers and from the C entry on buffers first filled
+    with NaN and -1 (so no zero comes from the allocator); Delta alone
+    (``attention_delta``: the same kernel without the accumulator) and the
+    poisoned launch's Delta bit-equal to the wrapper's (each row is summed
+    in a fixed order). The earlier design (``flash_bwd_delta``'s C entry,
+    which no path launches) within DELTA_TOL too, and whether its bits are
+    the prep's. Returns the errors."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    delta, acc, counts = att.attention_bwd_prep(o, do)
+    alone = att.attention_delta(o, do)
+    poisoned = (torch.empty_like(delta), torch.full_like(acc, float("nan")),
+                torch.full_like(counts, -1))
+    att._launch("flash_bwd", "flash_bwd_prep", (o, do, *poisoned), False)
+    earlier = torch.empty_like(delta)
+    att._launch("flash_bwd", "flash_bwd_delta", (o, do, earlier), False)
+    torch.cuda.synchronize()
+    ref = att.attention_delta_plain(o, do)
+    errs = {"delta": compare("flash_bwd_prep", "delta", delta, ref,
+                             DELTA_TOL, where, None),
+            "earlier_delta": compare("flash_bwd_delta", "delta", earlier,
+                                     ref, DELTA_TOL, where, None)}
+    for name, x in (("accumulator", acc), ("counters", counts),
+                    ("poisoned accumulator", poisoned[1]),
+                    ("poisoned counters", poisoned[2])):
+        if bool((x != 0).any()):  # NaN != 0 too
+            raise AssertionError(f"flash_bwd_prep left its {name} "
+                                 f"non-zero at {where}")
+    if not (torch.equal(alone, delta) and torch.equal(poisoned[0], delta)):
+        raise AssertionError(f"flash_bwd_prep's Delta differs from launch "
+                             f"to launch at {where}")
+    errs["bits_as_earlier"] = torch.equal(earlier, delta)
+    log(f"check flash_bwd_prep {where}: Delta {errs['delta']}, the "
+        f"accumulator {tuple(acc.shape)} and {counts.numel()} counters zero "
+        f"(also over NaN and -1), repeatable; the earlier flash_bwd_delta "
+        f"{errs['earlier_delta']}, bit-equal to the prep's: "
+        f"{errs['bits_as_earlier']} [tol {DELTA_TOL}]")
+    del delta, acc, counts, alone, poisoned, earlier, ref
+    return errs
+
+
+def _stats(ts) -> dict:
+    ts = sorted(ts)
+    return {"median_ms": ts[len(ts) // 2], "min_ms": ts[0],
+            "spread_ms": ts[-1] - ts[0], "rounds": len(ts)}
+
+
+def time_prep(o, do, card: str, where: str, rounds: int = PREP_ROUNDS):
+    """The prep against the earlier design at one shape, each timed three
+    ways over ``rounds`` rounds in turns (order reversed every other
+    round), as median, min and spread (max - min) in ms:
+
+    - ``wrapper``: ``attention_bwd_prep`` (``prep``) against the earlier
+      design as the backward ran it: ``flash_bwd_delta``'s C entry on a
+      fresh Delta and the two ``torch.zeros`` (``earlier``); Delta alone,
+      ``attention_delta`` (``delta``) against that C entry alone
+      (``earlier_delta``); and the yardsticks the port never calls,
+      ``torch.linalg.vecdot`` (Delta, rounded to bf16 where the kernels
+      write fp32) and vecdot with the two ``torch.zeros``
+      (``vecdot_zeros``: Delta with the fill);
+    - ``back_to_back``: LAUNCH_BURST C-entry launches between two events
+      (the earlier design's fill as ``zero_()`` of preallocated buffers);
+    - ``graph``: those launches replayed from a CUDA graph (the device's
+      time alone); a capture that fails raises.
+
+    The plain versions once. The earlier design's launches use the same
+    shortened launch path as the prep's, so the wrapper times part the
+    kernels and the fill, not two launch paths."""
+    import importlib
+
+    import torch
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    B, S, H, D = o.shape
+    n_count = B * H * -(-S // 64)
+    dev = o.device
+    delta = torch.empty((B * H, S), dtype=torch.float32, device=dev)
+    acc = torch.empty(o.shape, dtype=torch.float32, device=dev)
+    counts = torch.empty(n_count, dtype=torch.int32, device=dev)
+
+    def zeros():
+        return (torch.zeros(o.shape, dtype=torch.float32, device=dev),
+                torch.zeros(n_count, dtype=torch.int32, device=dev))
+
+    def earlier_delta():
+        out = torch.empty((B * H, S), dtype=torch.float32, device=dev)
+        att._launch("flash_bwd", "flash_bwd_delta", (o, do, out), False)
+        return out
+
+    def c_prep():
+        att._launch("flash_bwd", "flash_bwd_prep", (o, do, delta, acc,
+                                                    counts), False)
+
+    def c_earlier():
+        att._launch("flash_bwd", "flash_bwd_delta", (o, do, delta), False)
+        acc.zero_()
+        counts.zero_()
+
+    wrapper = {
+        "prep": lambda: att.attention_bwd_prep(o, do),
+        "earlier": lambda: (earlier_delta(), zeros()),
+        "delta": lambda: att.attention_delta(o, do),
+        "earlier_delta": earlier_delta,
+        "vecdot": lambda: torch.linalg.vecdot(o, do, dim=-1),
+        "vecdot_zeros": lambda: (torch.linalg.vecdot(o, do, dim=-1),
+                                 zeros())}
+    c_entry = {
+        "prep": c_prep, "earlier": c_earlier,
+        "delta": lambda: att._launch("flash_bwd", "flash_bwd_prep",
+                                     (o, do, delta, None, None), False),
+        "earlier_delta": lambda: att._launch(
+            "flash_bwd", "flash_bwd_delta", (o, do, delta), False)}
+    runs = {("wrapper", key): (fn, 1) for key, fn in wrapper.items()}
+    for key, fn in c_entry.items():
+        runs["back_to_back", key] = (launch_burst(fn), LAUNCH_BURST)
+    for key, fn in c_entry.items():
+        # the replay is the device's time that the shares of bound read: a
+        # capture that fails fails the phase
+        runs["graph", key] = (burst_graph(launch_burst(fn)).replay,
+                              LAUNCH_BURST)
+    times = {key: [] for key in runs}
+    for r in range(rounds):
+        for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            fn, per = runs[key]
+            times[key].append(cuda_time_ms(fn, 20 if per == 1 else 3,
+                                           warmup=1) / per)
+    out = {way: {} for way in ("wrapper", "back_to_back", "graph")}
+    for (way, key), ts in times.items():
+        out[way][key] = _stats(ts)
+    out["plain_ms"] = cuda_time_ms(
+        lambda: att.attention_bwd_prep_plain(o, do), 5, warmup=1)
+    out["plain_delta_ms"] = cuda_time_ms(
+        lambda: att.attention_delta_plain(o, do), 5, warmup=1)
+    del runs
+    log(f"time flash_bwd_prep {where} (B={B} S={S} H={H} D={D} "
+        f"{str(o.dtype).split('.')[-1]}), median / min / spread ms of "
+        f"{rounds} rounds: " + "; ".join(
+            f"{way} {key} {st['median_ms']:.4f} / {st['min_ms']:.4f} / "
+            f"{st['spread_ms']:.4f}"
+            for way in ("wrapper", "back_to_back", "graph")
+            for key, st in out[way].items())
+        + f"; plain {out['plain_ms']:.4f}, plain Delta "
+        f"{out['plain_delta_ms']:.4f} [{card}]")
+    return out
+
+
+def prep_entries(o, do, errs: dict, card: str, where: str) -> dict:
+    """The kernels line's entries of ``flash_bwd_prep`` and of the earlier
+    design ``flash_bwd_delta`` at one shape, from ``time_prep`` and the
+    errors of ``check_prep``. The prep's ``library_ms`` is None: no one
+    PyTorch call computes Delta with the fill (``vecdot_ms`` and
+    ``vecdot_zeros_ms`` stand beside it); Delta's is vecdot."""
+    B, S, H, D = o.shape
+    t = time_prep(o, do, card, where)
+    w, b2b, g = t["wrapper"], t["back_to_back"], t["graph"]
+
+    def ms(way, key):
+        return way[key]["median_ms"]
+
+    entries = {}
+    for kernel, key, plain in (("flash_bwd_prep", "prep", "plain_ms"),
+                               ("flash_bwd_delta", "earlier_delta",
+                                "plain_delta_ms")):
+        bound, by = bwd_bound(kernel, B, H, H, D, S, False, o.element_size())
+        entries[kernel] = {
+            "shape": [B, S, H, D], "ms": w[key]["median_ms"],
+            "min_ms": w[key]["min_ms"], "spread_ms": w[key]["spread_ms"],
+            "rounds": w[key]["rounds"], "back_to_back_ms": ms(b2b, key),
+            "graph_ms": ms(g, key), "plain_ms": t[plain], "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "max_abs_err": errs["delta" if kernel == "flash_bwd_prep"
+                                else "earlier_delta"]["max_abs"]}
+    prep = entries["flash_bwd_prep"]
+    prep.update(
+        vecdot_ms=w["vecdot"]["median_ms"],
+        vecdot_zeros_ms=w["vecdot_zeros"]["median_ms"],
+        delta_alone_ms=w["delta"]["median_ms"],
+        earlier_ms=w["earlier"]["median_ms"],
+        earlier_min_ms=w["earlier"]["min_ms"],
+        earlier_spread_ms=w["earlier"]["spread_ms"],
+        earlier_back_to_back_ms=ms(b2b, "earlier"),
+        earlier_graph_ms=ms(g, "earlier"),
+        bits_as_earlier=errs["bits_as_earlier"])
+    entries["flash_bwd_delta"]["library_ms"] = w["vecdot"]["median_ms"]
+    log(f"time flash_bwd_prep {where}: prep {prep['ms']:.4f} ms (min "
+        f"{prep['min_ms']:.4f}, graph {prep['graph_ms']}), bound "
+        f"{prep['bound_ms']:.4f} ms ({prep['bound_by']}), "
+        f"{100 * prep['bound_ms'] / prep['ms']:.1f}% of bound through the "
+        f"wrapper, {100 * prep['bound_ms'] / prep['graph_ms']:.1f}% "
+        f"replayed; "
+        f"earlier design (flash_bwd_delta + zeros) "
+        f"{prep['earlier_ms']:.4f} ms (graph {prep['earlier_graph_ms']}); "
+        f"vecdot {prep['vecdot_ms']:.4f}, vecdot + zeros "
+        f"{prep['vecdot_zeros_ms']:.4f} ms [{card}]")
+    return entries
 
 
 def time_attention(q, k, v, do, o, lse, delta, causal: bool,
                    rounds: int = TIME_ROUNDS, iters: int = 20):
     """The kernels at one shape, bf16, timed in turns over ``rounds``
     rounds (CUDA events, ``iters`` launches a time): the forward kernel and
-    the library's forward, ``flash_bwd`` alone (its C entry: no Delta, no
-    zeros), the backward as ``flash_attention_bwd`` runs it (Delta, zeros,
-    kernel, cast), the Delta kernel, the library's backward (which computes
-    its own Delta) and Delta's library call (vecdot, which rounds its
-    output to bf16 where the kernel writes fp32). The library calls are
-    yardsticks only, on the same inputs with K/V repeated to H heads
-    outside the timed region; the port never calls them. Returns each
-    run's round times and their medians."""
+    the library's forward, ``flash_bwd`` alone (its C entry: no prep), the
+    backward as ``flash_attention_bwd`` runs it (prep, kernel, cast) and
+    the library's backward (which computes its own Delta). The library
+    calls are yardsticks only, on the same inputs with K/V repeated to H
+    heads outside the timed region; the port never calls them. The prep
+    is timed on its own (``time_prep``). Returns each run's round times
+    and their medians."""
     import importlib
 
     import torch
@@ -1188,8 +1405,8 @@ def time_attention(q, k, v, do, o, lse, delta, causal: bool,
     dq_count = att.dq_counters(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
 
-    def fused():  # the C entry called directly: no counter, Delta or zeros
-        dq_count.zero_()  # but the order's counters (a launch counts in them)
+    def fused():  # the C entry called directly: no counter, no prep but
+        dq_count.zero_()  # the order's counters (a launch counts in them)
         att._launch("flash_bwd", "flash_bwd",
                     (q, k, v, do, lse, delta, dk, dv, dq_acc, dq_count),
                     causal)
@@ -1207,10 +1424,8 @@ def time_attention(q, k, v, do, o, lse, delta, causal: bool,
         "flash_bwd": fused,
         "backward": lambda: att.flash_attention_bwd(q, k, v, o, lse, do,
                                                     causal),
-        "flash_bwd_delta": lambda: att.attention_delta(o, do),
         "library_bwd": lambda: torch.autograd.grad(
             lib_out, (qg, kg, vg), dot, retain_graph=True),
-        "library_delta": lambda: torch.linalg.vecdot(o, do, dim=-1),
     }
     times = {key: [] for key in runs}
     for r in range(rounds):
@@ -1357,9 +1572,10 @@ def phase_vit_training(card: str) -> dict:
 
     L = cfg.n_layers
     launches, run = run_steps(step, VIT_STEPS, {
-        "flash_attention_fwd": L, "attention_delta": L,
+        "flash_attention_fwd": L, "attention_bwd_prep": L,
         "flash_attention_bwd": L, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0}, "vit training")
+        "flash_attention_bwd_dkv": 0,
+        "flash_bwd_delta": 0}, "vit training")
     fit = check_vit_fit(cfg, run, images, labels, model)
     totals = step_totals(profiled(step)[1], "vit training")
     log(f"vit training: one profiled step {totals}")
@@ -1440,14 +1656,15 @@ def phase_training(card: str, config: str = TRAIN_CONFIG,
         f"{TRAIN_BATCH} x {TRAIN_SEQ}")
     grad_check = check_training_grads(bundle, params, batch, label)
 
-    # bf16: one Delta and one flash_bwd a layer, never the earlier pair
+    # bf16: one prep and one flash_bwd a layer, never the earlier pair
     launches, run = run_steps(
         lambda: {"loss": bundle.step(params, opt_state, batch)[2]},
         TRAIN_STEPS, {
             "flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-            "attention_delta": cfg.n_layers,
+            "attention_bwd_prep": cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_bwd_delta": 0},
         label)
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / run["step_s_median"]
     breakdown = profile_step(bundle, params, opt_state, batch, label)
@@ -1482,10 +1699,8 @@ def run_steps(step, n_steps: int, per_step: dict, label: str):
     import numpy as np
     import torch
 
-    counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    kernel_launches(reset=True)
     values, times, enqueue = [], [], []
     for _ in range(n_steps):
         torch.cuda.synchronize()
@@ -1494,7 +1709,7 @@ def run_steps(step, n_steps: int, per_step: dict, label: str):
         enqueue.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    launches = {c.__name__: c.launches for c in counters}
+    launches = kernel_launches()
     peak_bytes = torch.cuda.max_memory_allocated()
     record = {key: [v[key].item() for v in values] for key in values[0]}
     losses = record["loss"]
@@ -1629,7 +1844,7 @@ MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul")
 
 
 KERNEL_NAMES = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
-                "flash_bwd_delta")
+                "flash_bwd_prep", "flash_bwd_delta")
 
 
 # the ops of MoEMLP's dispatch and combine (and their backward): the copy
@@ -1684,10 +1899,11 @@ def is_annotation(evt) -> bool:
 
 def profile_step(bundle, params, opt_state, batch, label: str) -> dict:
     """One more step under ``torch.profiler``: device ms of the flash
-    kernels; of the rest of the attention backward (``attn_bwd_glue``: the
-    device time under ``FlashAttention``'s backward other than the
-    ``flash_bwd`` kernel, i.e. the Delta kernel, the zeroed dQ accumulator
-    and its cast to bf16); of the matrix products by the layer their shapes
+    kernels, the prep ``flash_bwd_prep`` (Delta and the cleared dQ
+    accumulator) among them; of the rest of the attention backward
+    (``attn_bwd_glue``: the device time under ``FlashAttention``'s backward
+    other than those kernels, i.e. dQ's cast to bf16); of the matrix
+    products by the layer their shapes
     name (attention projections, MLP, lm_head; for a MoE config the expert
     products, batched over E, and the router's, with E columns); of a MoE
     config's router ops and its dispatch and combine (``MOE_ROUTER_OPS``,
@@ -2086,9 +2302,7 @@ def check_world1_attention(group, card: str):
     gen = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))
-    counters = kernel_counters()
-    for c in counters:
-        c.launches = 0
+    kernel_launches(reset=True)
     runs = {}
     for causal in (True, False):
         for name, fn in (("ring_attention", ring_attention),
@@ -2098,10 +2312,11 @@ def check_world1_attention(group, card: str):
             runs[name, causal] = (o.detach(), *torch.autograd.grad(
                 o, leaves, do))
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
-    want = {"flash_attention_fwd": 4, "attention_delta": 4,
+    launches = kernel_launches()
+    want = {"flash_attention_fwd": 4, "attention_bwd_prep": 4,
             "flash_attention_bwd": 4, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dkv": 0,
+            "flash_bwd_delta": 0}
     if launches != want:
         raise AssertionError(f"ring and Ulysses at world 1 launched "
                              f"{launches}, want {want}")
@@ -2179,11 +2394,13 @@ def ring_emulate_fwd(q, k, v, n: int, causal: bool):
 
 def ring_emulate_bwd(q, k, v, do, o, lse, n: int, causal: bool) -> dict:
     """Each block's backward fed rank i's merged lse and Delta, its dQ added
-    into rank i's one fp32 buffer, dK and dV summed at their owner in fp32;
-    the sums cast to q's dtype. Returns Delta and the gradients."""
+    into rank i's one fp32 buffer (Delta and that buffer's zeros from one
+    prep, as ``ring_attention_bwd`` takes them), dK and dV summed at their
+    owner in fp32; the sums cast to q's dtype. Returns Delta and the
+    gradients."""
     import torch
 
-    from ray_tpu_torch.ops.attention import attention_delta
+    from ray_tpu_torch.ops.attention import attention_bwd_prep
     from ray_tpu_torch.ops.ring_attention import block_backward
 
     L = q.shape[1] // n
@@ -2195,10 +2412,8 @@ def ring_emulate_bwd(q, k, v, do, o, lse, n: int, causal: bool) -> dict:
     dkv = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
            for _ in range(2)]
     for i in range(n):
-        delta = attention_delta(part(o, i), part(do, i))
+        delta, dq, _ = attention_bwd_prep(part(o, i), part(do, i))
         lse_i = part(lse, i).contiguous()  # the kernel reads it flat
-        dq = torch.zeros(part(q, i).shape, dtype=torch.float32,
-                         device=q.device)
         for j in ring_blocks(i, n, causal):
             dk, dv = block_backward(part(q, i), part(k, j), part(v, j),
                                     part(do, i), lse_i, delta,
@@ -2328,7 +2543,7 @@ def phase_ring_blocks(card: str):
       for the backward the plain backward's own change between the ring's
       lse, Delta and the unsharded ones (measured in fp32).
 
-    Times: each block kind, the merge, Delta at one rank's length, the
+    Times: each block kind, the merge, the prep at one rank's length, the
     whole emulated ring (every rank's work on this one card), the busiest
     rank's share (the last one: a real ring's step time) and the unsharded
     kernels, beside the bound."""
@@ -2341,18 +2556,17 @@ def phase_ring_blocks(card: str):
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v, do = (torch.randn(1, S, H, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))
-    counters = kernel_counters()
-    for c in counters:
-        c.launches = 0
+    kernel_launches(reset=True)
     runs = {(n, causal): ring_emulate(q, k, v, do, n, causal)
             for causal in (True, False) for n in RING_RANKS}
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = kernel_launches()
     blocks = sum(len(ring_blocks(i, n, causal)) for n in RING_RANKS
                  for causal in (True, False) for i in range(n))
-    want = {"flash_attention_fwd": blocks, "attention_delta":
+    want = {"flash_attention_fwd": blocks, "attention_bwd_prep":
             2 * sum(RING_RANKS), "flash_attention_bwd": blocks,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_bwd_delta": 0}
     if launches != want:
         raise AssertionError(f"ring blocks launched {launches}, want {want}")
     log(f"ring blocks: {RING_RANKS} virtual ranks, causal and full, "
@@ -2366,8 +2580,8 @@ def phase_ring_blocks(card: str):
         where = f"1 x {S}, {H} heads, D {D}, bf16, causal={int(causal)}"
         o_f, lse_f = att.flash_attention_fwd(q, k, v, causal)
         delta_f = att.attention_delta(o_f, do)
-        full = dict(zip(("dq", "dk", "dv"), att.flash_attention_bwd_rows(
-            q, k, v, do, lse_f, delta_f, causal)))
+        full = dict(zip(("dq", "dk", "dv"), att.flash_attention_bwd(
+            q, k, v, o_f, lse_f, do, causal)))
         plain_f, mag_f, _ = plain_bwd_chunked(q, k, v, do, lse_f, delta_f,
                                               causal)
         errs = {}
@@ -2428,12 +2642,14 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
     """Times of the ring's parts at each RING_RANKS (CUDA events, median of
     TIME_ROUNDS rounds in turns) beside the unsharded kernels: a diagonal
     block (causal when the ring is) and an off-diagonal one (full), forward
-    and backward, a merge, Delta at one rank's length, the whole emulated
-    ring (every rank's blocks on this one card) and the busiest rank's
-    share (the last one, which attends to every block). Beside each block
-    kind and the unsharded kernels, the library's call on the same inputs
-    (yardsticks the port never calls): one sdpa forward, the backward of
-    one (with its own Delta), and for Delta ``torch.linalg.vecdot``."""
+    and backward, a merge, the whole emulated ring (every rank's blocks on
+    this one card) and the busiest rank's share (the last one, which
+    attends to every block); the prep at one rank's length and at the
+    whole sequence against the earlier design (``prep_entries``, in the
+    causal call only: the prep does not depend on the mask). Beside each
+    block kind and the unsharded kernels, the library's call on the same
+    inputs (yardsticks the port never calls): one sdpa forward and the
+    backward of one (with its own Delta)."""
     import importlib
 
     import torch
@@ -2465,16 +2681,14 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
         "bwd": lambda: att.flash_attention_bwd_rows(q, k, v, do, lse_f,
                                                     delta_f, causal,
                                                     dq_acc=dq),
-        "delta": lambda: att.attention_delta(o_f, do),
-        "library_fwd": lib_fwd, "library_bwd": lib_bwd,
-        "library_delta": lambda: torch.linalg.vecdot(o_f, do, dim=-1)}
+        "prep": lambda: att.attention_bwd_prep(o_f, do),
+        "library_fwd": lib_fwd, "library_bwd": lib_bwd}
     for n in RING_RANKS:
         L = S // n
         qs, ks, vs, dos = (x[:, :L] for x in (q, k, v, do))
         o_b, lse_b = attend_block(qs, ks, vs, False)
         o32 = o_b.float()
-        delta = att.attention_delta(o_b, dos)
-        dq_b = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
+        delta, dq_b, _ = att.attention_bwd_prep(o_b, dos)
         diag_fwd, diag_bwd = library(qs, ks, vs, dos, causal)
         off_fwd, off_bwd = library(qs, ks, vs, dos, False)
         runs = {
@@ -2486,13 +2700,12 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
             "bwd_off_diagonal": lambda: block_backward(qs, ks, vs, dos,
                                                        lse_b, delta, False,
                                                        dq_b),
-            "delta": lambda: att.attention_delta(o_b, dos),
+            "prep": lambda: att.attention_bwd_prep(o_b, dos),
             "whole_ring": lambda: ring_emulate(q, k, v, do, n, causal),
             "library_fwd_diagonal": diag_fwd,
             "library_fwd_off_diagonal": off_fwd,
             "library_bwd_diagonal": diag_bwd,
-            "library_bwd_off_diagonal": off_bwd,
-            "library_delta": lambda: torch.linalg.vecdot(o_b, dos, dim=-1)}
+            "library_bwd_off_diagonal": off_bwd}
         times = {key: [] for key in runs}
         for r in range(TIME_ROUNDS):
             for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
@@ -2500,11 +2713,11 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
                 times[key].append(cuda_time_ms(runs[key], iters, warmup=1))
         ms = {key: sorted(t)[len(t) // 2] for key, t in times.items()}
         # the busiest rank, the last: its diagonal, n - 1 full blocks and
-        # n - 1 merges forward; Delta, the diagonal and n - 1 full blocks
+        # n - 1 merges forward; the prep, the diagonal and n - 1 full blocks
         # backward
         ms["last_rank_fwd"] = (ms["fwd_diagonal"] + (n - 1)
                                * (ms["fwd_off_diagonal"] + ms["merge"]))
-        ms["last_rank_bwd"] = (ms["delta"] + ms["bwd_diagonal"] + (n - 1)
+        ms["last_rank_bwd"] = (ms["prep"] + ms["bwd_diagonal"] + (n - 1)
                                * ms["bwd_off_diagonal"])
         # the plain versions once, at one block (the whole sequence's fp32
         # scores, 16 GB a tensor at 16384, are not timed)
@@ -2514,14 +2727,16 @@ def time_ring(q, k, v, do, o_f, lse_f, delta_f, causal: bool, card: str):
         ms["plain_bwd_diagonal"] = cuda_time_ms(
             lambda: att.flash_attention_bwd_plain(qs, ks, vs, o_b, lse_b,
                                                   dos, causal), 3, warmup=1)
-        ms["plain_delta"] = cuda_time_ms(
-            lambda: att.attention_delta_plain(o_b, dos), 20)
-        ms["delta_launches"] = time_delta_launches(
-            o_b, dos, card, f"ring block 1 x {L}")
+        if causal:
+            where = f"ring rank 1 x {L}, {H} heads, D {D}"
+            ms["prep_entries"] = prep_entries(
+                o_b, dos, check_prep(o_b, dos, where), card, where)
         out[n] = ms
     base = {key: cuda_time_ms(fn, 20) for key, fn in unsharded.items()}
-    base["delta_launches"] = time_delta_launches(o_f, do, card,
-                                                 f"ring unsharded 1 x {S}")
+    if causal:
+        where = f"ring unsharded 1 x {S}, {H} heads, D {D}"
+        base["prep_entries"] = prep_entries(
+            o_f, do, check_prep(o_f, do, where), card, where)
     fb, fby = flash_bound(B, H, H, D, S, causal, 2)
     bb, bby = bwd_bound("flash_bwd", B, H, H, D, S, causal, 2)
     out["unsharded"] = {**base, "fwd_bound_ms": fb, "fwd_bound_by": fby,
@@ -2662,9 +2877,10 @@ def mesh_runs(card: str, config: str, paths):
             lambda: {"loss": b.step(params, opt, batch)[2]}, MESH_STEPS, {
                 "flash_attention_fwd": (2 if cfg.remat else 1)
                 * cfg.n_layers,
-                "attention_delta": cfg.n_layers,
+                "attention_bwd_prep": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0},
             path)
         diffs = [abs(a - s) for a, s in zip(run["loss"], single)]
         parts = profile_step(b, params, opt, batch, path)
@@ -2875,8 +3091,9 @@ def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
                         label: str = "tensor parallel") -> dict:
     """The kernels at one rank's shape (bf16) against their plain versions
     (``check_attention``: TOL, BWD_TOL, DELTA_TOL), then ``time_attention``
-    beside ``flash_bound`` and ``bwd_bound``, the forward's and Delta's
-    launches alone (``time_launches``), and the plain versions timed."""
+    beside ``flash_bound`` and ``bwd_bound``, the forward's launches alone
+    (``time_launches``), the plain versions timed, and the prep against
+    the earlier design (``prep_entries``)."""
     import importlib
 
     import torch
@@ -2897,20 +3114,14 @@ def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
             warmup=1),
         "flash_bwd": cuda_time_ms(
             lambda: att.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                  causal), 3, warmup=1),
-        "flash_bwd_delta": cuda_time_ms(
-            lambda: att.attention_delta_plain(o, do), 20)}
+                                                  causal), 3, warmup=1)}
     bounds = {"flash_fwd": flash_bound(B, H, KVH, D, S, causal, 2),
               "flash_bwd": bwd_bound("flash_bwd", B, H, KVH, D, S, causal,
-                                     2),
-              "flash_bwd_delta": bwd_bound("flash_bwd_delta", B, H, KVH, D,
-                                           S, causal, 2)}
-    library = {"flash_fwd": "library_fwd", "flash_bwd": "library_bwd",
-               "flash_bwd_delta": "library_delta"}
+                                     2)}
+    library = {"flash_fwd": "library_fwd", "flash_bwd": "library_bwd"}
     max_err = {"flash_fwd": errs["o"]["max_abs"],
                "flash_bwd": max(errs[key]["max_abs"]
-                                for key in ("dq", "dk", "dv")),
-               "flash_bwd_delta": errs["delta"]["max_abs"]}
+                                for key in ("dq", "dk", "dv"))}
     out = {kernel: {"shape": [B, S, H, KVH, D], "causal": causal,
                     "ms": ms[kernel], "bound_ms": b, "bound_by": by,
                     "plain_ms": plain[kernel],
@@ -2918,7 +3129,6 @@ def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
                     "max_abs_err": max_err[kernel]}
            for kernel, (b, by) in bounds.items()}
     out["flash_bwd"]["backward_ms"] = ms["backward"]
-    out["flash_bwd_delta"].update(time_delta_launches(o, do, card, where))
     out["flash_fwd"].update(time_launches(
         "flash_fwd", "flash_fwd", (q, k, v, torch.empty_like(q),
                                    torch.empty_like(lse)), causal, card,
@@ -2931,6 +3141,7 @@ def time_rank_attention(B, H, KVH, D, S, rounds: int, card: str,
             f"{e['library_ms']:.4f} ms"
             for kernel, e in out.items())
         + f"; whole bf16 backward {ms['backward']:.4f} ms [{card}]")
+    out.update(prep_entries(o, do, errs, card, f"{label} {where}"))
     return out
 
 
@@ -2941,7 +3152,7 @@ def phase_tensor_parallel(card: str):
     columns) run forward and backward through the flash kernels, the
     partial products and the norms' gradients summed in-process in rank
     order (``tp_block_on_ranks``), launches counted over those runs alone
-    (T forward, Delta and ``flash_bwd`` launches at T ranks); then held
+    (T forward, prep and ``flash_bwd`` launches at T ranks); then held
     against the unsharded block with plain attention
     (``attention_impl="xla"``: the bound above TP_OTHER_ROUNDINGS). The
     vocabulary-parallel cross entropy over the same T at the 1b's
@@ -2954,10 +3165,10 @@ def phase_tensor_parallel(card: str):
     from ray_tpu_torch.models import CONFIGS
     from ray_tpu_torch.models.transformer import Block
 
-    counters = kernel_counters()
-    launches = {c.__name__: 0 for c in counters}
+    launches = dict.fromkeys(kernel_launches(), 0)
     report = {"card": card, "blocks": {}, "cross_entropy": {}}
-    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_prep": {},
+             "flash_bwd_delta": {}}
     for name, B, S, rank_counts in TP_CASES:
         cfg = CONFIGS[name]
         block = tp_block(cfg, seed=10)
@@ -2970,14 +3181,14 @@ def phase_tensor_parallel(card: str):
         runs = {}
         for T in rank_counts:
             ranks = [tp_rank_modules(block, T, t) for t in range(T)]
-            for c in counters:
-                c.launches = 0
+            kernel_launches(reset=True)
             runs[T] = tp_block_grads(block, ranks, x, pos, dout)
             torch.cuda.synchronize()
-            got = {c.__name__: c.launches for c in counters}
-            want = {"flash_attention_fwd": T, "attention_delta": T,
+            got = kernel_launches()
+            want = {"flash_attention_fwd": T, "attention_bwd_prep": T,
                     "flash_attention_bwd": T, "flash_attention_bwd_dq": 0,
-                    "flash_attention_bwd_dkv": 0}
+                    "flash_attention_bwd_dkv": 0,
+                    "flash_bwd_delta": 0}
             if got != want:
                 raise AssertionError(f"tensor parallel {name} at {T} ranks "
                                      f"launched {got}, want {want}")
@@ -3168,7 +3379,7 @@ def phase_seq_parallel(card: str):
     (``seq_block_on_ranks``: global RoPE positions, K/V repeated, the
     ring's blocks through the flash kernels, forward and backward), its
     launches counted over those runs alone (n(n + 1) / 2 forward and
-    ``flash_bwd`` launches and n Delta), held against the whole block with
+    ``flash_bwd`` launches and n preps), held against the whole block with
     plain attention (the bound above SEQ_OTHER_ROUNDINGS). At each block
     shape, diagonal (causal) and off-diagonal (full), the kernels against
     their plain versions (TOL, BWD_TOL, DELTA_TOL), then their times beside
@@ -3181,10 +3392,10 @@ def phase_seq_parallel(card: str):
 
     cfg = CONFIGS[TRAIN_CONFIG]
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    counters = kernel_counters()
-    launches = {c.__name__: 0 for c in counters}
+    launches = dict.fromkeys(kernel_launches(), 0)
     report = {"card": card, "blocks": {}}
-    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_delta": {}}
+    times = {"flash_fwd": {}, "flash_bwd": {}, "flash_bwd_prep": {},
+             "flash_bwd_delta": {}}
     block = tp_block(cfg, seed=12)
     gen = torch.Generator(device="cuda").manual_seed(13)
     x, dout = (torch.randn(B, S, cfg.d_model, generator=gen, device="cuda",
@@ -3193,17 +3404,17 @@ def phase_seq_parallel(card: str):
     names = ["x"] + [k for k, _ in block.named_parameters()]
     runs = {}
     for n in SEQ_RANKS:
-        for c in counters:
-            c.launches = 0
+        kernel_launches(reset=True)
         out = seq_block_on_ranks(block, x, n)
         grads = torch.autograd.grad(out, [x] + list(block.parameters()),
                                     dout)
         torch.cuda.synchronize()
-        got = {c.__name__: c.launches for c in counters}
+        got = kernel_launches()
         pairs = n * (n + 1) // 2
-        want = {"flash_attention_fwd": pairs, "attention_delta": n,
+        want = {"flash_attention_fwd": pairs, "attention_bwd_prep": n,
                 "flash_attention_bwd": pairs, "flash_attention_bwd_dq": 0,
-                "flash_attention_bwd_dkv": 0}
+                "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0}
         if got != want:
             raise AssertionError(f"seq parallel at {n} ranks launched {got}, "
                                  f"want {want}")
@@ -3464,9 +3675,10 @@ def phase_traced_training(card: str):
             MESH_STEPS, {
                 "flash_attention_fwd": (2 if cfg.remat else 1)
                 * cfg.n_layers,
-                "attention_delta": cfg.n_layers,
+                "attention_bwd_prep": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0},
             "traced training")
         ledger = goodput.snapshot()
         spans = tracing.get_spans()
@@ -3906,9 +4118,7 @@ def phase_checkpointed_training(card: str):
                     in_flight.append(saver.in_flight())
             return params, opt_state, losses, times, in_flight
 
-        counters = kernel_counters()
-        for c in counters:
-            c.launches = 0
+        kernel_launches(reset=True)
         # run A, uninterrupted
         bundle = fresh_bundle()
         params, opt_state = bundle.init(seed=0)
@@ -3986,7 +4196,7 @@ def phase_checkpointed_training(card: str):
             _, _, losses_r, times_r, _ = steps(
                 bundle, state["params"], opt_state, batches,
                 CKPT_STEPS - CKPT_SAVE_AT)
-        launches = {c.__name__: c.launches for c in counters}
+        launches = kernel_launches()
         # against run B, which held the same state at the save: the first
         # resumed step is B's step 4 on the same state and batch through a
         # deterministic forward, so equal; the rest at most by a reordered
@@ -3998,9 +4208,10 @@ def phase_checkpointed_training(card: str):
         n_steps = 2 * CKPT_STEPS + CKPT_STEPS - CKPT_SAVE_AT
         want = {"flash_attention_fwd": (2 if cfg.remat else 1)
                 * cfg.n_layers * n_steps,
-                "attention_delta": cfg.n_layers * n_steps,
+                "attention_bwd_prep": cfg.n_layers * n_steps,
                 "flash_attention_bwd": cfg.n_layers * n_steps,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0}
         if launches != want:
             raise AssertionError(f"checkpointed training launched "
                                  f"{launches}, want {want}")
@@ -4087,15 +4298,13 @@ class RuntimeServer:
 
         asyncio.run(serve_all(2))
         torch.cuda.synchronize()
-        counters = kernel_counters()
-        for c in counters:
-            c.launches = 0
+        kernel_launches(reset=True)
         server.engine.metrics = dict.fromkeys(server.engine.metrics, 0)
         t0 = time.perf_counter()
         answered = asyncio.run(serve_all(32))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        launches = kernel_launches()
         metrics = server.engine_metrics()
         return {"token_ids": [res["token_ids"] for res in answered],
                 "launches": launches, "wall_s": wall, "metrics": metrics,
@@ -4283,11 +4492,7 @@ def runtime_training_loop(config):
     from ray_tpu_torch import train
     from ray_tpu_torch.models import CONFIGS
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops.attention import (attention_delta,
-                                             flash_attention_bwd,
-                                             flash_attention_bwd_dkv,
-                                             flash_attention_bwd_dq,
-                                             flash_attention_fwd)
+    from ray_tpu_torch.ops.attention import launch_counts
     from ray_tpu_torch.parallel import (OptState, TrainStepBundle,
                                         make_optimizer)
     from ray_tpu_torch.train.checkpoint import checkpoint_store
@@ -4340,10 +4545,7 @@ def runtime_training_loop(config):
     torch.cuda.synchronize()
     info["setup_s"] = time.perf_counter() - t
     info["start"] = start
-    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
-                flash_attention_bwd_dq, flash_attention_bwd_dkv)
-    for c in counters:
-        c.launches = 0
+    launch_counts(reset=True)
     for step in range(start, config["steps"]):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -4352,7 +4554,7 @@ def runtime_training_loop(config):
         torch.cuda.synchronize()
         row = {"step": step + 1, "loss": loss,
                "step_s": time.perf_counter() - t,
-               "launches": {c.__name__: c.launches for c in counters},
+               "launches": launch_counts(),
                "pid": os.getpid(), "start": start}
         metrics = {k: row[k] for k in ("step", "loss", "step_s", "launches")}
         if step + 1 == config["ckpt_after"]:
@@ -4568,9 +4770,10 @@ def phase_runtime_training(card: str, training: dict) -> dict:
                              f"reference's {want} by {worst} (relative), "
                              f"beyond {CKPT_LOSS_RTOL}")
     per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-                "attention_delta": cfg.n_layers,
+                "attention_bwd_prep": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0}
     launches = dict.fromkeys(per_step, 0)
     for inc in (first, second):
         got = inc[-1]["launches"]
@@ -5957,10 +6160,11 @@ def phase_pipeline(card: str) -> dict:
                                                        PIPE_STAGES)):
         L = stop - start
         fwd = L * remat + (0 if s == PIPE_STAGES - 1 else L)
-        per_mb.append({"flash_attention_fwd": fwd, "attention_delta": L,
+        per_mb.append({"flash_attention_fwd": fwd, "attention_bwd_prep": L,
                        "flash_attention_bwd": L,
                        "flash_attention_bwd_dq": 0,
-                       "flash_attention_bwd_dkv": 0})
+                       "flash_attention_bwd_dkv": 0,
+                       "flash_bwd_delta": 0})
     for s, got in enumerate(stage_launches):
         want = {k: v * PIPE_MICROBATCHES * PIPE_STEPS
                 for k, v in per_mb[s].items()}
@@ -5968,7 +6172,7 @@ def phase_pipeline(card: str) -> dict:
             raise AssertionError(f"pipeline stage {s} launched {got}, want "
                                  f"{want}")
         if not all(got[k] > 0 for k in ("flash_attention_fwd",
-                                         "attention_delta",
+                                         "attention_bwd_prep",
                                          "flash_attention_bwd")):
             raise AssertionError(f"pipeline stage {s} did not launch every "
                                  f"kernel: {got}")
@@ -6414,11 +6618,7 @@ def trainable(config):
     setup = {"pid": os.getpid(), "started_at": started_at,
              "ready_at": time.time(), "cuda_init_s": cuda_init_s,
              "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
-    counters = (att.flash_attention_fwd, att.attention_delta,
-                att.flash_attention_bwd, att.flash_attention_bwd_dq,
-                att.flash_attention_bwd_dkv)
-    for c in counters:
-        c.launches = 0
+    att.launch_counts(reset=True)
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for t in range(1, CFG["max_t"] + 1):
@@ -6431,7 +6631,7 @@ def trainable(config):
         publish_metrics()  # the step histograms, for /metrics
         tune.report({"loss": losses[-1], "training_iteration": t,
                      "losses": list(losses), "step_s": list(step_s),
-                     "launches": {c.__name__: c.launches for c in counters},
+                     "launches": att.launch_counts(),
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      **setup})
     return {}
@@ -6551,9 +6751,10 @@ def phase_cluster_services(card: str, training: dict) -> dict:
     free_before, total = torch.cuda.mem_get_info()
     cfg = CONFIGS[TRAIN_CONFIG]
     per_step = {"flash_attention_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
-                "attention_delta": cfg.n_layers,
+                "attention_bwd_prep": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_bwd_delta": 0}
     want = training["loss"]
     metrics = {"card": card, "free_bytes_before": free_before,
                "total_bytes": total}
@@ -7157,27 +7358,33 @@ def main() -> int:
     log("phase seconds: " + json.dumps(seconds))
     wrapper = {"flash_fwd": "flash_attention_fwd",
                "flash_bwd": "flash_attention_bwd",
-               "flash_bwd_delta": "attention_delta",
+               "flash_bwd_prep": "attention_bwd_prep",
                "flash_bwd_dq": "flash_attention_bwd_dq",
-               "flash_bwd_dkv": "flash_attention_bwd_dkv"}
+               "flash_bwd_dkv": "flash_attention_bwd_dkv",
+               # no wrapper: ``launch_counts`` reads its C entry's count
+               "flash_bwd_delta": "flash_bwd_delta"}
     by_path = {kernel: {path: launches[fn] for path, launches in
                         paths.items()} for kernel, fn in wrapper.items()}
     by_path["flash_fwd"]["serving"] = serve_launches
     source = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
               "flash_bwd": "ray_tpu_torch/csrc/flash_bwd.cu",
+              "flash_bwd_prep": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_delta": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd.cu",
               "flash_bwd_dkv": "ray_tpu_torch/csrc/flash_bwd.cu"}
-    # flash_bwd_delta stands for plain XLA code (the JAX package computes
-    # Delta outside its kernels), not for a Pallas kernel
+    # flash_bwd_prep (and the earlier flash_bwd_delta) stands for plain XLA
+    # code (the JAX package computes Delta outside its kernels), not for a
+    # Pallas kernel
     replaces = {"flash_fwd": "ray_tpu/ops/attention.py:45",
                 "flash_bwd": ["ray_tpu/ops/attention.py:147",
                               "ray_tpu/ops/attention.py:184"],
+                "flash_bwd_prep": "ray_tpu/ops/attention.py:236",
                 "flash_bwd_delta": "ray_tpu/ops/attention.py:236",
                 "flash_bwd_dq": "ray_tpu/ops/attention.py:147",
                 "flash_bwd_dkv": "ray_tpu/ops/attention.py:184"}
     measured = {"flash_fwd": fwd, **{k: bwd[k] for k in (
-        "flash_bwd", "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv")}}
+        "flash_bwd", "flash_bwd_prep", "flash_bwd_delta", "flash_bwd_dq",
+        "flash_bwd_dkv")}}
     kernels = []
     for name, entry in measured.items():
         kernels.append({
@@ -7189,8 +7396,13 @@ def main() -> int:
             "ms": entry["ms"], "plain_ms": entry["plain_ms"],
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
-            **{key: entry[key] for key in ("mma_ms", "backward_ms",
-                                           "train_shape") if key in entry},
+            **{key: entry[key] for key in (
+                "mma_ms", "backward_ms", "train_shape", "min_ms", "spread_ms",
+                "rounds", "back_to_back_ms", "graph_ms", "vecdot_ms",
+                "vecdot_zeros_ms", "delta_alone_ms", "earlier_ms",
+                "earlier_min_ms", "earlier_spread_ms",
+                "earlier_back_to_back_ms", "earlier_graph_ms",
+                "bits_as_earlier") if key in entry},
             **({"d64_shapes": d64[name]} if name in d64 else {}),
             **({"tensor_parallel_shapes": tp[name]} if name in tp else {}),
             **({"seq_parallel_shapes": sp[name]} if name in sp else {})})

@@ -20,11 +20,15 @@
 //   fp32. fp32's backward is this pair.
 // - flash_bwd_dkv_mma: the mma.sync dK/dV in bf16, which with flash_bwd_dq
 //   is the earlier bf16 pair, kept only as the chip smoke's yardstick.
-// - flash_bwd_delta: Delta = rowsum(dO * O) in fp32, which the JAX package
+// - flash_bwd_prep: Delta = rowsum(dO * O) in fp32, which the JAX package
 //   computes with plain XLA (ray_tpu/ops/attention.py:236-239, not a
-//   Pallas kernel). Both dtypes' backward runs it first. As one torch
-//   expression it cost more than the fused kernel: fp32 copies of o and dO
-//   and a batched product of 1 x D by D x 1; this kernel reads o and dO once.
+//   Pallas kernel), and in the same launch the zeros that flash_bwd adds
+//   dQ into and orders its adds with. Both dtypes' backward runs it first
+//   (fp32 for Delta alone). As one torch expression Delta cost more than
+//   the fused kernel: fp32 copies of o and dO and a batched product of
+//   1 x D by D x 1; this kernel reads o and dO once.
+// - flash_bwd_delta: Delta alone, the earlier design of the prep's Delta,
+//   kept only as the chip smoke's yardstick.
 //
 // What changed against the TPU kernels, in both designs:
 // - q and dO are read as (B, S, H, D), k and v as (B, S, KVH, D), through
@@ -1117,6 +1121,170 @@ cudaError_t launch_delta(const void* o, const void* dout, void* delta, int B,
   return cudaGetLastError();
 }
 
+// -- the backward's preprocess: Delta and the dQ accumulator cleared ---------
+
+// One launch before flash_bwd: Delta = rowsum(dO * O) and, when given, the
+// fp32 dQ accumulator and the int32 counters of its adds' order (dq_index)
+// set to zero, which the earlier design left to two torch.zeros, each a
+// device operation and an allocation of its own.
+//
+// A work item is one 64-row q tile (flash_bwd's kWsQ) of one batch over a
+// group of hg heads: 64 hg rows (b, s, h), taken s-major so that the rows
+// of a contiguous o lie one after the other. kLanes threads share a row, one
+// 16-byte chunk of o and of dO each, summed as flash_bwd_delta_kernel sums
+// them (the same order, so Delta's bits are the same, and the same from run
+// to run); each thread has kPrepUnroll rows' loads in flight, and zeroes its
+// share of the same rows of the accumulator with 16-byte stores while they
+// land. The rows' sums are staged in shared memory as [h][s] and stored as
+// hg runs of up to 64 contiguous floats of Delta's (B * H, S) layout, where
+// a thread a row would scatter them S * 4 bytes apart; the item's hg
+// counters are cleared with them. The stage is double-buffered by the
+// item's parity, so one barrier an item suffices.
+//
+// A persistent grid of as many blocks as are resident at once strides over
+// the items, and the launcher narrows hg (from all H heads, at most
+// kPrepMaxHeads) until there are at least as many items as blocks, so
+// that small shapes (ViT, one tensor or ring rank) still fill every SM
+// and no ramp or tail of thousands of short blocks sets the time.
+constexpr int kPrepThreads = 256;
+constexpr int kPrepUnroll = 4;
+constexpr int kPrepMaxHeads = 32;
+
+// sum + the fp32 dot product of one 16-byte chunk of o and of dO
+template <typename T>
+__device__ __forceinline__ float chunk_dot(const uint4& x, const uint4& y,
+                                           float sum) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      sum = fmaf(__uint_as_float(xs[i]), __uint_as_float(ys[i]), sum);
+    } else {
+      const float2 a =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+      const float2 c =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+      sum = fmaf(a.x, c.x, fmaf(a.y, c.y, sum));
+    }
+  }
+  return sum;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kPrepThreads)
+flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                      float* __restrict__ delta, float* __restrict__ dq_acc,
+                      int* __restrict__ dq_count, int B, int S, int H, int hg,
+                      long long o_sb, long long o_ss, long long o_sh,
+                      long long do_sb, long long do_ss, long long do_sh,
+                      long long a_sb, long long a_ss, long long a_sh) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kLanes = D / kVec;                // 8, 16 or 32
+  constexpr int kRows = kPrepThreads / kLanes;    // rows a step
+  constexpr int kZeros = D / 4 / kLanes;          // 16-byte stores a row
+  __shared__ float stage[2][kBlockQ * kPrepMaxHeads];
+  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
+  const int n_groups = (H + hg - 1) / hg;
+  const int n_items = B * n_qt * n_groups;
+  const int lane = threadIdx.x % kLanes;
+  const int slot = threadIdx.x / kLanes;
+  int parity = 0;
+  for (int item = blockIdx.x; item < n_items;
+       item += gridDim.x, parity ^= 1) {
+    const int h0 = item % n_groups * hg;
+    const int qt = item / n_groups % n_qt;
+    const int b = item / n_groups / n_qt;
+    const int hv = min(hg, H - h0);
+    const int q0 = qt * kBlockQ;
+    const int n_rows = min(kBlockQ, S - q0) * hv;  // row r: s = q0 + r / hv
+    float* sums = stage[parity];
+    for (int r0 = 0; r0 < n_rows; r0 += kRows * kPrepUnroll) {
+      uint4 x[kPrepUnroll], y[kPrepUnroll];
+#pragma unroll
+      for (int u = 0; u < kPrepUnroll; ++u) {
+        const int r = r0 + slot + kRows * u;
+        x[u] = y[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (r < n_rows) {
+          const int s = q0 + r / hv, h = h0 + r % hv;
+          x[u] = __ldg(reinterpret_cast<const uint4*>(
+              o + b * o_sb + s * o_ss + h * o_sh) + lane);
+          y[u] = __ldg(reinterpret_cast<const uint4*>(
+              dout + b * do_sb + s * do_ss + h * do_sh) + lane);
+        }
+      }
+      if (dq_acc != nullptr) {
+#pragma unroll
+        for (int u = 0; u < kPrepUnroll; ++u) {
+          const int r = r0 + slot + kRows * u;
+          if (r < n_rows) {
+            const int s = q0 + r / hv, h = h0 + r % hv;
+            float4* row = reinterpret_cast<float4*>(dq_acc + b * a_sb +
+                                                    s * a_ss + h * a_sh);
+#pragma unroll
+            for (int z = 0; z < kZeros; ++z)
+              row[lane + kLanes * z] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPrepUnroll; ++u) {
+        float sum = chunk_dot<T>(x[u], y[u], 0.f);
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off /= 2)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const int r = r0 + slot + kRows * u;
+        if (lane == 0 && r < n_rows) sums[r % hv * kBlockQ + r / hv] = sum;
+      }
+    }
+    if (dq_count != nullptr && (int)threadIdx.x < hv)
+      dq_count[(long long)(b * H + h0 + threadIdx.x) * n_qt + qt] = 0;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < hv * kBlockQ; idx += kPrepThreads) {
+      const int i = idx % kBlockQ;
+      if (q0 + i < S)
+        delta[(long long)(b * H + h0 + idx / kBlockQ) * S + q0 + i] =
+            sums[idx];
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_prep(const void* o, const void* dout, void* delta,
+                        void* dq_acc, void* dq_count, int B, int S, int H,
+                        const long long* st, cudaStream_t stream) {
+  auto kernel = flash_bwd_prep_kernel<T, D>;
+  // blocks resident on an SM at once: the same for every launch
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kPrepThreads, 0);
+    if (err != cudaSuccess) return err;
+  }
+  int device = 0, n_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const long long n_qt = (S + kBlockQ - 1) / kBlockQ;
+  const long long resident = (long long)per_sm * n_sm;
+  int hg = H < kPrepMaxHeads ? H : kPrepMaxHeads;
+  while (hg > 1 && B * n_qt * ((H + hg - 1) / hg) < resident)
+    hg = (hg + 1) / 2;
+  const long long n_items = B * n_qt * ((H + hg - 1) / hg);
+  if (n_items == 0) return cudaSuccess;
+  const long long* a = dq_acc != nullptr ? st + 6 : st;  // unused when null
+  const int grid = (int)(n_items < resident ? n_items : resident);
+  kernel<<<grid, kPrepThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), static_cast<float*>(dq_acc),
+      static_cast<int*>(dq_count), B, S, H, hg, st[0], st[1], st[2], st[3],
+      st[4], st[5], a[0], a[1], a[2]);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool SPLIT>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
@@ -1269,9 +1437,41 @@ extern "C" int flash_bwd_dkv_mma(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// flash_bwd_prep: what the backward needs before flash_bwd, in one launch:
+// Delta = rowsum(dO * O), fp32 (B * H, S), from o and dO (B, S, H, D),
+// bf16 or fp32, D 64 or 128, 16-byte aligned; and, unless null, dq_acc (an
+// fp32 (B, S, H, D) tensor) and dq_count (B * H * ceil(S / 64) int32) set
+// to zero, the state flash_bwd starts from. strides: o, dO, then dq_acc's
+// when it is given. KVH and causal are unused (the entry points share one
+// binding). What the backward runs (ops/attention.py:attention_bwd_prep;
+// Delta alone for the fp32 pair and the ring's blocks' callers).
+extern "C" int flash_bwd_prep(const void* o, const void* dout, void* delta,
+                              void* dq_acc, void* dq_count, int dtype, int B,
+                              int S, int H, int KVH, int D,
+                              const long long* strides, int causal,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch_prep<__nv_bfloat16, 64>(o, dout, delta, dq_acc, dq_count,
+                                          B, S, H, strides, st);
+  if (dtype == 0 && D == 128)
+    return launch_prep<__nv_bfloat16, 128>(o, dout, delta, dq_acc, dq_count,
+                                           B, S, H, strides, st);
+  if (dtype == 1 && D == 64)
+    return launch_prep<float, 64>(o, dout, delta, dq_acc, dq_count, B, S, H,
+                                  strides, st);
+  if (dtype == 1 && D == 128)
+    return launch_prep<float, 128>(o, dout, delta, dq_acc, dq_count, B, S, H,
+                                   strides, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // flash_bwd_delta: Delta = rowsum(dO * O), fp32 (B * H, S), from o and dO
 // (B, S, H, D), bf16 or fp32, D 64 or 128, strides of o then dO, 16-byte
 // aligned. KVH and causal are unused (the entry points share one binding).
+// The earlier design of flash_bwd_prep's Delta (a thread a 16-byte chunk,
+// a block per 256 threads' rows); nothing in the package calls it: the
+// chip smoke times it beside the prep as a yardstick.
 extern "C" int flash_bwd_delta(const void* o, const void* dout, void* delta,
                                int dtype, int B, int S, int H, int KVH, int D,
                                const long long* strides, int causal,

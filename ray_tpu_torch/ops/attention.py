@@ -4,7 +4,9 @@ Counterpart of ``ray_tpu/ops/attention.py``. The TPU's Pallas kernels become
 CUDA kernels for ``sm_90a``, built with nvcc at first use and called through
 ctypes: ``_flash_fwd_kernel`` is ``csrc/flash_fwd.cu``, and the backward pair
 ``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel`` is ``csrc/flash_bwd.cu``
-(bf16: one kernel for both, ``flash_bwd``; fp32: the pair).
+(bf16: one kernel for both, ``flash_bwd``; fp32: the pair), after
+``flash_bwd_prep`` there, which computes Delta (plain XLA in the JAX
+package) and, for ``flash_bwd``, clears its dQ accumulator in one launch.
 Beside each, in this module, is its plain PyTorch version: the CPU tests run
 that one, and the chip smoke holds the kernel against it on the card. The
 custom VJP that joins them (``jax.custom_vjp`` there) is ``FlashAttention``,
@@ -93,47 +95,50 @@ def reference_attention(q, k, v, causal: bool = True,
 def _on_cpu(q, *others) -> bool:
     """True for CPU tensors (the plain versions), False for CUDA tensors (the
     kernels); raises for tensors split between devices or on another one."""
+    if q.is_cuda:
+        return False
     if q.device.type == "cpu":
         if any(x.device.type != "cpu" for x in others):
             raise ValueError("q, k and v must be on one device")
         return True
-    if q.device.type != "cuda":
-        raise ValueError(f"the flash kernels run on cuda or cpu, not "
-                         f"{q.device}")
-    return False
+    raise ValueError(f"the flash kernels run on cuda or cpu, not "
+                     f"{q.device}")
 
 
 def _check_kernel_inputs(kernel: str, q, k, v, *more) -> None:
     """Raise on what the kernels cannot take. ``more`` are further tensors of
     q's shape (dO in the backward)."""
+    device, dtype, size = q.get_device(), q.dtype, q.element_size()
+    # bf16 is read through TMA tensor maps: 16-byte aligned base and b, s, h
+    # strides; fp32 is loaded in pairs of elements
+    align = 16 if dtype == torch.bfloat16 else 2 * size
     for name, x in (("q", q), ("k", k), ("v", v), *(("do", x) for x in more)):
-        if x.device != q.device:
+        if x.get_device() != device:  # the wrappers' q is on a card
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != q.dtype:
-            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
-        if x.dim() != 4:
+        if x.dtype != dtype:
+            raise TypeError(f"{name} is {x.dtype}, q is {dtype}")
+        st = x.stride()
+        if len(st) != 4:
             raise ValueError(f"{name} must be (B, S, heads, D), got "
                              f"{tuple(x.shape)}")
-        if x.stride(-1) != 1:
+        if st[3] != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
-        # bf16 is read through TMA tensor maps: 16-byte aligned base and b,
-        # s, h strides; fp32 is loaded in pairs of elements
-        align = 16 if x.dtype == torch.bfloat16 else 2 * x.element_size()
-        if any(s * x.element_size() % align for s in x.stride()[:3]) or \
-                x.data_ptr() % align:
+        if ((st[0] | st[1] | st[2]) * size | x.data_ptr()) % align:
             raise ValueError(f"{name} must be aligned to {align} bytes: "
                              f"base and b, s, h strides")
-    if q.dtype not in _KERNEL_DTYPES:
+    if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{kernel} takes bf16 or fp32, got {q.dtype}")
-    B, S, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S \
-            or k.shape[3] != D:
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if any(x.shape != q.shape for x in more):
-        raise ValueError(f"do must have q's shape {tuple(q.shape)}")
-    if H % k.shape[2]:
-        raise ValueError(f"{H} query heads do not group over {k.shape[2]} "
+    shape, kshape = q.shape, k.shape
+    B, S, H, D = shape
+    if kshape != v.shape or kshape[0] != B or kshape[1] != S \
+            or kshape[3] != D:
+        raise ValueError(f"k {tuple(kshape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(shape)}")
+    for x in more:
+        if x.shape != shape:
+            raise ValueError(f"do must have q's shape {tuple(shape)}")
+    if H % kshape[2]:
+        raise ValueError(f"{H} query heads do not group over {kshape[2]} "
                          "KV heads")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} supports head_dim {KERNEL_HEAD_DIMS}, "
@@ -147,8 +152,9 @@ def _check_row_stats(q, **stats) -> None:
     a 16-byte aligned base (the bf16 kernels read them through tensor
     maps)."""
     B, S, H, _ = q.shape
+    device = q.get_device()
     for name, x in stats.items():
-        if x.device != q.device or x.dtype != torch.float32 \
+        if x.get_device() != device or x.dtype != torch.float32 \
                 or not x.is_contiguous() or x.numel() != B * H * S \
                 or x.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
@@ -157,29 +163,71 @@ def _check_row_stats(q, **stats) -> None:
                              f"{tuple(x.shape)} on {x.device}")
 
 
+# (library, C function) -> the ctypes function with its signature declared
+_ENTRIES: Dict[Tuple[str, str], object] = {}
+
+
+def _entry(lib_name: str, fn_name: str, n_pointers: int):
+    """The C function ``fn_name`` of ``csrc/<lib_name>.cu``, looked up once
+    and given its ctypes signature: without ``argtypes`` ctypes would pass
+    the 64-bit pointers and the stream as 32-bit ints."""
+    fn = getattr(_build.build(lib_name).lib, fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _ENTRIES[lib_name, fn_name] = fn
+    return fn
+
+
+# torch's own getters of the current card and of its current stream's
+# handle: the public ones add a lazy-init check and a ``torch.cuda.Stream``
+# object to every launch. A CPU-only torch has neither, and never launches.
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
+
+
+def _current_stream(index: int) -> int:
+    """The handle of card ``index``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+# launches of each C function, counted where ``_launch`` calls it: the
+# count of the earlier Delta kernel ``flash_bwd_delta``, which no wrapper
+# owns, that ``launch_counts`` reports
+entry_launches: Dict[str, int] = {}
+
+
+# ctypes array types of the strides, by length
+_STRIDES = {n: ctypes.c_longlong * n for n in range(3, 31, 3)}
+
+
 def _launch(lib_name: str, fn_name: str, tensors, causal: bool) -> None:
     """Call the C function ``fn_name`` of ``csrc/<lib_name>.cu`` on
-    ``tensors`` (q, k, v first; the b, s, h strides of each 4-d one are
-    passed in order) on q's device and current stream; raise if the launch
-    failed. The ctypes signature is declared on first use: without
-    ``argtypes`` ctypes would pass the 64-bit pointers and the stream as
-    32-bit ints."""
+    ``tensors`` (q, k, v first; None passes a null pointer; the b, s, h
+    strides of each 4-d one are passed in order) on q's device and its
+    current stream; raise if the launch failed. The device is switched
+    only when q is not on the current one."""
     q, k = tensors[:2]
-    fn = getattr(_build.build(lib_name).lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = _ENTRIES.get((lib_name, fn_name)) or _entry(lib_name, fn_name,
+                                                     len(tensors))
     B, S, H, D = q.shape
-    strides = [s for x in tensors if x.dim() == 4 for s in x.stride()[:3]]
-    c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(x.data_ptr() for x in tensors), _KERNEL_DTYPES[q.dtype],
-                 B, S, H, k.shape[2], D, c_strides, int(causal), stream)
+    strides = ()
+    for x in tensors:
+        if x is not None and x.dim() == 4:
+            strides += x.stride()[:3]
+    args = (*(None if x is None else x.data_ptr() for x in tensors),
+            _KERNEL_DTYPES[q.dtype], B, S, H, k.shape[2], D,
+            _STRIDES[len(strides)](*strides), int(causal))
+    index = q.get_device()
+    if index == _current_device():
+        err = fn(*args, _current_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _current_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    entry_launches[fn_name] = entry_launches.get(fn_name, 0) + 1
 
 
 def _launch_kernel(q, k, v, causal: bool):
@@ -223,43 +271,91 @@ def attention_delta_plain(o, do) -> torch.Tensor:
     return delta.reshape(B * H, S).contiguous()
 
 
-def attention_delta(o, do) -> torch.Tensor:
-    """Delta as ``attention_delta_plain``. On CUDA tensors this launches
-    ``flash_bwd_delta`` of ``csrc/flash_bwd.cu`` (bf16 or fp32, head_dim 64
-    or 128) or raises: the plain expression's fp32 copies of o and dO cost
-    more than the fused backward kernel. CPU tensors take the plain version.
-    ``attention_delta.launches`` counts launches."""
-    if _on_cpu(o, do):
-        return attention_delta_plain(o, do)
-    for name, x in (("o", o), ("do", do)):
-        if x.device != o.device or x.dtype != o.dtype or x.shape != o.shape:
-            raise ValueError(f"{name} must match o: {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-        if x.dim() != 4 or x.stride(-1) != 1:
-            raise ValueError(f"{name} must be (B, S, H, D) with a "
-                             "contiguous last dim")
-        # 16-byte loads: aligned base and b, s, h strides
-        if any(s * x.element_size() % 16 for s in x.stride()[:3]) or \
-                x.data_ptr() % 16:
-            raise ValueError(f"{name} must be aligned to 16 bytes: base and "
-                             "b, s, h strides")
-    if o.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"flash_bwd_delta takes bf16 or fp32, got {o.dtype}")
-    if o.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_bwd_delta supports head_dim "
-                         f"{KERNEL_HEAD_DIMS}, got {o.shape[-1]}")
-    return _launch_delta(o, do)
-
-
-attention_delta.launches = 0
-
-
-def _launch_delta(o, do):
+def attention_bwd_prep_plain(o, do, for_dq: bool = True):
+    """``attention_bwd_prep``'s function in plain PyTorch: Delta
+    (``attention_delta_plain``) and, ``for_dq``, an fp32 tensor of zeros of
+    o's (B, S, H, D) shape and B * H * ceil(S / 64) int32 zeros; else None
+    and None."""
+    delta = attention_delta_plain(o, do)
+    if not for_dq:
+        return delta, None, None
     B, S, H, _ = o.shape
-    delta = torch.empty((B * H, S), dtype=torch.float32, device=o.device)
-    _launch("flash_bwd", "flash_bwd_delta", (o, do, delta), False)
-    attention_delta.launches += 1
-    return delta
+    return (delta, torch.zeros(o.shape, dtype=torch.float32, device=o.device),
+            torch.zeros(B * H * -(-S // 64), dtype=torch.int32,
+                        device=o.device))
+
+
+def _check_prep_inputs(o, do) -> None:
+    """Raise on o and dO that ``flash_bwd_prep`` cannot take, in one pass
+    over the two: equal (B, S, H, D) shapes, dtypes and devices, a
+    contiguous last dim, 16-byte aligned bases and b, s, h strides (the
+    kernel's loads are 16 bytes), bf16 or fp32, head_dim 64 or 128."""
+    shape, dtype = o.shape, o.dtype
+    if do.shape != shape or do.dtype != dtype or \
+            do.get_device() != o.get_device():
+        raise ValueError(f"do must match o: {do.dtype} {tuple(do.shape)} on "
+                         f"{do.device}, o {dtype} {tuple(shape)} on "
+                         f"{o.device}")
+    if len(shape) != 4:
+        raise ValueError(f"o must be (B, S, H, D) with a contiguous last "
+                         f"dim, got {tuple(shape)}")
+    ob, os_, oh, od = o.stride()
+    db, ds, dh, dd = do.stride()
+    if od != 1 or dd != 1:
+        raise ValueError(f"{'o' if od != 1 else 'do'} must be (B, S, H, D) "
+                         "with a contiguous last dim")
+    if ((ob | os_ | oh | db | ds | dh) * o.element_size()
+            | o.data_ptr() | do.data_ptr()) % 16:
+        raise ValueError("o and do must be aligned to 16 bytes: base and b, "
+                         "s, h strides")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"flash_bwd_prep takes bf16 or fp32, got {dtype}")
+    if shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_prep supports head_dim "
+                         f"{KERNEL_HEAD_DIMS}, got {shape[3]}")
+
+
+def attention_bwd_prep(o, do, for_dq: bool = True):
+    """What the backward needs before ``flash_bwd``: ``(delta, dq_acc,
+    counts)`` as ``attention_bwd_prep_plain``. Delta is (B * H, S) fp32;
+    ``for_dq``, dq_acc is a zeroed fp32 accumulator of o's shape (q's) and
+    counts the zeroed int32 counters that order ``flash_bwd``'s dQ adds,
+    one a (batch, head, 64-row q tile); without it both are None.
+
+    On CUDA tensors this launches ``flash_bwd_prep`` of
+    ``csrc/flash_bwd.cu`` once (bf16 or fp32, head_dim 64 or 128, any S)
+    or raises; there is no fallback: the plain expression's fp32 copies of
+    o and dO cost more than the fused backward kernel, and the zeros would
+    be two more device operations. CPU tensors take the plain version.
+    ``attention_bwd_prep.launches`` counts launches."""
+    if _on_cpu(o, do):
+        return attention_bwd_prep_plain(o, do, for_dq)
+    _check_prep_inputs(o, do)
+    return _launch_prep(o, do, for_dq)
+
+
+attention_bwd_prep.launches = 0
+
+
+def _launch_prep(o, do, for_dq: bool):
+    B, S, H, _ = o.shape
+    delta = o.new_empty((B * H, S), dtype=torch.float32)
+    dq_acc = counts = None
+    if for_dq:
+        dq_acc = o.new_empty(o.shape, dtype=torch.float32)
+        counts = o.new_empty(B * H * -(-S // 64), dtype=torch.int32)
+    _launch("flash_bwd", "flash_bwd_prep", (o, do, delta, dq_acc, counts),
+            False)
+    attention_bwd_prep.launches += 1
+    return delta, dq_acc, counts
+
+
+def attention_delta(o, do) -> torch.Tensor:
+    """Delta as ``attention_delta_plain``: ``attention_bwd_prep`` without
+    the accumulator (one ``flash_bwd_prep`` launch on CUDA tensors, counted
+    in ``attention_bwd_prep.launches``, or an error; the plain version on
+    CPU tensors)."""
+    return attention_bwd_prep(o, do, for_dq=False)[0]
 
 
 def bwd_softmax_grads(q, k, v, do, lse, delta, causal: bool):
@@ -368,21 +464,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True
     """Flash-attention backward: ``(dq, dk, dv)`` as
     ``flash_attention_bwd_plain``.
 
-    On CUDA tensors, Delta first, then by dtype (or an error; no fallback):
+    On CUDA tensors, by dtype (or an error; no fallback):
 
-    - bf16: one launch of ``flash_bwd`` of ``csrc/flash_bwd.cu``, which
-      computes dK and dV and adds each q tile's dQ into a zeroed fp32
-      accumulator in a fixed order (so every output is the same from run
-      to run), cast to bf16 after. ``flash_attention_bwd.launches`` counts
-      these launches;
-    - fp32: the pair, ``flash_attention_bwd_dq`` and
-      ``flash_attention_bwd_dkv`` (the ``mma.sync`` kernels).
+    - bf16: three device operations. Once every input is checked,
+      ``attention_bwd_prep`` (one ``flash_bwd_prep`` launch: Delta, the
+      zeroed fp32 dQ accumulator and the zeroed counters of its adds'
+      order), then one launch of ``flash_bwd`` of ``csrc/flash_bwd.cu`` on
+      those very buffers, which computes dK and dV and adds each q tile's
+      dQ into the accumulator in a fixed order (so every output is the
+      same from run to run), then dQ's cast to bf16.
+      ``flash_attention_bwd.launches`` counts the ``flash_bwd`` launches;
+    - fp32: Delta (``attention_delta``), then the pair,
+      ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the
+      ``mma.sync`` kernels).
 
     On CPU tensors: the plain version."""
     if _on_cpu(q, k, v, o, do):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    return flash_attention_bwd_rows(q, k, v, do, lse, attention_delta(o, do),
-                                    causal)
+    if q.dtype != torch.bfloat16:
+        return flash_attention_bwd_rows(q, k, v, do, lse,
+                                        attention_delta(o, do), causal)
+    _check_kernel_inputs("flash_bwd", q, k, v, do)
+    _check_row_stats(q, lse=lse)
+    _check_prep_inputs(o, do)  # o then has q's shape, as dO has
+    delta, dq_acc, counts = _launch_prep(o, do, True)
+    dq, dk, dv = _launch_bwd(q, k, v, do, lse, delta, causal, dq_acc, counts)
+    return dq.to(q.dtype), dk, dv
 
 
 flash_attention_bwd.launches = 0
@@ -403,8 +510,9 @@ def flash_attention_bwd_rows(q, k, v, do, lse, delta, causal: bool = True,
     into that buffer by TMA reduce-add in any case, so a caller summing dQ
     over several blocks pays neither a cast nor a rounding a block.
 
-    On CUDA tensors bf16 launches ``flash_bwd`` (counted in
-    ``flash_attention_bwd.launches``) and fp32 the pair
+    On CUDA tensors bf16 takes ``dq_acc`` (zeroed, as
+    ``attention_bwd_prep`` returns it) and launches ``flash_bwd`` (counted
+    in ``flash_attention_bwd.launches``), and fp32 the pair
     ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, or raises;
     CPU tensors take the plain version."""
     if dq_acc is not None and (dq_acc.shape != q.shape
@@ -422,9 +530,14 @@ def flash_attention_bwd_rows(q, k, v, do, lse, delta, causal: bool = True,
         dq, dk, dv = bwd_products(p, ds, q, k, do)
         return dq_acc.add_(dq), dk.to(k.dtype), dv.to(v.dtype)
     if q.dtype == torch.bfloat16:
+        if dq_acc is None:
+            raise ValueError("bf16 on the card takes the caller's dq_acc "
+                             "(zeroed by attention_bwd_prep); "
+                             "flash_attention_bwd makes its own")
         _check_kernel_inputs("flash_bwd", q, k, v, do)
         _check_row_stats(q, lse=lse, delta=delta)
-        return _launch_bwd(q, k, v, do, lse, delta, causal, dq_acc)
+        return _launch_bwd(q, k, v, do, lse, delta, causal, dq_acc,
+                           dq_counters(q))
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     return (dq if dq_acc is None else dq_acc.add_(dq)), dk, dv
@@ -433,23 +546,22 @@ def flash_attention_bwd_rows(q, k, v, do, lse, delta, causal: bool = True,
 def dq_counters(q: torch.Tensor) -> torch.Tensor:
     """The zeros that ``flash_bwd`` orders its dQ adds with: one int32 a
     (batch, head, 64-row q tile) of q (B, S, H, D). A launch counts in
-    them, so each launch takes fresh ones."""
+    them, so each launch takes fresh ones (``attention_bwd_prep`` makes
+    them in its launch; this is for a caller's accumulator)."""
     B, S, H, _ = q.shape
     return torch.zeros(B * H * -(-S // 64), dtype=torch.int32,
                        device=q.device)
 
 
-def _launch_bwd(q, k, v, do, lse, delta, causal: bool, dq_acc=None):
-    # the kernel adds every q tile's share into the accumulator, so a fresh
-    # one starts at 0
-    out = dq_acc if dq_acc is not None else torch.zeros(
-        q.shape, dtype=torch.float32, device=q.device)
+def _launch_bwd(q, k, v, do, lse, delta, causal: bool, dq_acc, counts):
+    """``flash_bwd`` adding dQ into ``dq_acc`` in the order ``counts``
+    (fresh zeros) keeps; returns ``(dq_acc, dk, dv)``."""
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _launch("flash_bwd", "flash_bwd",
-            (q, k, v, do, lse, delta, dk, dv, out, dq_counters(q)), causal)
+            (q, k, v, do, lse, delta, dk, dv, dq_acc, counts), causal)
     flash_attention_bwd.launches += 1
-    return (out if dq_acc is not None else out.to(q.dtype)), dk, dv
+    return dq_acc, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
@@ -516,13 +628,16 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
-    """This process's launch count of each kernel wrapper, by its name; set
-    to 0 after reading when ``reset``. What a serving process reports so a
-    caller can see which kernels its path ran."""
-    wrappers = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+    """This process's launch count of each kernel wrapper, by its name, and
+    of the earlier Delta kernel's C entry, ``flash_bwd_delta``, which no
+    wrapper launches; set to 0 after reading when ``reset``. What a serving
+    process reports so a caller can see which kernels its path ran."""
+    wrappers = (flash_attention_fwd, attention_bwd_prep, flash_attention_bwd,
                 flash_attention_bwd_dq, flash_attention_bwd_dkv)
     counts = {fn.__name__: fn.launches for fn in wrappers}
+    counts["flash_bwd_delta"] = entry_launches.get("flash_bwd_delta", 0)
     if reset:
         for fn in wrappers:
             fn.launches = 0
+        entry_launches.clear()
     return counts

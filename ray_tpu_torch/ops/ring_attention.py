@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from ray_tpu_torch.ops.attention import (attention, attention_delta,
+from ray_tpu_torch.ops.attention import (attention, attention_bwd_prep,
                                          flash_attention_bwd_rows,
                                          flash_attention_fwd)
 
@@ -134,8 +134,10 @@ def ring_attention_bwd(q, k, v, o, lse, do, group, causal: bool = True):
     group = _group(group)
     n, rank = group.world_size, group.rank
     do = do.contiguous()
-    delta = attention_delta(o, do)  # of the merged output, for every block
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    # Delta of the merged output, for every block, and the zeroed fp32 dQ
+    # that every block adds into, from one launch (the counters are for a
+    # single flash_bwd launch: each block's takes fresh ones)
+    delta, dq, _ = attention_bwd_prep(o, do)
     kv = (k.contiguous(), v.contiguous())
     # the owner's dK, dV so far: they travel with K, V and, after the last
     # step, one rank further, which is back to their owner

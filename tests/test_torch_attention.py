@@ -17,7 +17,7 @@ pytest.importorskip("flax")  # the JAX reference; the card's machine lacks it
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from ray_tpu.ops.attention import _flash_fwd_impl
+from ray_tpu.ops.attention import _flash_fwd_impl, _to_bh
 from ray_tpu.ops.attention import flash_attention_bwd as jax_flash_bwd
 from ray_tpu.ops.attention import reference_attention as jax_reference
 from ray_tpu_torch.ops import _build
@@ -25,7 +25,7 @@ from ray_tpu_torch.ops.attention import (
     FlashAttention,
     _check_kernel_inputs,
     attention,
-    attention_delta,
+    attention_bwd_prep,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -178,11 +178,12 @@ def test_kernel_binding_declares_every_argument(monkeypatch):
 
     entry = EntryPoint()
     att = importlib.import_module("ray_tpu_torch.ops.attention")
+    monkeypatch.setattr(att, "_ENTRIES", {})  # looked up once, from here
     monkeypatch.setattr(_build, "build", lambda name: types.SimpleNamespace(
         lib=types.SimpleNamespace(flash_fwd=entry)))
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d:
-                        types.SimpleNamespace(cuda_stream=0x7F12_3456_789A))
+    # q's device (a CPU tensor's, -1) is the current one: no switch
+    monkeypatch.setattr(att, "_current_device", lambda: -1)
+    monkeypatch.setattr(att, "_current_stream", lambda index: 0x7F12_3456_789A)
     q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 8, 4, 2, 64))
     before = flash_attention_fwd.launches
     att._launch_kernel(q, k, v, True)
@@ -195,6 +196,49 @@ def test_kernel_binding_declares_every_argument(monkeypatch):
     assert entry.args[0] == q.data_ptr() and entry.args[-1] == 0x7F12_3456_789A
     assert list(entry.args[5:11]) == [1, 1, 8, 4, 2, 64]  # fp32, B S H KVH D
     assert flash_attention_fwd.launches == before + 1
+    # the second launch reuses the entry as declared: no second lookup
+    monkeypatch.setattr(_build, "build", lambda name: pytest.fail("looked up"))
+    att._launch_kernel(q, k, v, True)
+    assert flash_attention_fwd.launches == before + 2
+
+
+@pytest.mark.parametrize("current", [True, False], ids=["current", "other"])
+def test_launch_switches_device_only_off_the_current_one(monkeypatch,
+                                                         current):
+    """The launch path enters ``torch.cuda.device`` only when q lies on
+    another card than the current one, and takes that card's stream."""
+    import contextlib
+    import ctypes
+    import importlib
+    import types
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    switched, streams = [], []
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+
+        def __call__(self, *args):
+            return 0
+
+    @contextlib.contextmanager
+    def device(index):
+        switched.append(index)
+        yield
+
+    monkeypatch.setattr(att, "_ENTRIES", {})
+    monkeypatch.setattr(_build, "build", lambda name: types.SimpleNamespace(
+        lib=types.SimpleNamespace(flash_fwd=EntryPoint())))
+    monkeypatch.setattr(att, "_current_device",
+                        lambda: -1 if current else 1)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(att, "_current_stream",
+                        lambda index: streams.append(index) or 7)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 8, 4, 2, 64))
+    att._launch_kernel(q, k, v, True)
+    assert switched == ([] if current else [-1])  # q's device
+    assert streams == [-1]
 
 
 def _bf16_view(shape, offset=0, row=None):
@@ -306,7 +350,8 @@ def test_plain_backward_builds_no_kernel():
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(12, 1, 32, 4, 2, 64))
     counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                flash_attention_bwd_dkv, flash_attention_bwd, attention_delta)
+                flash_attention_bwd_dkv, flash_attention_bwd,
+                attention_bwd_prep)
     before = [c.launches for c in counters]
     o = attention(q, k, v, True, "auto")
     dq, dk, dv = torch.autograd.grad(o.sum(), (q, k, v))
@@ -319,15 +364,60 @@ def test_plain_backward_builds_no_kernel():
                             meta[4], True)
 
 
-# per C entry point: its library function, the wrapper's launcher, the
+# Delta = rowsum(dO * O), the prep's plain path against the JAX package's
+# expression: both sum D exact products (bf16 or fp32 operands) in fp32, in
+# other orders; at D = 128 and sum |dO O| up to ~1e2 that parts them by at
+# most 128 * 2^-24 * 1e2 ~ 8e-4 (the chip smoke's DELTA_TOL)
+DELTA_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("S", [13, 70])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prep_plain_matches_jax_delta(dtype, D, S):
+    """``attention_bwd_prep`` on CPU tensors (its plain version) against
+    the JAX backward's Delta expression (``ray_tpu/ops/attention.py``'s
+    ``flash_attention_bwd``: fp32 rowsum of dO * O in (B * H, S, 1)), on the
+    same numpy inputs cast to the same dtype on both sides, at ragged S
+    (one partial 64-row tile; one full and one partial). The accumulator
+    and the counters come back as zeros of flash_bwd's shapes and dtypes;
+    without ``for_dq`` as None."""
+    B, H = 2, 3
+    rng = np.random.default_rng(15)
+    o, do = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+             for _ in range(2))
+    jo, jdo = (jnp.asarray(x, dtype=jnp.dtype(dtype)) for x in (o, do))
+    want = jnp.sum(_to_bh(jdo).astype(jnp.float32)
+                   * _to_bh(jo).astype(jnp.float32), axis=-1, keepdims=True)
+    to = torch.from_numpy(o).to(getattr(torch, dtype))
+    tdo = torch.from_numpy(do).to(getattr(torch, dtype))
+    before = attention_bwd_prep.launches
+    delta, acc, counts = attention_bwd_prep(to, tdo)
+    assert attention_bwd_prep.launches == before  # the plain version
+    assert delta.dtype == torch.float32 and delta.shape == (B * H, S)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want)[..., 0],
+                               atol=DELTA_ATOL, rtol=0)
+    assert acc.dtype == torch.float32 and acc.shape == (B, S, H, D)
+    assert counts.dtype == torch.int32
+    assert counts.shape == (B * H * -(-S // 64),)
+    assert not acc.any() and not counts.any()
+    alone, none_acc, none_counts = attention_bwd_prep(to, tdo, for_dq=False)
+    assert none_acc is None and none_counts is None
+    assert torch.equal(alone, delta)
+
+
+# per C entry point case: its library function, the wrapper's launcher, the
 # counter it adds to, the number of pointers it takes and of b, s, h strides
-# (3 for each 4-d tensor: q k v dO, then the outputs)
+# (3 for each 4-d tensor: q k v dO, then the outputs; the prep's o, dO, then
+# the accumulator it clears, when it is given one)
 BINDINGS = {
     "dq": ("flash_bwd_dq", "_launch_bwd_dq", "flash_attention_bwd_dq", 7, 15),
     "dkv": ("flash_bwd_dkv", "_launch_bwd_dkv", "flash_attention_bwd_dkv", 8,
             18),
-    "fused": ("flash_bwd", "_launch_bwd", "flash_attention_bwd", 10, 21),
-    "delta": ("flash_bwd_delta", "_launch_delta", "attention_delta", 3, 6),
+    "fused": ("flash_bwd", "flash_attention_bwd", "flash_attention_bwd", 10,
+              21),
+    "delta": ("flash_bwd_prep", "_launch_prep", "attention_bwd_prep", 5, 6),
+    "prep": ("flash_bwd_prep", "_launch_prep", "attention_bwd_prep", 5, 9),
 }
 
 
@@ -336,61 +426,89 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
     """As for the forward: the backward entry points get their ctypes
     signatures before the first call, and the wrapper passes the pointers,
     the shape, every b, s, h stride of the 4-d tensors and the stream. The
-    fused kernel's last two pointers are the fp32 dQ accumulator of q's
-    shape and the int32 counters of its adds' order, one a (batch, head,
-    64-row q tile), all zeros when the kernel is called (the kernel adds
-    into both)."""
-    import contextlib
+    prep (``flash_bwd_prep``) takes o, dO, Delta and, for flash_bwd, the
+    fp32 dQ accumulator of q's shape and the int32 counters of its adds'
+    order, one a (batch, head, 64-row q tile), which it clears; for Delta
+    alone those two are null. The fused bf16 backward (``flash_bwd``, the
+    stand-ins taking the card's place) launches the prep first and then
+    ``flash_bwd`` on the very Delta, accumulator and counters the prep
+    was given."""
     import ctypes
     import importlib
     import types
 
     fn_name, launcher, counter_name, n_ptr, n_strides = BINDINGS[kernel]
-    q, k, v = (torch.from_numpy(x) for x in _qkv(13, 1, 8, 4, 2, 64))
-    numel = q.numel()
+    dtype = torch.bfloat16 if kernel == "fused" else torch.float32
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(13, 1, 8, 4, 2, 64))
     n_count = 1 * 4 * 1  # B * H * ceil(S / 64)
+    calls = []
 
     class EntryPoint:
         argtypes = None
         restype = ctypes.c_int
 
+        def __init__(self, name):
+            self.name = name
+
         def __call__(self, *args):
-            self.args = args
-            if kernel == "fused":  # read the zeros as the kernel would
-                self.acc = np.ctypeslib.as_array(
-                    (ctypes.c_float * numel).from_address(args[8])).copy()
-                self.count = np.ctypeslib.as_array(
-                    (ctypes.c_int32 * n_count).from_address(args[9])).copy()
+            calls.append((self.name, args))
             return 0
 
-    entry = EntryPoint()
+    entries = {name: EntryPoint(name) for name in (fn_name, "flash_bwd_prep")}
     att = importlib.import_module("ray_tpu_torch.ops.attention")
+    monkeypatch.setattr(att, "_ENTRIES", {})
     monkeypatch.setattr(_build, "build", lambda name: types.SimpleNamespace(
-        lib=types.SimpleNamespace(**{fn_name: entry})))
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d:
-                        types.SimpleNamespace(cuda_stream=0x7F12_3456_789A))
+        lib=types.SimpleNamespace(**entries)))
+    monkeypatch.setattr(att, "_current_device", lambda: -1)
+    monkeypatch.setattr(att, "_current_stream", lambda index: 0x7F12_3456_789A)
     lse = torch.zeros(4, 8, 1)
     delta = torch.zeros(4, 8)
     counter = getattr(att, counter_name)
-    before = counter.launches
-    if kernel == "delta":
-        att._launch_delta(q, q)
+    before = counter.launches, att.attention_bwd_prep.launches
+    if kernel == "fused":
+        monkeypatch.setattr(att, "_on_cpu", lambda *tensors: False)
+        out = att.flash_attention_bwd(q, k, v, q, lse, q, True)
+        (prep, prep_args), (name, args) = calls
+        assert (prep, name) == ("flash_bwd_prep", "flash_bwd")
+        assert att.attention_bwd_prep.launches == before[1] + 1
+        # Delta, the accumulator and the counters the prep cleared
+        assert None not in prep_args[2:5]
+        assert (args[5], args[8], args[9]) == prep_args[2:5]
+        entry = entries["flash_bwd"]
     else:
-        out = getattr(att, launcher)(q, k, v, q, lse, delta, True)
+        if kernel in ("delta", "prep"):
+            out = att._launch_prep(q, q, kernel == "prep")
+        else:
+            out = getattr(att, launcher)(q, k, v, q, lse, delta, True)
+        ((name, args),) = calls
+        assert name == fn_name
+        entry = entries[fn_name]
     pointer, i32 = ctypes.c_void_p, ctypes.c_int
     assert entry.argtypes == ([pointer] * n_ptr + [i32] * 6
                               + [ctypes.POINTER(ctypes.c_longlong), i32,
                                  pointer])
-    assert len(entry.args) == len(entry.argtypes)
-    assert entry.args[0] == q.data_ptr() and entry.args[-1] == 0x7F12_3456_789A
-    kv_heads = 4 if kernel == "delta" else 2  # Delta's 2nd tensor is dO
-    assert list(entry.args[n_ptr:n_ptr + 6]) == [1, 1, 8, 4, kv_heads, 64]
-    assert len(entry.args[n_ptr + 6]) == n_strides
-    assert counter.launches == before + 1
+    assert entry.restype is ctypes.c_int
+    assert len(args) == len(entry.argtypes)
+    assert args[0] == q.data_ptr() and args[-1] == 0x7F12_3456_789A
+    kv_heads = 4 if kernel in ("delta", "prep") else 2  # the prep's dO
+    dtype_code = 0 if dtype == torch.bfloat16 else 1
+    assert list(args[n_ptr:n_ptr + 6]) == [dtype_code, 1, 8, 4, kv_heads, 64]
+    assert len(args[n_ptr + 6]) == n_strides
+    assert counter.launches == before[0] + 1
+    if kernel == "delta":
+        got_delta, acc, counts = out
+        assert acc is None and counts is None and args[3:5] == (None, None)
+        assert args[2] == got_delta.data_ptr()
+        assert got_delta.shape == (4, 8) and got_delta.dtype == torch.float32
+    if kernel == "prep":
+        got_delta, acc, counts = out
+        assert args[2:5] == tuple(x.data_ptr()
+                                  for x in (got_delta, acc, counts))
+        assert acc.shape == q.shape and acc.dtype == torch.float32
+        assert counts.shape == (n_count,) and counts.dtype == torch.int32
+        assert list(args[n_ptr + 6])[6:] == list(acc.stride()[:3])
     if kernel == "fused":
-        assert entry.acc.shape == (numel,) and not entry.acc.any()
-        assert not entry.count.any()
         assert att.dq_counters(q).shape == (n_count,)
         assert att.dq_counters(q).dtype == torch.int32
         dq, dk, dv = out
@@ -401,8 +519,9 @@ def test_backward_bindings_declare_every_argument(monkeypatch, kernel):
 def test_backward_dispatch_by_dtype(monkeypatch):
     """On CUDA tensors (``_on_cpu`` forced False here, the launchers replaced
     by recorders, as the binding tests replace ``_build.build``) the bf16
-    backward runs Delta and then ``flash_bwd`` once, and fp32 runs Delta and
-    the pair. Nothing is built."""
+    backward runs the prep (Delta with the cleared accumulator and
+    counters) and then ``flash_bwd`` once, and fp32 runs the prep for Delta
+    alone and the pair. Nothing is built."""
     import importlib
 
     att = importlib.import_module("ray_tpu_torch.ops.attention")
@@ -410,14 +529,19 @@ def test_backward_dispatch_by_dtype(monkeypatch):
 
     def recorder(name, result):
         def launch(*args):
-            calls.append(name)
+            calls.append(name(*args) if callable(name) else name)
             return result(*args)
         return launch
 
+    def prep(o, do, for_dq):
+        B, S, H, D = o.shape
+        return (torch.zeros(B * H, S),
+                torch.zeros(o.shape) if for_dq else None,
+                torch.zeros(B * H, dtype=torch.int32) if for_dq else None)
+
     monkeypatch.setattr(att, "_on_cpu", lambda *tensors: False)
-    monkeypatch.setattr(att, "_launch_delta", recorder(
-        "delta", lambda o, do: torch.zeros(o.shape[0] * o.shape[2],
-                                           o.shape[1])))
+    monkeypatch.setattr(att, "_launch_prep", recorder(
+        lambda o, do, for_dq: "prep" if for_dq else "delta", prep))
     monkeypatch.setattr(att, "_launch_bwd", recorder(
         "flash_bwd", lambda q, k, v, *rest: (q, k, v)))
     monkeypatch.setattr(att, "_launch_bwd_dq", recorder(
@@ -429,7 +553,7 @@ def test_backward_dispatch_by_dtype(monkeypatch):
         raise AssertionError(f"built {name}")
 
     monkeypatch.setattr(_build, "build", no_build)
-    for dtype, want in ((torch.bfloat16, ["delta", "flash_bwd"]),
+    for dtype, want in ((torch.bfloat16, ["prep", "flash_bwd"]),
                         (torch.float32, ["delta", "flash_bwd_dq",
                                          "flash_bwd_dkv"])):
         q, k, v = (torch.from_numpy(x).to(dtype)
@@ -439,3 +563,72 @@ def test_backward_dispatch_by_dtype(monkeypatch):
         dq, dk, dv = flash_attention_bwd(q, k, v, q, lse, q, True)
         assert calls == want, dtype
         assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+def test_bf16_rows_backward_on_the_card_takes_a_callers_accumulator(
+        monkeypatch):
+    """On CUDA tensors (``_on_cpu`` forced False) the bf16
+    ``flash_attention_bwd_rows`` takes the caller's zeroed ``dq_acc`` and
+    launches ``flash_bwd`` on it; without one it raises before any launch
+    (``flash_attention_bwd`` makes its own through the prep)."""
+    import importlib
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    launched = []
+    monkeypatch.setattr(att, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(att, "_launch_bwd", lambda q, k, v, do, lse, delta,
+                        causal, dq_acc, counts: launched.append(
+                            (dq_acc, counts)) or (dq_acc, k, v))
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(15, 1, 16, 4, 2, 64))
+    lse, delta = torch.zeros(4, 16, 1), torch.zeros(4, 16)
+    with pytest.raises(ValueError, match="dq_acc"):
+        att.flash_attention_bwd_rows(q, k, v, q, lse, delta, True)
+    assert launched == []
+    acc = torch.zeros(q.shape)
+    dq, dk, dv = att.flash_attention_bwd_rows(q, k, v, q, lse, delta, True,
+                                              acc)
+    ((got_acc, counts),) = launched
+    assert dq is acc and got_acc is acc
+    assert counts.dtype == torch.int32 and not counts.any()
+
+
+def test_launch_counts_count_each_c_entry_where_it_launches(monkeypatch):
+    """``_launch`` counts each C function's launches where it calls it, so
+    ``launch_counts`` reads the earlier Delta kernel ``flash_bwd_delta``,
+    which no wrapper owns, beside the wrappers and resets it with them; a
+    launch whose entry returns an error counts nothing."""
+    import ctypes
+    import importlib
+    import types
+
+    results = []
+
+    class EntryPoint:
+        argtypes = None
+        restype = ctypes.c_int
+
+        def __call__(self, *args):
+            return results.pop(0)
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    monkeypatch.setattr(att, "_ENTRIES", {})
+    monkeypatch.setattr(att, "entry_launches", {})
+    monkeypatch.setattr(_build, "build", lambda name: types.SimpleNamespace(
+        lib=types.SimpleNamespace(flash_bwd_delta=EntryPoint())))
+    monkeypatch.setattr(att, "_current_device", lambda: -1)
+    monkeypatch.setattr(att, "_current_stream", lambda index: 0)
+    o = torch.from_numpy(_qkv(16, 1, 8, 4, 2, 64)[0])
+    delta = torch.empty(4, 8)
+    wrappers = {k: v for k, v in att.launch_counts().items()
+                if k != "flash_bwd_delta"}
+    assert att.launch_counts()["flash_bwd_delta"] == 0
+    results[:] = [0, 0, 700]
+    for _ in range(2):
+        att._launch("flash_bwd", "flash_bwd_delta", (o, o, delta), False)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        att._launch("flash_bwd", "flash_bwd_delta", (o, o, delta), False)
+    counts = att.launch_counts(reset=True)
+    assert counts == {**wrappers, "flash_bwd_delta": 2}
+    assert att.launch_counts() == {**dict.fromkeys(wrappers, 0),
+                                   "flash_bwd_delta": 0}

@@ -18,12 +18,15 @@ from ray_tpu_torch.llm.config import EngineConfig, LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import TorchLLMEngine
 from ray_tpu_torch.models import (CONFIGS, VIT_CONFIGS, MoEMLP,
                                   VisionTransformer, classification_loss)
-from ray_tpu_torch.ops.attention import (attention, attention_delta,
+from ray_tpu_torch.ops.attention import (attention, attention_bwd_prep,
+                                         attention_bwd_prep_plain,
+                                         attention_delta,
                                          attention_delta_plain,
                                          bwd_products, bwd_softmax_grads,
                                          flash_attention_bwd,
                                          flash_attention_bwd_dkv,
                                          flash_attention_bwd_dq,
+                                         flash_attention_bwd_rows,
                                          flash_attention_fwd,
                                          flash_attention_fwd_plain)
 from ray_tpu_torch.parallel import TrainStepBundle, make_optimizer
@@ -201,8 +204,8 @@ def test_backward_kernels_match_plain(cuda_device, dtype):
     """The backward kernels against the plain backward on the same o, lse
     and Delta, causal and full: the pair (dQ and dK/dV, each on its own;
     bf16 dK/dV is the TMA / wgmma kernel without dQ) and, in bf16,
-    ``flash_bwd`` through ``flash_attention_bwd``, which runs Delta and the
-    one fused kernel."""
+    ``flash_bwd`` through ``flash_attention_bwd``, which runs the prep
+    (Delta and the cleared accumulator) and the one fused kernel."""
     for case in BWD_CASES:
         q, k, v, do = _bwd_inputs(cuda_device, dtype, case)
         for causal in (True, False):
@@ -216,11 +219,11 @@ def test_backward_kernels_match_plain(cuda_device, dtype):
             got = {"dq": dq, "dk": dk, "dv": dv}
             if dtype == torch.bfloat16:
                 fused_before = (flash_attention_bwd.launches,
-                                attention_delta.launches)
+                                attention_bwd_prep.launches)
                 fused = flash_attention_bwd(q, k, v, o, lse, do, causal)
                 assert (flash_attention_bwd.launches,
-                        attention_delta.launches) == (fused_before[0] + 1,
-                                                      fused_before[1] + 1)
+                        attention_bwd_prep.launches) == (fused_before[0] + 1,
+                                                         fused_before[1] + 1)
                 got.update(zip(("fused dq", "fused dk", "fused dv"), fused))
             torch.cuda.synchronize()
             assert (flash_attention_bwd_dq.launches,
@@ -253,15 +256,91 @@ def test_fused_backward_is_repeatable(cuda_device):
             assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
+# (B, S, H, D) of the prep: ragged S (1, 13, 70, 77, 1000: partial 64-row
+# tiles), both head dims, more heads than a work item takes (40 > 32), the
+# 1b's rank shapes' few heads, and o, dO as slices of one tensor
+PREP_CASES = [(2, 77, 4, 64, False), (1, 256, 4, 128, False),
+              (3, 1, 4, 64, False), (2, 13, 3, 128, False),
+              (2, 70, 12, 64, False), (1, 1000, 40, 128, False),
+              (4, 2048, 2, 128, False), (2, 200, 16, 64, True)]
+
+
+@pytest.mark.parametrize("case", PREP_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prep_matches_plain_on_poisoned_buffers(cuda_device, dtype, case):
+    """``flash_bwd_prep`` against ``attention_bwd_prep_plain``: Delta within
+    1e-3 (fp32 sums of exact products in other orders), and the dQ
+    accumulator and the counters exactly zero, from the wrapper's fresh
+    buffers and from the C entry on buffers first filled with NaN and -1.
+    Delta alone (``attention_delta``, null accumulator) and every launch
+    give the same bits; one launch a call."""
+    import importlib
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    B, S, H, D, sliced = case
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    if sliced:  # o and dO as slices of one (B, S, 2 H, D) tensor
+        both = torch.randn(B, S, 2 * H, D, generator=gen, device=cuda_device,
+                           dtype=dtype)
+        o, do = both[:, :, :H], both[:, :, H:]
+    else:
+        o, do = (torch.randn(B, S, H, D, generator=gen, device=cuda_device,
+                             dtype=dtype) for _ in range(2))
+    before = attention_bwd_prep.launches
+    delta, acc, counts = attention_bwd_prep(o, do)
+    alone = attention_delta(o, do)
+    assert attention_bwd_prep.launches == before + 2
+    poisoned = (torch.empty_like(delta), torch.full_like(acc, float("nan")),
+                torch.full_like(counts, -1))
+    att._launch("flash_bwd", "flash_bwd_prep", (o, do, *poisoned), False)
+    torch.cuda.synchronize()
+    want, want_acc, want_counts = attention_bwd_prep_plain(o, do)
+    assert acc.shape == want_acc.shape and acc.dtype == torch.float32
+    assert counts.shape == want_counts.shape and counts.dtype == torch.int32
+    torch.testing.assert_close(delta, want, atol=1e-3, rtol=0)
+    for x in (acc, counts, *poisoned[1:]):
+        assert not bool((x != 0).any())
+    assert torch.equal(alone, delta) and torch.equal(poisoned[0], delta)
+
+
+def test_fused_backward_is_repeatable_over_poisoned_memory(cuda_device):
+    """The fused bf16 backward takes its accumulator and counters from
+    ``torch.empty`` and the prep clears them: run after the caching
+    allocator's free blocks were filled with NaN, it gives the same bits as
+    before, and those of a run on a fresh accumulator cleared by
+    ``torch.zeros`` (``flash_attention_bwd_rows`` with that ``dq_acc``)."""
+    import importlib
+
+    att = importlib.import_module("ray_tpu_torch.ops.attention")
+    for case in ((1, 1000, 16, 8, 128), (4, 2048, 16, 8, 128),
+                 (2, 200, 16, 16, 64)):
+        q, k, v, do = _bwd_inputs(cuda_device, torch.bfloat16, case, seed=6)
+        o, lse = flash_attention_fwd(q, k, v, True)
+        first = flash_attention_bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        junk = torch.full((8 * q.numel(),), float("nan"), device=cuda_device)
+        del junk  # its block goes back to the allocator, NaN inside
+        again = flash_attention_bwd(q, k, v, o, lse, do, True)
+        delta = att.attention_delta(o, do)
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=cuda_device)
+        rows = att.flash_attention_bwd_rows(q, k, v, do, lse, delta, True,
+                                            acc)
+        rows = (rows[0].to(q.dtype), *rows[1:])
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, again, rows):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_delta_kernel_matches_plain(cuda_device, dtype):
-    """Delta = rowsum(dO * O) from ``flash_bwd_delta`` against the plain
-    expression: both sum exact products in fp32, in other orders."""
+    """Delta = rowsum(dO * O) from ``flash_bwd_prep`` without the
+    accumulator (``attention_delta``) against the plain expression: both
+    sum exact products in fp32, in other orders."""
     for case in BWD_CASES:
         q, _, _, do = _bwd_inputs(cuda_device, dtype, case, seed=4)
-        before = attention_delta.launches
+        before = attention_bwd_prep.launches
         got = attention_delta(q, do)
-        assert attention_delta.launches == before + 1
+        assert attention_bwd_prep.launches == before + 1
         want = attention_delta_plain(q, do)
         assert got.dtype == torch.float32 and got.shape == want.shape
         torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
@@ -283,14 +362,23 @@ def test_backward_kernels_reject_what_they_cannot_run(cuda_device):
         flash_attention_bwd_dq(q, q, q, q, lse.double(), delta, True)
     with pytest.raises(ValueError, match="delta"):
         flash_attention_bwd_dkv(q, q, q, q, lse, delta.t(), True)
-    # the fused bf16 backward checks before it launches anything
-    before = flash_attention_bwd.launches, attention_delta.launches
+    # the fused bf16 backward checks every input before it launches
+    # anything, the prep included
+    before = flash_attention_bwd.launches, attention_bwd_prep.launches
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(big, big, big, big, lse, big, True)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, q, q, q, lse.double(), q, True)
+    # an o whose base is 2 bytes off: the prep's check
+    bad_o = torch.empty(1 + q.numel(), device=cuda_device,
+                        dtype=q.dtype)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        flash_attention_bwd(q, q, q, bad_o, lse, q, True)
+    # bf16 rows without the caller's zeroed accumulator
+    with pytest.raises(ValueError, match="dq_acc"):
+        flash_attention_bwd_rows(q, q, q, q, lse, delta, True)
     assert flash_attention_bwd.launches == before[0]
-    assert attention_delta.launches == before[1] + 1  # the lse case's Delta
+    assert attention_bwd_prep.launches == before[1]
 
 
 def test_attention_grads_on_the_card_flow_through_the_kernels(cuda_device):
@@ -303,7 +391,7 @@ def test_attention_grads_on_the_card_flow_through_the_kernels(cuda_device):
     q, k, v = (torch.randn(2, 128, h, 64, generator=gen, device=cuda_device)
                .requires_grad_() for h in (4, 2, 2))
     do = torch.randn(2, 128, 4, 64, generator=gen, device=cuda_device)
-    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd_dq,
+    counters = (flash_attention_fwd, attention_bwd_prep, flash_attention_bwd_dq,
                 flash_attention_bwd_dkv, flash_attention_bwd)
     before = [c.launches for c in counters]
     got = torch.autograd.grad(attention(q, k, v, True, "auto"), (q, k, v), do)
@@ -334,7 +422,7 @@ def test_train_step_through_kernels_matches_plain(cuda_device):
         params, opt = bundle.init(seed=0)
         batch = bundle.make_batch(np.random.default_rng(0), 4, 96)
         counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                    attention_delta, flash_attention_bwd)
+                    attention_bwd_prep, flash_attention_bwd)
         before = [c.launches for c in counters]
         losses = []
         for _ in range(3):
@@ -405,7 +493,7 @@ def test_moe_train_step_through_kernels_matches_plain(cuda_device):
                               n_kv_heads=2, dtype=torch.float32, remat=True)
     opt_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
     counters = (flash_attention_fwd, flash_attention_bwd_dq,
-                attention_delta, flash_attention_bwd)
+                attention_bwd_prep, flash_attention_bwd)
     runs = {}
     for impl in ("auto", "xla"):
         bundle = TrainStepBundle(dataclasses.replace(cfg, attention_impl=impl),
@@ -462,7 +550,7 @@ def test_vit_through_the_full_attention_kernels_matches_plain(cuda_device,
     plain = VisionTransformer(dataclasses.replace(cfg, attention_impl="xla"),
                               device=cuda_device,
                               params=dict(model.named_parameters()))
-    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd,
+    counters = (flash_attention_fwd, attention_bwd_prep, flash_attention_bwd,
                 flash_attention_bwd_dq, flash_attention_bwd_dkv)
     out = {}
     for name, m in (("kernel", model), ("plain", plain)):
@@ -522,8 +610,6 @@ def test_backward_from_row_stats_adds_dq_into_one_buffer(cuda_device,
     additions of key tiles' shares rounds by 2^-24 of a running sum no
     larger than M = |dS| |K| of the two blocks; dK and dV are the block's
     own, bit for bit."""
-    from ray_tpu_torch.ops.attention import flash_attention_bwd_rows
-
     gen = torch.Generator(device="cuda").manual_seed(8)
     q, k1, v1, k2, v2, do = (torch.randn(2, 256, 4, 128, generator=gen,
                                          device="cuda", dtype=dtype)
@@ -641,7 +727,7 @@ def test_block_on_two_tensor_ranks_on_the_card(cuda_device):
     x.requires_grad_()
     pos = torch.arange(256, device="cuda")[None].expand(2, 256)
     ranks = [chip_smoke.tp_rank_modules(block, T, t) for t in range(T)]
-    counters = (flash_attention_fwd, attention_delta, flash_attention_bwd)
+    counters = (flash_attention_fwd, attention_bwd_prep, flash_attention_bwd)
     before = [c.launches for c in counters]
     out, got = chip_smoke.tp_block_grads(block, ranks, x, pos, dout)
     torch.cuda.synchronize()
@@ -927,7 +1013,7 @@ def test_two_stage_pipeline_on_the_card_runs_the_kernels(cuda_device):
     assert all(np.isfinite(s["loss"]) for s in stats)
     assert stats[0]["activation_bytes_per_mb"] == 2 * 128 * 128 * 2  # bf16
     for got in launches:
-        for k in ("flash_attention_fwd", "attention_delta",
+        for k in ("flash_attention_fwd", "attention_bwd_prep",
                   "flash_attention_bwd"):
             assert got[k] > 0, launches
 
@@ -995,7 +1081,7 @@ def test_two_trial_sweep_of_the_1b_on_the_card(cuda_device):
             learning_rate=config["lr"], warmup_steps=1))
         params, opt = bundle.init(seed=0)
         batch = bundle.make_batch(np.random.default_rng(0), 2, 512)
-        counters = (att.flash_attention_fwd, att.attention_delta,
+        counters = (att.flash_attention_fwd, att.attention_bwd_prep,
                     att.flash_attention_bwd)
         for c in counters:
             c.launches = 0
